@@ -1,0 +1,21 @@
+"""qwen2.5-32b [dense]: 64L d_model=5120 40H (GQA kv=8) d_ff=27648
+vocab=152064 — GQA, QKV bias [hf:Qwen/Qwen2.5-0.5B; hf]."""
+from repro_torch.models.common import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-32b", family="dense", n_layers=64, d_model=5120,
+        n_heads=40, n_kv_heads=8, d_head=128, d_ff=27648, vocab_size=152064,
+        qkv_bias=True, act="swiglu", norm="rmsnorm", rope=True,
+        rope_theta=1e6,
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-32b-smoke", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, d_head=16, d_ff=128, vocab_size=256,
+        qkv_bias=True, act="swiglu", norm="rmsnorm", rope=True,
+        attn_chunk=16, remat="none",
+    )

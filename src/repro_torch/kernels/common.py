@@ -1,0 +1,40 @@
+"""Device resolution shared by every entry point and kernel dispatch.
+
+``resolve_device(None)`` is the CUDA device; a missing CUDA device raises
+instead of falling back to the CPU, which only an explicit
+``device="cpu"`` selects (the tests do). ``resolve_decode_attn("auto")``
+picks the hand-written TDA kernels on a CUDA device and the plain dense
+path on the CPU, as the reference picks its Pallas kernels on a TPU.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["resolve_device", "resolve_decode_attn"]
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` -> ``cuda``; raises when CUDA is asked for (explicitly or
+    by default) and no CUDA device exists. Never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on an NVIDIA GPU "
+            "by default; pass device='cpu' explicitly to run the plain "
+            "PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def resolve_decode_attn(mode: str, device: torch.device) -> str:
+    """``auto`` -> ``tda`` on a CUDA device, ``dense`` on the CPU (there
+    the TDA wrappers would run their plain versions anyway)."""
+    if mode == "auto":
+        return "tda" if torch.device(device).type == "cuda" else "dense"
+    if mode not in ("dense", "tda"):
+        raise ValueError(f"unknown decode_attn mode {mode!r}")
+    return mode

@@ -1,0 +1,115 @@
+"""Public TDA ops over paged slot lanes (``repro.kernels.tda.ops``, paged
+branches only): bound preparation, the paged addressing helpers, and the
+choice between the kernel wrappers and the dense reference."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.tda.ref import (
+    decode_attention_reference,
+    mixed_attention_reference,
+)
+from repro_torch.kernels.tda.tda import (
+    tda_mixed_attention,
+    tda_paged_decode_attention,
+)
+
+__all__ = ["fused_decode_attention", "fused_mixed_attention",
+           "gather_paged_lanes", "paged_flat_positions"]
+
+
+def paged_flat_positions(block_table: torch.Tensor,
+                         page_size: int) -> torch.Tensor:
+    """``(R, n) -> (R, n * page_size)``: lane position ``p`` of row ``r``
+    lives at flat pool position ``bt[r, p // page_size] * page_size + p %
+    page_size``. ``FREE == num_pages`` entries land at ``>= num_pages *
+    page_size``: gathers clamp them, writes drop them."""
+    R, n = block_table.shape
+    off = torch.arange(page_size, device=block_table.device)
+    return (block_table.long()[:, :, None] * page_size
+            + off[None, None, :]).reshape(R, n * page_size)
+
+
+def gather_paged_lanes(pool: torch.Tensor,
+                       block_table: torch.Tensor) -> torch.Tensor:
+    """``(P, page_size, ...) + (B, n) -> (B, n * page_size, ...)`` lane
+    views; sentinel entries clamp into range (their garbage sits beyond
+    every valid bound)."""
+    P, ps = pool.shape[0], pool.shape[1]
+    flat = pool.reshape((P * ps,) + tuple(pool.shape[2:]))
+    pos = torch.clamp(paged_flat_positions(block_table, ps), 0, P * ps - 1)
+    return flat[pos]
+
+
+def fused_decode_attention(
+    q: torch.Tensor,        # (B, 1, Hq, D) or (B, Hq, D)
+    k: torch.Tensor,        # (P, page_size, Hkv, D) page pool
+    v: torch.Tensor,
+    lengths,                # scalar or (B,): valid lane depth per slot
+    *,
+    block_table: torch.Tensor,  # (B, n)
+    window: Optional[int] = None,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Length-predicated decode attention over paged lanes: positions
+    ``[max(0, lengths - window), lengths)`` are attended, slots with
+    ``lengths <= 0`` return zeros. Output has ``q``'s shape and dtype."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    if not use_kernel:
+        out = decode_attention_reference(
+            q, gather_paged_lanes(k, block_table),
+            gather_paged_lanes(v, block_table), lengths, window=window)
+    else:
+        B = q.shape[0]
+        S = block_table.shape[1] * k.shape[1]  # logical lane width
+        hi = torch.clamp(torch.as_tensor(lengths, device=q.device)
+                         .reshape(-1).expand(B), 0, S)
+        lo = torch.zeros_like(hi) if window is None \
+            else torch.clamp(hi - window, min=0)
+        bounds = torch.stack([lo, hi], dim=1).to(torch.int32)
+        out = tda_paged_decode_attention(
+            q.contiguous(), k, v, bounds,
+            block_table.to(torch.int32).contiguous())
+    out = out.to(q.dtype)
+    return out[:, None] if squeeze else out
+
+
+def fused_mixed_attention(
+    q: torch.Tensor,        # (B, S, Hq, D) chunk queries, left-aligned
+    k: torch.Tensor,        # (P, page_size, Hkv, D) PRE-write page pool
+    v: torch.Tensor,
+    k_row: torch.Tensor,    # (B, S, Hkv, D) this chunk's keys
+    v_row: torch.Tensor,
+    cache_index,            # (B,)
+    n_new,                  # (B,)
+    *,
+    block_table: torch.Tensor,
+    ring: int,
+    window: Optional[int] = None,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Mixed-step attention over paged lanes (masks pinned by
+    :func:`~repro_torch.kernels.tda.ref.mixed_attention_reference`).
+    Returns ``(B, S, Hq, D)`` in ``q.dtype``; only columns ``j < n_new``
+    are meaningful."""
+    B = q.shape[0]
+    ci = torch.as_tensor(cache_index, device=q.device).reshape(-1) \
+        .to(torch.int32).expand(B)
+    nn = torch.as_tensor(n_new, device=q.device).reshape(-1) \
+        .to(torch.int32).expand(B)
+    if not use_kernel:
+        out = mixed_attention_reference(
+            q, gather_paged_lanes(k, block_table),
+            gather_paged_lanes(v, block_table), k_row, v_row, ci, nn,
+            ring=ring, window=window)
+    else:
+        bounds = torch.stack([ci, nn], dim=1).contiguous()
+        out = tda_mixed_attention(
+            q.contiguous(), k, v, k_row.contiguous(), v_row.contiguous(),
+            bounds, block_table.to(torch.int32).contiguous(), ring=ring,
+            window=window)
+    return out.to(q.dtype)

@@ -1,0 +1,155 @@
+"""TDA attention kernels: wrappers over the hand-written CUDA kernels.
+
+``tda_paged_decode_attention`` and ``tda_mixed_attention`` take the same
+arguments as the reference's Pallas kernels (``repro.kernels.tda.tda``).
+On CUDA tensors they launch the kernels built from ``kernels/csrc/``
+(``tda_paged_decode.cu``, ``tda_mixed.cu``) on the current stream, or
+raise: there is no fallback. On CPU tensors they run the kernels' plain
+PyTorch versions, the oracle of ``ref.py`` over gathered lanes, which is
+also what the kernels are held against on the card.
+
+``LAUNCHES`` counts kernel launches (plain-version calls are not counted),
+so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.tda.ref import (
+    decode_attention_reference,
+    mixed_attention_reference,
+)
+
+__all__ = ["tda_paged_decode_attention", "tda_mixed_attention", "LAUNCHES",
+           "reset_launch_counts"]
+
+LAUNCHES = {"tda_paged_decode_attention": 0, "tda_mixed_attention": 0}
+MAX_GROUP = 8     # query rows per kv head the decode kernel holds
+MAX_HEAD_DIM = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _gather(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    # Local import: ops imports this module for the wrappers.
+    from repro_torch.kernels.tda.ops import gather_paged_lanes
+    return gather_paged_lanes(pool, bt)
+
+
+def _check(name: str, tensors, fp, ints) -> int:
+    """Device / dtype / contiguity checks shared by both wrappers; returns
+    the kernel's dtype code."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on {dev}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    dts = {t.dtype for t in fp}
+    if len(dts) != 1 or next(iter(dts)) not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q/k/v must share one dtype of "
+                        f"{sorted(map(str, _DTYPE_CODE))}, got {dts}")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: bounds and block_table must be int32")
+    return _DTYPE_CODE[next(iter(dts))]
+
+
+def _heads(name: str, Hq: int, Hkv: int, D: int, max_group: int) -> None:
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if Hq // Hkv > max_group or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: needs Hq/Hkv <= {max_group} and head "
+                         f"dim <= {MAX_HEAD_DIM}, got G={Hq // Hkv}, D={D}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def tda_paged_decode_attention(q, k, v, bounds, block_table) -> torch.Tensor:
+    """Paged slot-decode attention. q (B, Hq, D); k/v page pools (P,
+    page_size, Hkv, D) fp; bounds (B, 2) int32 ``[lo, hi)`` in logical
+    lane coordinates; block_table (B, n) int32 (entries are clamped to
+    ``[0, P-1]``; those outside ``[lo, hi)`` are never read). Returns
+    (B, Hq, D) f32, zeros where ``hi <= lo``."""
+    if q.device.type == "cpu":
+        lo, hi = bounds[:, 0:1].long(), bounds[:, 1:2].long()
+        out = decode_attention_reference(
+            q, _gather(k, block_table), _gather(v, block_table), hi,
+            window=hi - lo)
+        return torch.where((hi > lo)[:, :, None], out, 0.0)
+    name = "tda_paged_decode_attention"
+    code = _check(name, (q, k, v, bounds, block_table), (q, k, v),
+                  (bounds, block_table))
+    B, Hq, D = q.shape
+    P, ps, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[3] != D or bounds.shape != (B, 2) \
+            or block_table.shape[0] != B:
+        raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
+                         f"{tuple(bounds.shape)} bt{tuple(block_table.shape)}")
+    _heads(name, Hq, Hkv, D, MAX_GROUP)
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    from repro_torch.kernels.build import load
+    fn = load("tda_paged_decode").tda_paged_decode
+    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       bounds.data_ptr(), block_table.data_ptr(),
+                       out.data_ptr(), B, Hq, Hkv, D, P, ps,
+                       block_table.shape[1], code, 1.0 / math.sqrt(D),
+                       torch.cuda.current_stream(q.device).cuda_stream))
+    LAUNCHES[name] += 1
+    return out
+
+
+def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table, *,
+                        ring: int, window: Optional[int] = None
+                        ) -> torch.Tensor:
+    """Mixed-step attention over a paged pool. q (B, S, Hq, D); k/v page
+    pools (P, page_size, Hkv, D); k_row/v_row (B, S, Hkv, D); bounds (B,
+    2) int32 ``[cache_index, n_new]``; block_table (B, n) int32; ``ring``
+    the logical lane width. Returns (B, S, Hq, D) f32; rows with no key
+    (``ci == 0`` and ``n_new == 0``) are zeros. Columns ``j >= n_new``
+    are never read by the caller: the kernel writes them as zeros (so the
+    projections after attention see finite values), the CPU path leaves
+    the oracle's values there."""
+    if ring < 1:
+        raise ValueError(f"tda_mixed_attention: ring must be >= 1, got {ring}")
+    if q.device.type == "cpu":
+        return mixed_attention_reference(
+            q, _gather(k, block_table), _gather(v, block_table), k_row,
+            v_row, bounds[:, 0], bounds[:, 1], ring=ring, window=window)
+    name = "tda_mixed_attention"
+    code = _check(name, (q, k, v, k_row, v_row, bounds, block_table),
+                  (q, k, v, k_row, v_row), (bounds, block_table))
+    B, S, Hq, D = q.shape
+    P, ps, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[3] != D \
+            or k_row.shape != (B, S, Hkv, D) or v_row.shape != k_row.shape \
+            or bounds.shape != (B, 2) or block_table.shape[0] != B:
+        raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} k_row{tuple(k_row.shape)} "
+                         f"bounds{tuple(bounds.shape)} "
+                         f"bt{tuple(block_table.shape)}")
+    _heads(name, Hq, Hkv, D, Hq)
+    out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    from repro_torch.kernels.build import load
+    fn = load("tda_mixed").tda_mixed
+    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       k_row.data_ptr(), v_row.data_ptr(), bounds.data_ptr(),
+                       block_table.data_ptr(), out.data_ptr(), B, S, Hq, Hkv,
+                       D, P, ps, block_table.shape[1], ring,
+                       0 if window is None else int(window), code,
+                       1.0 / math.sqrt(D),
+                       torch.cuda.current_stream(q.device).cuda_stream))
+    LAUNCHES[name] += 1
+    return out

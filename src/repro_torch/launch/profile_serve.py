@@ -1,0 +1,180 @@
+"""Where the time goes in the full-width serve: the workload of
+``chip_smoke.py``'s serve phase under ``torch.profiler``.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Builds the serve configuration that ``chip_smoke.py``'s serve phase
+shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
+published widths, depth cut to 8 layers, random weights from seed 0),
+serves :func:`workload` once to warm up, once plainly and once under the
+profiler, and prints one JSON object: for each step kind (mixed, decode)
+the step count, the mean host wall per step with and without the
+profiler, the mean device-busy time per step (union of kernel intervals)
+and its split by kernel category, and the device's idle share against the
+unprofiled host step time (the profiler itself slows the host). Kernels
+are assigned to the step whose host range contains their start: every
+step ends in a host sync, so its kernels finish inside its range. Needs a
+CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["ENGINE_KW", "serve_config", "workload", "main"]
+
+# The full-width serve's engine settings (besides ``prefix_share=False``):
+# paged lanes of 128-token pages and mixed steps of chunk width 256.
+ENGINE_KW = dict(max_len=256, max_new_tokens=32, num_slots=8)
+
+_CATEGORIES = (
+    ("tda_paged_decode", ("paged_decode_kernel",)),
+    ("tda_mixed", ("mixed_kernel",)),
+    ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
+    ("gather_scatter_copy", ("index", "gather", "scatter", "copy", "memcpy",
+                             "memset", "cat")),
+)
+
+
+def serve_config():
+    """qwen2.5-32b at its published widths, depth cut from 64 to 8 layers."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2.5-32b", "full", n_layers=8)
+
+
+def workload(vocab: int, max_new: int, seed: int = 0):
+    """The full-width serve workload: a warm-up request, then 16 greedy
+    requests with prompt lengths drawn in [32, 512] — 8 submitted up front,
+    8 arriving at ticks 4, 7, ..., 25. Returns ``(warmup, up_front,
+    arrivals, prompt_lengths)``."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    warm = Request(rid=-1, prompt=rng.integers(0, vocab, size=40)
+                   .astype(np.int32), max_new_tokens=4)
+    lengths = rng.integers(32, 513, size=16)
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, size=int(n))
+                    .astype(np.int32), max_new_tokens=max_new)
+            for i, n in enumerate(lengths)]
+    arrivals = [(4 + 3 * i, r) for i, r in enumerate(reqs[8:])]
+    return warm, reqs[:8], arrivals, lengths
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in _CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise_other"
+
+
+def _union(iv: List[Tuple[float, float]]) -> float:
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(iv):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def main():
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg, kw = serve_config(), ENGINE_KW
+    model = Model(cfg)
+    params = model.init(seed=0)
+    eng = Engine(model, params, config=EngineConfig(prefix_share=False, **kw))
+    del params
+    warm, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+    eng.submit(warm)
+    eng.run()
+    # One run without the profiler: its host step times are the baseline
+    # (the profiler's own host overhead inflates the profiled ones).
+    _, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+    for r in up_front:
+        eng.submit(r)
+    eng.run(arrivals=arrivals)
+    plain_ms = {k: float(np.mean(v))
+                for k, v in eng.decode_stats["step_ms"].items()}
+    _, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+
+    for kind in ("mixed", "decode"):
+        fn = getattr(eng, f"_run_{kind}")
+
+        def wrapped(*a, _fn=fn, _name=f"serve.{kind}_step"):
+            with record_function(_name):
+                return _fn(*a)
+        setattr(eng, f"_run_{kind}", wrapped)
+    for r in up_front:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = eng.run(arrivals=arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    # Host ranges of the steps; device kernels (the profiler also mirrors
+    # each record_function range onto the device timeline: skip those).
+    steps = [(e.name.split(".")[1].split("_")[0], e.time_range.start,
+              e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name in ("serve.mixed_step", "serve.decode_step")]
+    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("serve.")]
+    steps.sort(key=lambda s: s[1])
+    starts = np.array([s[1] for s in steps])
+    per: Dict[str, dict] = {}
+    for kind in ("mixed", "decode"):
+        per[kind] = {"steps": 0, "host_ms": 0.0, "by_category_ms": {},
+                     "intervals": []}
+    for kind, a, b in steps:
+        per[kind]["steps"] += 1
+        per[kind]["host_ms"] += (b - a) / 1e3
+    for name, a, b in kernels:
+        i = int(np.searchsorted(starts, a, side="right")) - 1
+        if i < 0 or a > steps[i][2]:
+            continue  # outside any step (e.g. admission-time table copies)
+        p = per[steps[i][0]]
+        cat = _category(name)
+        p["by_category_ms"][cat] = p["by_category_ms"].get(cat, 0.0) \
+            + (b - a) / 1e3
+        p["intervals"].append((a, b))
+    out = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "device": torch.cuda.get_device_name(0),
+           "requests": len(done), "wall_s": wall,
+           "kernel_events": len(kernels)}
+    busy_all = _union([(a, b) for _, a, b in kernels]) / 1e3
+    out["device_busy_s"] = busy_all / 1e3
+    out["idle_share"] = 1.0 - busy_all / 1e3 / wall
+    for kind, p in per.items():
+        n = max(p["steps"], 1)
+        busy = _union(p.pop("intervals")) / 1e3
+        out[kind] = {"steps": p["steps"],
+                     "host_ms_per_step_profiled": p["host_ms"] / n,
+                     "host_ms_per_step_unprofiled": plain_ms[kind],
+                     "device_busy_ms_per_step": busy / n,
+                     "idle_share_vs_unprofiled": 1.0 - busy / n
+                     / max(plain_ms[kind], 1e-9),
+                     "by_category_ms_per_step": {
+                         k: v / n for k, v in sorted(
+                             p["by_category_ms"].items())}}
+    top = {}
+    for name, a, b in kernels:
+        top[name[:96]] = top.get(name[:96], 0.0) + (b - a) / 1e3
+    out["top_kernels_ms"] = dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                 [:12])
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,208 @@
+"""Shared neural layers (``repro.models.layers``, the serving-path parts):
+norms, RoPE, the paged attention block (mixed step and decode), the dense
+decode attention, the SwiGLU FFN, embeddings and logits.
+
+Layouts match the reference at every public function: ``w`` is ``(d_in,
+d_out)``, activations ``(B, S, d)``, queries ``(B, S, Hq, D)`` and KV page
+pools ``(L, P, page_size, Hkv, D)``. Unlike the reference's pure
+functions, the attention block writes this step's K/V into the page pool
+**in place** (the pool is the engine's only copy of the cache).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.factorized import apply_linear
+from repro_torch.kernels.common import resolve_decode_attn
+from repro_torch.kernels.tda.ops import (
+    fused_decode_attention,
+    fused_mixed_attention,
+    gather_paged_lanes,
+)
+from repro_torch.models.common import ModelConfig
+
+NEG_INF = -1e30
+
+__all__ = ["apply_norm", "rope_tables", "apply_rope", "decode_attention",
+           "attention_block", "ffn_block", "embed_tokens", "lm_logits",
+           "NEG_INF"]
+
+
+def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (or LayerNorm when ``p`` has a bias) in f32, ``* scale``
+    (no ``1 +``), cast back to ``x.dtype``."""
+    xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer positions: ``(..., dim // 2)`` f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (B, S, D // 2). Rotates interleaved
+    (even, odd) pairs — not the half-split ``rotate_half`` layout."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_index) -> torch.Tensor:
+    """Dense single-token attention (``layers.decode_attention``'s jnp
+    path): q (B, 1, Hq, D) against contiguous lanes (B, S, Hkv, D), valid
+    positions ``< cache_index``. Rows with no valid position get the
+    masked softmax's uniform average, as in the reference; the engine
+    discards them."""
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    idx = torch.as_tensor(cache_index, device=q.device).reshape(-1, 1)
+    valid = pos[None, :] < idx
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _write_pool(pool: torch.Tensor, phys: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``pool.view(P * ps, ...)[phys] = new`` for in-range ``phys`` only:
+    out-of-range entries (inactive rows, unwritten columns, the FREE
+    sentinel) are dropped, as the reference's ``mode="drop"`` scatter
+    drops them (``index_put_`` would raise instead)."""
+    P, ps = pool.shape[0], pool.shape[1]
+    flat = pool.view((P * ps,) + tuple(pool.shape[2:]))
+    keep = (phys >= 0) & (phys < P * ps)
+    flat[phys[keep]] = new[keep].to(pool.dtype)
+
+
+def attention_block(
+    p: Dict,
+    x: torch.Tensor,                  # (B, S, d)
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,          # (B, S) absolute positions (RoPE)
+    cache: Dict[str, torch.Tensor],   # {"k","v"}: (L, P, ps, Hkv, D) pools
+    layer_idx: int,
+    cache_index: torch.Tensor,        # (B,) int32 tokens resident per row
+    pages: Dict,                      # {"bt": (B, n), "width", "page_size"}
+    slot_mask: Optional[torch.Tensor] = None,  # (B,) bool writable rows
+    n_new: Optional[torch.Tensor] = None,      # (B,): mixed step
+) -> torch.Tensor:
+    """GQA attention with RoPE over paged lanes, for the two serving
+    steps: the **mixed step** (``n_new`` given: row b's columns ``[0,
+    n_new[b])`` are fresh tokens at ``[cache_index, cache_index + n_new)``;
+    queries attend the PRE-write lane plus the causal in-row chunk, and
+    only then does the chunk scatter into the pool) and the **paged decode
+    step** (S == 1: the token is written first, then attended)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    dt = cfg.compute_dtype
+
+    def lin(name, inp):
+        return apply_linear(p[name], inp).to(dt)
+
+    q = lin("wq", x).reshape(B, S, cfg.n_heads, hd)
+    k = lin("wk", x).reshape(B, S, cfg.kv_heads, hd)
+    v = lin("wv", x).reshape(B, S, cfg.kv_heads, hd)
+    if cfg.rope:
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    ps = pages["page_size"]
+    ringw = pages["width"]
+    bt = pages["bt"]
+    kpool, vpool = cache["k"][layer_idx], cache["v"][layer_idx]
+    P = kpool.shape[0]
+    impl = resolve_decode_attn(cfg.decode_attn, x.device)
+    ci = cache_index.reshape(-1).to(torch.int64)
+    if n_new is not None:
+        nn = n_new.reshape(-1).to(torch.int64)
+        if slot_mask is not None:
+            sm = slot_mask.reshape(-1)
+            ci = torch.where(sm, ci, 0)
+            nn = torch.where(sm, nn, 0)  # inert row: attends, writes nothing
+        o = fused_mixed_attention(q, kpool, vpool, k, v, ci, nn,
+                                  block_table=bt, ring=ringw,
+                                  use_kernel=impl == "tda")
+        o = o.reshape(B, S, cfg.n_heads * hd)
+        # Chunk scatter AFTER attention: token j lands at lane position
+        # (ci + j) % ringw; only the last min(n_new, ringw) columns write
+        # (earlier columns of a wrapping chunk alias the same position).
+        cols = torch.arange(S, device=x.device)[None, :]
+        lanepos = (ci[:, None] + cols) % ringw
+        wvalid = (cols < nn[:, None]) & (cols >= nn[:, None] - ringw)
+        page = torch.gather(bt.long(), 1, lanepos // ps)
+        phys = torch.where(wvalid, page * ps + lanepos % ps, P * ps)
+        _write_pool(kpool, phys.reshape(-1), k.reshape(B * S, *k.shape[2:]))
+        _write_pool(vpool, phys.reshape(-1), v.reshape(B * S, *v.shape[2:]))
+    else:
+        if S != 1:
+            raise ValueError("paged decode takes one token per row")
+        page = torch.gather(bt.long(), 1, (ci // ps)[:, None])[:, 0]
+        phys = page * ps + ci % ps
+        if slot_mask is not None:
+            phys = torch.where(slot_mask.reshape(-1), phys, P * ps)
+            ci = torch.where(slot_mask.reshape(-1), ci, -1)
+        _write_pool(kpool, phys, k[:, 0])
+        _write_pool(vpool, phys, v[:, 0])
+        hi = ci + 1  # inactive rows: hi == 0, nothing attended
+        if impl == "tda":
+            o = fused_decode_attention(q, kpool, vpool, hi, block_table=bt)
+        else:
+            o = decode_attention(q, gather_paged_lanes(kpool, bt),
+                                 gather_paged_lanes(vpool, bt), hi)
+        o = o.reshape(B, S, cfg.n_heads * hd)
+    return apply_linear(p["wo"], o).to(dt)
+
+
+def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU FFN: ``w_down(silu(w_gate x) * w_up x)``."""
+    dt = cfg.compute_dtype
+    if cfg.act != "swiglu":
+        raise ValueError(f"only the swiglu FFN is ported, got {cfg.act!r}")
+    up = apply_linear(p["w_up"], x).to(dt)
+    h = F.silu(apply_linear(p["w_gate"], x).to(dt)) * up
+    return apply_linear(p["w_down"], h).to(dt)
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(cfg.compute_dtype)
+
+
+def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits ``x @ w`` (tied: ``x @ tok.T``)."""
+    xf = x.float()
+    if cfg.tie_embeddings:
+        return xf @ p_embed["tok"].float().T
+    return xf @ p_head["w"].float()

@@ -1,0 +1,242 @@
+"""The composable model (``repro.models.transformer``): embeds -> block
+stack -> norm -> logits, for uniform dense attention stacks.
+
+The reference's ``lax.scan`` over layers is a Python loop here. Parameters
+are nested dicts of tensors in the reference's layout (uniform stacks carry
+a leading L axis on ``params["layers"]``), so ``models/bridge.py`` can hand
+over a reference ``Model.init`` tree unchanged. ``Model.init`` draws its
+own weights from a ``torch.Generator``; they cannot match the reference's
+numbers, so every parity test uses bridged parameters.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.common import ModelConfig
+
+__all__ = ["Model", "check_supported"]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what this slice of the port does not serve, naming the slice
+    (ROADMAP Queue 1) that brings it."""
+    if cfg.family != "dense" or cfg.moe is not None \
+            or cfg.layer_pattern is not None or cfg.ssm is not None:
+        raise UnsupportedConfigError(
+            f"{cfg.name}: only dense attention stacks are ported; the "
+            f"{cfg.family!r} family comes with a later slice (ROADMAP "
+            "Queue 1 item 10, other families)")
+    if cfg.external_embeddings or cfg.n_codebooks != 1:
+        raise UnsupportedConfigError(
+            f"{cfg.name}: external embeddings / multi-codebook logits come "
+            "with a later slice (ROADMAP Queue 1 item 10)")
+    if cfg.sliding_window is not None:
+        raise UnsupportedConfigError(
+            f"{cfg.name}: sliding-window ring lanes come with a later slice "
+            "(ROADMAP Queue 1 item 8)")
+    if cfg.act != "swiglu" or cfg.norm != "rmsnorm" or cfg.learned_pos:
+        raise UnsupportedConfigError(
+            f"{cfg.name}: only the rmsnorm + swiglu + RoPE block is ported "
+            f"(got act={cfg.act!r}, norm={cfg.norm!r}); the others come "
+            "with a later slice (ROADMAP Queue 1 item 3)")
+    if cfg.factorization.enabled or cfg.weight_format != "dense":
+        raise UnsupportedConfigError(
+            f"{cfg.name}: factorized / compressed weights come with a later "
+            "slice (ROADMAP Queue 1 item 9)")
+    if cfg.kv_quant:
+        raise UnsupportedConfigError(
+            f"{cfg.name}: int8 kv_quant lanes come with a later slice "
+            "(ROADMAP Queue 1 item 7)")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig,
+                 device: Optional[Union[str, torch.device]] = None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def with_decode_attn(self, mode: str,
+                         block_k: Optional[int] = None) -> "Model":
+        """Same model, another decode-attention impl (``dense``/``tda``/
+        ``auto``) and optional predication-block size."""
+        block_k = block_k or self.cfg.decode_block_k
+        if mode == self.cfg.decode_attn and block_k == self.cfg.decode_block_k:
+            return self
+        return Model(dataclasses.replace(self.cfg, decode_attn=mode,
+                                         decode_block_k=block_k),
+                     self.device)
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+
+    def init(self, seed: int = 0) -> Dict:
+        """Random parameters in the reference's layout and distributions
+        (``w ~ N(0, 1/d_in)``, zero biases, unit norm scales, embeddings
+        ``N(0, 0.02^2)``, head ``N(0, 1/d)``), drawn on ``self.device``
+        from a ``torch.Generator`` seeded with ``seed``."""
+        cfg = self.cfg
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        dt, dev, Ln = cfg.params_dtype, self.device, cfg.n_layers
+        d, hd = cfg.d_model, cfg.head_dim
+
+        def normal(shape, std):
+            return torch.empty(shape, dtype=dt, device=dev).normal_(
+                0.0, std, generator=g)
+
+        def linear(d_in, d_out, bias=False):
+            p = {"w": normal((Ln, d_in, d_out), 1.0 / math.sqrt(d_in))}
+            if bias:
+                p["b"] = torch.zeros((Ln, d_out), dtype=dt, device=dev)
+            return p
+
+        def ones():
+            return {"scale": torch.ones((Ln, d), dtype=dt, device=dev)}
+
+        qb = cfg.qkv_bias
+        layers = {
+            "norm1": ones(),
+            "attn": {"wq": linear(d, cfg.n_heads * hd, qb),
+                     "wk": linear(d, cfg.kv_heads * hd, qb),
+                     "wv": linear(d, cfg.kv_heads * hd, qb),
+                     "wo": linear(cfg.n_heads * hd, d)},
+            "norm2": ones(),
+            "ffn": {"w_up": linear(d, cfg.d_ff),
+                    "w_down": linear(cfg.d_ff, d),
+                    "w_gate": linear(d, cfg.d_ff)},
+        }
+        params: Dict[str, Any] = {
+            "embed": {"tok": normal((cfg.vocab_size, d), 0.02)},
+            "layers": layers,
+            "final_norm": {"scale": torch.ones((d,), dtype=dt, device=dev)},
+            "lm_head": {} if cfg.tie_embeddings
+            else {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))},
+        }
+        return params
+
+    def prepare(self, params: Dict) -> Dict:
+        """Serving copy of ``params``: layer linear weights/biases and the
+        token embedding in the compute dtype, made once here instead of on
+        every step. At float32 this changes nothing. At bf16 compute over
+        f32 params the port then multiplies in bf16, where the reference's
+        dense ``apply_linear`` multiplies the bf16 activation by the f32
+        weight as an f32 product (and casts the result to bf16): the
+        projections and the FFN round their weights to bf16 first, so
+        their outputs differ from the reference's by that rounding. Norm
+        scales and the LM head stay as they are: the reference computes
+        norms and logits in f32."""
+        dt = self.cfg.compute_dtype
+        out = dict(params)
+        out["layers"] = {
+            "norm1": params["layers"]["norm1"],
+            "norm2": params["layers"]["norm2"],
+            "attn": _tree_map(lambda t: t.to(dt), params["layers"]["attn"]),
+            "ffn": _tree_map(lambda t: t.to(dt), params["layers"]["ffn"]),
+        }
+        if not self.cfg.tie_embeddings:
+            out["embed"] = {"tok": params["embed"]["tok"].to(dt)}
+        return out
+
+    # ------------------------------------------------------------------
+    # caches / steps
+    # ------------------------------------------------------------------
+
+    def _block_ring(self, kind: str, max_len: int) -> int:
+        """Sequence capacity of one attention lane (no window in this
+        slice, so always ``max_len``)."""
+        return max_len
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """Zero contiguous caches ``(L, batch, max_len, Hkv, D)``."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=self.device)}
+
+    def cache_lane_specs(self) -> Dict[str, str]:
+        return {"k": "kv", "v": "kv"}
+
+    def _stack(self, params, x, *, positions, caches, cache_index,
+               slot_mask, pages, n_new):
+        cfg = self.cfg
+        lay = params["layers"]
+        for i in range(cfg.n_layers):
+            lp = _tree_map(lambda t: t[i], lay)
+            h = L.apply_norm(lp["norm1"], x)
+            x = x + L.attention_block(
+                lp["attn"], h, cfg=cfg, positions=positions, cache=caches,
+                layer_idx=i, cache_index=cache_index, pages=pages,
+                slot_mask=slot_mask, n_new=n_new)
+            h2 = L.apply_norm(lp["norm2"], x)
+            x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg)
+        return L.apply_norm(params["final_norm"], x)
+
+    def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg)
+
+    def decode_step(self, params: Dict, batch: Dict, caches,
+                    cache_index: torch.Tensor, *,
+                    slot_mask: Optional[torch.Tensor] = None,
+                    pages: Dict) -> Tuple[torch.Tensor, Any]:
+        """One-token step over paged lanes. batch ``{"inputs": (B, 1)}``;
+        ``cache_index`` (B,) tokens resident per row (the new token is
+        written there); ``slot_mask`` (B,) rows allowed to write; ``pages``
+        ``{"bt": (B, n) int32, "width": lane width, "page_size": int}``.
+        Returns ``(logits (B, 1, V) f32, caches)``; the page pools in
+        ``caches`` are updated in place."""
+        tokens = batch["inputs"]
+        B = tokens.shape[0]
+        ci = cache_index.reshape(-1).to(torch.int64)
+        positions = ci.reshape(-1, 1).expand(B, 1)
+        x = L.embed_tokens(params["embed"], tokens, self.cfg)
+        h = self._stack(params, x, positions=positions, caches=caches,
+                        cache_index=ci, slot_mask=slot_mask, pages=pages,
+                        n_new=None)
+        return self.logits(params, h), caches
+
+    def mixed_hidden(self, params: Dict, batch: Dict, caches,
+                     cache_index: torch.Tensor, n_new: torch.Tensor, *,
+                     slot_mask: Optional[torch.Tensor] = None,
+                     pages: Dict) -> Tuple[torch.Tensor, Any]:
+        """:meth:`mixed_step` up to the final norm: ``(h (B, S, d),
+        caches)``. The engine takes logits only at each row's last fresh
+        column instead of all ``B * S``."""
+        tokens = batch["inputs"]
+        S = tokens.shape[1]
+        ci = cache_index.reshape(-1).to(torch.int64)
+        positions = ci[:, None] + torch.arange(S, device=tokens.device)[None]
+        x = L.embed_tokens(params["embed"], tokens, self.cfg)
+        h = self._stack(params, x, positions=positions, caches=caches,
+                        cache_index=ci, slot_mask=slot_mask, pages=pages,
+                        n_new=n_new.reshape(-1))
+        return h, caches
+
+    def mixed_step(self, params: Dict, batch: Dict, caches,
+                   cache_index: torch.Tensor, n_new: torch.Tensor, *,
+                   slot_mask: Optional[torch.Tensor] = None,
+                   pages: Dict) -> Tuple[torch.Tensor, Any]:
+        """One mixed step: up to ``S`` fresh tokens per row — prefill-chunk
+        rows (``n_new > 1``), decode rows (``n_new == 1``) and inert rows
+        (``n_new == 0``). batch ``{"inputs": (B, S)}`` left-aligned; row b's
+        columns ``[0, n_new[b])`` sit at ``[cache_index[b], cache_index[b] +
+        n_new[b])``. Returns all-position logits ``(B, S, V)`` and the
+        caches (chunk K/V scattered in place after attention)."""
+        h, caches = self.mixed_hidden(params, batch, caches, cache_index,
+                                      n_new, slot_mask=slot_mask, pages=pages)
+        return self.logits(params, h), caches

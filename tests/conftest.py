@@ -10,6 +10,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
