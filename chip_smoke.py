@@ -3,29 +3,44 @@
 
   python3 chip_smoke.py
 
-Phases (one line each; any failure exits nonzero):
+Phases (one line each, with its seconds; any failure exits nonzero):
 
-1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``.
-2. kernels  — each kernel against its plain PyTorch version (the
-              ``kernels/tda/ref.py`` oracle over gathered lanes) on the
-              card: the CPU tests' edge cases at small width (f32 and bf16)
-              and the full-width shapes of phase 4 (bf16); max abs diff
-              <= 1e-3 on the f32 outputs of attended decode rows and live
-              mixed columns, exact zeros from the kernel everywhere else.
-              Times each kernel (L2 flushed before every launch), its plain
-              version, SDPA over the gathered lanes (``library_ms``, a
-              yardstick the port never calls) and its bound (the live work
-              only).
-3. tokens   — float32 qwen2.5 smoke: the Engine on the kernels
-              (``decode_attn="tda"``) gives the plain path's tokens
-              (``decode_attn="dense"``) on the engine test's workload.
+1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``
+              (one nvcc per source, all started together).
+2. kernels  — each kernel against its plain PyTorch version on the card.
+              TDA: the ``kernels/tda/ref.py`` oracle over gathered lanes, on
+              the CPU tests' edge cases at small width (f32 and bf16) and
+              the full-width shapes of phase 4 (bf16); max abs diff <= 1e-3
+              on the f32 outputs of attended decode rows and live mixed
+              columns, exact zeros from the kernel everywhere else. DMM and
+              SMM: the CPU tests' edge cases (f32 and bf16 x) and every
+              linear family of qwen2.5-32b at full width at M = 8 (a decode
+              step) and M = 2048 (a mixed step); max abs diff <= 1e-3 x
+              max(1, max |plain|) (f32 sums in another order over K up to
+              27648). Times each kernel (L2 flushed before every launch),
+              its plain version, one PyTorch call computing the same
+              function (``library_ms``: SDPA over the gathered lanes, or
+              ``torch.matmul`` against the densified matrix; a yardstick the
+              port never calls) and its bound.
+3. tokens   — float32 qwen2.5 smoke: the Engine on the TDA kernels gives
+              the plain path's tokens (``decode_attn="dense"``); and the
+              compressed smoke Engine on the DMM/SMM kernels gives the
+              tokens of the same Engine over the explicitly decompressed
+              factors (plain ``(x @ ws) @ wd``).
 4. serve    — the main path at full width: qwen2.5-32b (d_model 5120, 40/8
               heads, d_head 128, d_ff 27648, vocab 152064; depth cut to 8
               of 64 layers), random weights from torch.Generator seed 0,
               16 greedy requests (8 up front, 8 arriving mid-run) through
-              ``Engine.run``. Every request must end ``ok`` and both kernel
-              launch counters must be > 0 (exactly one launch per layer per
-              step of their kind).
+              ``Engine.run``. Every request must end ``ok`` and both TDA
+              kernels must launch exactly once per layer per step of their
+              kind.
+5. compressed — the same model factorized (T-REX defaults: rank 0.625,
+              nnz 0.125 of the rank), its f32 weights drawn on the card,
+              W_D projected and the whole tree compressed on the card, then
+              the same 16 requests through ``Engine.run`` on the streams.
+              Every request must end ``ok``, DMM and SMM must each launch 7
+              x 8 times per step (every linear of every layer), and the TDA
+              counts keep phase 4's invariants.
 
 Then the card's name and power limit, the kernels' JSON line, and last the
 device JSON line. Exits nonzero with no result without a CUDA device or
@@ -165,6 +180,71 @@ def full_cases(np, cfg, num_slots, cache_len, page_size, chunk):
     vr = rng.standard_normal((num_slots, chunk, Hkv, D)).astype(np.float32)
     mix = (q, k2, v2, kr, vr, rows, bt2)
     return dec, mix
+
+
+# DMM / SMM edge cases of tests/test_torch_dmm_smm.py: (M, K, N) and
+# (M, r, N, nnz, value_bits); odd K, ragged tiles, nnz = 2, int16 deltas
+# (r = 1024, nnz = 2), value widths 4/5/7.
+DMM_SMALL = [(32, 64, 48), (64, 128, 96), (100, 60, 36), (32, 33, 16),
+             (16, 256, 128), (128, 128, 128), (8, 64, 40)]
+SMM_SMALL = [(32, 64, 48, 8, 6), (64, 128, 100, 16, 6), (16, 32, 32, 2, 6),
+             (48, 96, 64, 24, 6), (8, 1024, 40, 2, 6), (32, 64, 48, 8, 4),
+             (32, 64, 48, 8, 5), (32, 64, 48, 8, 7)]
+
+
+def wd_streams(torch, wd, nnz, bits=6):
+    """(first, deltas, vq, scale, offset, bits) of a W_D compressed by the
+    port, deltas uint8 or int16 as ``compress_model_params`` stores them."""
+    from repro_torch.core import compression as comp
+    c = comp.compress_wd(wd, nnz, value_bits=bits)
+    ddt = torch.uint8 if c.achieved_delta_bits <= 8 else torch.int16
+    return (c.deltas[0], c.deltas[1:].to(ddt), c.values_q, c.scale, c.offset,
+            bits)
+
+
+def small_linear_cases(torch, np, dev):
+    """("dmm"/"smm", args) for the plain-vs-kernel check; DMM args once
+    with f32 and once with bf16 x."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.factorized import pack_nibbles
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for M, K, N in DMM_SMALL:
+        rng = np.random.default_rng(M + K + N)
+        cws = comp.compress_ws(T((rng.normal(size=(K, N)) * 0.1).astype(
+            np.float32)))
+        x = T(rng.normal(size=(M, K)).astype(np.float32))
+        for xx in (x, x.to(torch.bfloat16)):
+            yield "dmm", (xx, pack_nibbles(cws.codes), cws.lut)
+    for M, r, N, nnz, bits in SMM_SMALL:
+        rng = np.random.default_rng(M + r + bits)
+        wd = T(rng.normal(size=(r, N)).astype(np.float32))
+        y = T(rng.normal(size=(M, r)).astype(np.float32))
+        yield "smm", (y,) + wd_streams(torch, wd, nnz, bits)
+    # indices past r, below 0 (negative int16 delta) and repeated
+    first = T(np.array([0, 3, 15, 2, 5], np.int32))
+    deltas = T(np.array([[1, 20, 0, -5, 0], [2, 1, 3, 4, 0]], np.int16))
+    vq = T(np.random.default_rng(0).integers(0, 64, size=(3, 5)).astype(
+        np.uint8))
+    y = T(np.random.default_rng(1).normal(size=(4, 16)).astype(np.float32))
+    yield "smm", (y, first, deltas, vq, 1.5, -0.25, 6)
+
+
+def linear_shapes(cfg):
+    """{(d_in, d_out, r, nnz): [families]} of the factorized qwen2.5-32b
+    linears at full width."""
+    fc, d, hd = cfg.factorization, cfg.d_model, cfg.head_dim
+    dims = {"attn_q": (d, cfg.n_heads * hd), "attn_k": (d, cfg.kv_heads * hd),
+            "attn_v": (d, cfg.kv_heads * hd), "attn_o": (cfg.n_heads * hd, d),
+            "ffn_up": (d, cfg.d_ff), "ffn_gate": (d, cfg.d_ff),
+            "ffn_down": (cfg.d_ff, d)}
+    out = {}
+    for fam, (di, do) in dims.items():
+        r = fc.rank_for(di, do)
+        out.setdefault((di, do, r, fc.nnz_for(r)), []).append(fam)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -330,71 +410,235 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     return rows
 
 
+def phase_linear_kernels(torch, np, ccfg):
+    """DMM and SMM against their plain versions: the CPU tests' edge cases,
+    then every family's full-width shapes at M = 8 and 2048, timed."""
+    from repro_torch.core.factorized import pack_nibbles
+    from repro_torch.kernels.dmm.ops import lut_matmul
+    from repro_torch.kernels.dmm.ref import unpack_nibbles
+    from repro_torch.kernels.smm.ops import compressed_matmul
+    from repro_torch.kernels.smm.ref import densify
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    err = {"dmm_matmul": 0.0, "smm_matmul": 0.0}
+    ops = {"dmm": ("dmm_matmul", lut_matmul),
+           "smm": ("smm_matmul", lambda *a, **kw: compressed_matmul(
+               *a[:6], value_bits=a[6], **kw))}
+
+    def check(kind, args):
+        name, op = ops[kind]
+        got = op(*args)
+        plain = op(*args, use_kernel=False)
+        torch.cuda.synchronize()
+        e = (got - plain).abs().max().item() if got.numel() else 0.0
+        lim = TOL * max(1.0, plain.abs().max().item() if got.numel() else 0)
+        err[name] = max(err[name], e)
+        if not e <= lim:
+            fail(f"{name} vs plain: max abs diff {e} (limit {lim}) at "
+                 f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+        return got
+
+    n_cases = 0
+    for kind, args in small_linear_cases(torch, np, dev):
+        check(kind, args)
+        n_cases += 1
+    line("linear_kernels_small", cases=n_cases, max_abs_err=dict(err))
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes, rows = [], {}
+    for (d_in, d_out, r, nnz), fams in linear_shapes(ccfg).items():
+        codes = torch.randint(0, 256, ((d_in + 1) // 2, r), generator=g,
+                              device=dev, dtype=torch.uint8)
+        lut = torch.sort(torch.randn(16, generator=g, device=dev)).values \
+            / d_in ** 0.5
+        ws_bf16 = lut[unpack_nibbles(codes).long()][:d_in].to(torch.bfloat16)
+        st = wd_streams(torch, torch.randn(r, d_out, generator=g,
+                                           device=dev), nnz)
+        wd_dense = densify(*st[:5], r, st[5])
+        rec = {"families": fams, "d_in": d_in, "d_out": d_out, "r": r,
+               "nnz": nnz, "delta_dtype": str(st[1].dtype).split(".")[1]}
+        for M in (8, 2048):
+            x = torch.randn(M, d_in, generator=g, device=dev).to(
+                torch.bfloat16)
+            y = torch.randn(M, r, generator=g, device=dev)
+            check("dmm", (x, codes, lut))
+            check("smm", (y,) + st)
+            dmm_b, dmm_by = bound(x.numel() * 2 + codes.numel() + 64
+                                  + M * r * 4, 2 * M * d_in * r, 2)
+            smm_b, smm_by = bound(
+                y.numel() * 4 + d_out * 4
+                + st[1].numel() * st[1].element_size() + st[2].numel()
+                + M * d_out * 4, 2 * M * nnz * d_out, 4)
+            rec[f"dmm_M{M}"] = {
+                "ms": time_ms(torch, lambda: lut_matmul(x, codes, lut), 10),
+                "plain_ms": time_ms(torch, lambda: lut_matmul(
+                    x, codes, lut, use_kernel=False), 5),
+                "library_ms": time_ms(torch, lambda: torch.matmul(
+                    x, ws_bf16), 10),
+                "bound_ms": dmm_b, "bound_by": dmm_by}
+            rec[f"smm_M{M}"] = {
+                "ms": time_ms(torch, lambda: compressed_matmul(
+                    y, *st[:5], value_bits=st[5]), 10),
+                "plain_ms": time_ms(torch, lambda: compressed_matmul(
+                    y, *st[:5], value_bits=st[5], use_kernel=False), 5),
+                "library_ms": time_ms(torch, lambda: torch.matmul(
+                    y, wd_dense), 10),
+                "bound_ms": smm_b, "bound_by": smm_by}
+        shapes.append(rec)
+        for kern, fam in (("dmm", "ffn_down"), ("smm", "ffn_up")):
+            if fam in fams:
+                rows[kern] = rec
+        del codes, ws_bf16, wd_dense, st
+    torch.cuda.synchronize()
+    line("linear_kernels_full", seconds=round(time.perf_counter() - t0, 3),
+         max_abs_err=dict(err), shapes=shapes)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out = []
+    for kern, name, src, repl in (
+            ("dmm", "dmm_matmul", "dmm.cu",
+             "src/repro/kernels/dmm/dmm.py:51"),
+            ("smm", "smm_matmul", "smm.cu",
+             "src/repro/kernels/smm/smm.py:63")):
+        rec = rows[kern]
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": repl, "max_abs_err": err[name],
+               **{k: rec[f"{kern}_M2048"][k] for k in keys},
+               "M8": {k: rec[f"{kern}_M8"][k] for k in keys},
+               "shape": {k: rec[k] for k in ("families", "d_in", "d_out", "r",
+                                             "nnz")} | {"M": 2048}}
+        out.append(row)
+    return out
+
+
+def decompressed(torch, cparams, params):
+    """The compressed tree with every stream group replaced by its dense
+    ``wd`` (``decompress_wd_leaf`` per layer) and every dictionary by its
+    dense W_S (``decompress_ws_entry``): served through the plain
+    factorized ``(x @ ws) @ wd``."""
+    from repro_torch.core.factorized import (decompress_wd_leaf,
+                                             decompress_ws_entry)
+
+    def walk(c, p):
+        if isinstance(c, dict) and "wd_vq" in c:
+            r = p["wd"].shape[-2]
+            out = {k: v for k, v in c.items() if not k.startswith("wd_")}
+            layers = [decompress_wd_leaf({k: v[i] for k, v in c.items()}, r)
+                      for i in range(c["wd_vq"].shape[0])]
+            out["wd"] = torch.stack(layers)
+            return out
+        if isinstance(c, dict):
+            return {k: walk(v, p[k]) for k, v in c.items()}
+        return c
+
+    tree = {k: walk(v, params[k]) for k, v in cparams.items() if k != "dicts"}
+    tree["dicts"] = {f: decompress_ws_entry(e, params["dicts"][f].shape[0])
+                     for f, e in cparams["dicts"].items()}
+    return tree
+
+
 def phase_tokens(torch):
     from repro_torch.configs import get_config
+    from repro_torch.core.factorized import (FactorizationConfig,
+                                             project_wd_leaves)
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
     from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig, Request
     import numpy as np
+    t0 = time.perf_counter()
     cfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
-    model = Model(cfg)
-    params = model.init(seed=0)
     rng = np.random.default_rng(1)
     lengths, budgets, ticks = [5, 25, 12, 18], [6, 5, 4, 6], [1, 1, 3, 6]
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in lengths]
+
+    def run(model, params, budget, **kw):
+        eng = Engine(model, params, config=EngineConfig(
+            max_len=16, max_new_tokens=8, num_slots=3, max_prompt_len=40,
+            prefix_share=False, prefill_budget=budget, **kw))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=b)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        done = eng.run(arrivals=list(zip(ticks, reqs)))
+        if sorted(r.rid for r in done) != [0, 1, 2, 3] or \
+                any(r.status != "ok" for r in done):
+            fail("a smoke run did not finish all requests ok")
+        return {r.rid: list(r.output) for r in done}, eng.decode_stats
+
+    model = Model(cfg)
+    params = model.init(seed=0)
     checked = []
     for budget in (4, 16, None):
         outs = {}
         for mode in ("tda", "dense"):
-            eng = Engine(model, params, config=EngineConfig(
-                max_len=16, max_new_tokens=8, num_slots=3, max_prompt_len=40,
-                prefix_share=False, prefill_budget=budget, decode_attn=mode))
-            reqs = [Request(rid=i, prompt=p, max_new_tokens=b)
-                    for i, (p, b) in enumerate(zip(prompts, budgets))]
             tda.reset_launch_counts()
-            done = eng.run(arrivals=list(zip(ticks, reqs)))
+            outs[mode], _ = run(model, params, budget, decode_attn=mode)
             if mode == "tda" and not all(tda.LAUNCHES.values()):
                 fail(f"tda engine did not launch both kernels: {tda.LAUNCHES}")
-            if sorted(r.rid for r in done) != [0, 1, 2, 3] or \
-                    any(r.status != "ok" for r in done):
-                fail(f"smoke run ({mode}) did not finish all requests ok")
-            outs[mode] = {r.rid: list(r.output) for r in done}
         if outs["tda"] != outs["dense"]:
             fail(f"tokens differ, kernels vs plain path (budget {budget}): "
                  f"{outs}")
         checked.append(budget)
-    line("tokens", float32_smoke_identical=True, prefill_budgets=checked,
-         tokens=sum(len(v) for v in outs["tda"].values()))
+    n_tok = sum(len(v) for v in outs["tda"].values())
+
+    # Compressed: the DMM/SMM kernels vs the same factors decompressed.
+    fcfg = FactorizationConfig(enabled=True, min_dim=32, rank=32, nnz=8)
+    fmodel = Model(get_config("qwen2.5-32b", "smoke", dtype="float32",
+                              factorization=fcfg))
+    fparams = project_wd_leaves(fmodel.init(seed=0), fcfg)
+    mc, cparams, _ = fmodel.compress_params(fparams)
+    recon = decompressed(torch, cparams, fparams)
+    for budget in (16, None):
+        dmm.reset_launch_counts()
+        smm.reset_launch_counts()
+        got, st = run(mc, cparams, budget)
+        n_lin = 7 * cfg.n_layers * st["steps"]
+        if not dmm.LAUNCHES["dmm_matmul"] == smm.LAUNCHES["smm_matmul"] \
+                == n_lin:
+            fail(f"compressed smoke: dmm/smm launches {dmm.LAUNCHES} "
+                 f"{smm.LAUNCHES} != {n_lin}")
+        want, _ = run(fmodel, recon, budget)
+        if got != want:
+            fail(f"compressed tokens differ, DMM/SMM kernels vs decompressed "
+                 f"factors (budget {budget}): {got} vs {want}")
+    line("tokens", seconds=round(time.perf_counter() - t0, 3),
+         float32_smoke_identical=True, prefill_budgets=checked, tokens=n_tok,
+         compressed_identical=True, compressed_prefill_budgets=[16, None],
+         compressed_tokens=sum(len(v) for v in got.values()))
 
 
-def phase_serve(torch, np, full_cfg, engine_kw):
+def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
+    """Serve ``profile_serve.workload`` through ``Engine.run`` after one
+    warm-up request, with every launch counter set to 0 just before the
+    run and read just after. Checks every request ends ``ok`` with
+    ``max_new_tokens`` valid tokens and the TDA kernels launch once per
+    layer per step of their kind. Returns (summary dict, launches)."""
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
     from repro_torch.launch.profile_serve import workload
-    from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig
-    model = Model(full_cfg)
+    cfg = model.cfg
     t0 = time.perf_counter()
-    params = model.init(seed=0)
     eng = Engine(model, params, config=EngineConfig(prefix_share=False,
-                                                    **engine_kw))
-    del params  # the engine keeps its compute-dtype copy
+                                                    **cfg_kw, **engine_kw))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     warm, up_front, arrivals, lengths = workload(
-        full_cfg.vocab_size, engine_kw["max_new_tokens"])
-    # Warm-up: one short request (library initialisation, first launches).
-    eng.submit(warm)
+        cfg.vocab_size, engine_kw["max_new_tokens"])
+    eng.submit(warm)  # library initialisation, first launches
     eng.run()
     for r in up_front:
         eng.submit(r)
     torch.cuda.synchronize()
-    tda.reset_launch_counts()
+    for mod in (tda, dmm, smm):
+        mod.reset_launch_counts()
     t0 = time.perf_counter()
     done = eng.run(arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(tda.LAUNCHES)
+    launches = {**tda.LAUNCHES, **dmm.LAUNCHES, **smm.LAUNCHES}
     st = eng.decode_stats
     if sorted(r.rid for r in done) != list(range(16)):
         fail("not every request came back")
@@ -403,32 +647,94 @@ def phase_serve(torch, np, full_cfg, engine_kw):
     if bad:
         fail(f"requests not ok: {bad}")
     if any(len(r.output) != engine_kw["max_new_tokens"]
-           or not all(0 <= t < full_cfg.vocab_size for t in r.output)
+           or not all(0 <= t < cfg.vocab_size for t in r.output)
            for r in done):
         fail("a request's output has the wrong length or an invalid token")
-    L = full_cfg.n_layers
+    L = cfg.n_layers
     n_dec = st["steps"] - st["mixed_steps"]
     if launches["tda_paged_decode_attention"] != L * n_dec or \
             launches["tda_mixed_attention"] != L * st["mixed_steps"] or \
-            not all(launches.values()):
+            not launches["tda_paged_decode_attention"] or \
+            not launches["tda_mixed_attention"]:
         fail(f"launch counts {launches} != {L} layers x ({n_dec} decode, "
              f"{st['mixed_steps']} mixed) steps")
     ttft = sorted(v["wall_s"] for v in st["ttft"].values())
     toks = sum(len(r.output) for r in done)
-    line("serve", model=full_cfg.name, d_model=full_cfg.d_model,
-         n_layers=L, reduced={"n_layers": "64 -> 8 (depth only)"},
-         requests=len(done), ok=len(done), output_tokens=toks,
-         prompt_tokens=int(lengths.sum()), wall_s=wall, setup_s=setup_s,
-         output_tok_s=toks / wall,
-         ttft_p50_s=float(np.percentile(ttft, 50)),
-         ttft_p99_s=float(np.percentile(ttft, 99)),
-         decode_step_ms_median=float(np.median(st["step_ms"]["decode"])),
-         mixed_step_ms_median=float(np.median(st["step_ms"]["mixed"])),
-         steps=st["steps"], mixed_steps=st["mixed_steps"],
-         slot_utilization=st["slot_utilization"],
-         kv_memory_ratio=st["kv_memory_ratio"], launches=launches,
-         launches_per_decode_step=L, launches_per_mixed_step=L,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    summary = dict(
+        model=cfg.name, weight_format=cfg.weight_format,
+        d_model=cfg.d_model, n_layers=L,
+        reduced={"n_layers": "64 -> 8 (depth only)"},
+        requests=len(done), ok=len(done), output_tokens=toks,
+        prompt_tokens=int(lengths.sum()), wall_s=wall, setup_s=setup_s,
+        output_tok_s=toks / wall,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_step_ms_median=float(np.median(st["step_ms"]["decode"])),
+        mixed_step_ms_median=float(np.median(st["step_ms"]["mixed"])),
+        steps=st["steps"], mixed_steps=st["mixed_steps"],
+        slot_utilization=st["slot_utilization"],
+        kv_memory_ratio=st["kv_memory_ratio"],
+        weight_bytes_per_step=st["weight_bytes_per_step"],
+        bytes_per_token=st["bytes_per_token"], launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return summary, launches
+
+
+def phase_serve(torch, np, full_cfg, engine_kw):
+    from repro_torch.models.transformer import Model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(full_cfg)
+    params = model.init(seed=0)
+    init_s = time.perf_counter() - t0
+    summary, launches = serve_run(torch, np, model, params, engine_kw)
+    del params
+    line("serve", seconds=round(time.perf_counter() - t0, 3),
+         init_s=init_s, **summary)
+    return summary, launches
+
+
+def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
+    """The main path on compressed weights: factorized f32 weights drawn
+    on the card, projected and compressed there, the f32 tree freed, then
+    the phase-4 workload."""
+    from repro_torch.core.factorized import project_wd_leaves
+    from repro_torch.models.transformer import Model
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(ccfg)
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    params = project_wd_leaves(params, ccfg.factorization)
+    torch.cuda.synchronize()
+    project_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mc, cparams, stats = model.compress_params(params)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t1
+    del params  # the f32 factors; cparams shares only embeddings and head
+    gc.collect()
+    summary, launches = serve_run(
+        torch, np, mc, cparams, engine_kw,
+        weight_stream_bits=stats["weight_stream_bits"])
+    del cparams
+    n_lin = 7 * ccfg.n_layers * summary["steps"]
+    if not launches["dmm_matmul"] == launches["smm_matmul"] == n_lin:
+        fail(f"dmm/smm launches {launches} != 7 linears x "
+             f"{ccfg.n_layers} layers x {summary['steps']} steps")
+    line("compressed_serve", seconds=round(time.perf_counter() - t0, 3),
+         init_s=init_s, project_s=project_s, compress_s=compress_s,
+         weight_stream_bits=stats["weight_stream_bits"],
+         weight_stream_bits_dense=stats["weight_stream_bits_dense"],
+         weight_compression_ratio=stats["weight_compression_ratio"],
+         dense_weight_bytes_per_step=dense["weight_bytes_per_step"],
+         dense_bytes_per_token=dense["bytes_per_token"],
+         dense_output_tok_s=dense["output_tok_s"], **summary)
     return launches
 
 
@@ -446,22 +752,41 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.launch.profile_serve import ENGINE_KW, serve_config
-    full_cfg, engine_kw = serve_config(), ENGINE_KW
+    from repro_torch.launch.profile_serve import (ENGINE_KW,
+                                                  compressed_config,
+                                                  serve_config)
+    full_cfg, ccfg, engine_kw = serve_config(), compressed_config(), ENGINE_KW
 
-    phase_build()
-    rows = phase_kernels(torch, np, full_cfg, engine_kw)
-    phase_tokens(torch)
-    launches = phase_serve(torch, np, full_cfg, engine_kw)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch, np, full_cfg, engine_kw)
+    rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
+    timed("tokens", phase_tokens, torch)
+    dense, launches = timed("serve", phase_serve, torch, np, full_cfg,
+                            engine_kw)
+    claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
+                      ccfg, engine_kw, dense)
+    # Each kernel's launches come from the main-path run that uses it: the
+    # TDA kernels' from phase 4, DMM's and SMM's from phase 5.
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (claunches if r["name"] in ("dmm_matmul", "smm_matmul")
+                         else launches)[r["name"]]
+    line("seconds", total=round(sum(seconds.values()), 3), **seconds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("M8",) if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,14 +24,21 @@ __all__ = ["SOURCES", "build_all", "load", "build_dir"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> source file under csrc/
 SOURCES = {"tda_paged_decode": "tda_paged_decode.cu",
-           "tda_mixed": "tda_mixed.cu"}
+           "tda_mixed": "tda_mixed.cu",
+           "dmm": "dmm.cu",
+           "smm": "smm.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: (pointers..., int shape args..., dtype, scale, stream)
+# C entry points of each library: (pointers..., int shape args..., dtype
+# code, [scale,] stream); every one returns an int.
 _ARGTYPES = {
-    "tda_paged_decode": [_P] * 6 + [_I] * 7 + [_I, _F, _P],
-    "tda_mixed": [_P] * 8 + [_I] * 10 + [_I, _F, _P],
+    "tda_paged_decode": {
+        "tda_paged_decode": [_P] * 6 + [_I] * 7 + [_I, _F, _P]},
+    "tda_mixed": {"tda_mixed": [_P] * 8 + [_I] * 10 + [_I, _F, _P]},
+    "dmm": {"dmm": [_P] * 5 + [_I] * 4 + [_I, _P],
+            "dmm_splits": [_I] * 3},
+    "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P]},
 }
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time, "ptxas": compiler resource report}
@@ -102,8 +109,9 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for fname, argtypes in _ARGTYPES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib

@@ -1,0 +1,73 @@
+"""SMM kernel wrapper: ``z = y @ densify(first, deltas, vq, scale, offset,
+value_bits)`` through the hand-written CUDA kernel ``kernels/csrc/smm.cu``.
+
+Takes the reference Pallas kernel's streams (``repro.kernels.smm.smm``);
+the per-layer scalars ``scale``, ``offset`` (f32) and ``value_bits``
+(int32) are 0-d device tensors that the kernel reads itself, so a layer's
+slice of the stacked ``(L,)`` leaves passes without a host sync. On CUDA
+tensors it launches the kernel on the current stream, or raises: there is
+no fallback. On CPU tensors it runs the plain version
+(``ref.smm_reference``), which is also what the kernel is held against on
+the card. ``LAUNCHES`` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.smm.ref import smm_reference
+
+__all__ = ["smm_matmul", "LAUNCHES", "reset_launch_counts"]
+
+LAUNCHES = {"smm_matmul": 0}
+_DELTA_CODE = {torch.uint8: 0, torch.int16: 1}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["smm_matmul"] = 0
+
+
+def smm_matmul(y: torch.Tensor, first: torch.Tensor, deltas: torch.Tensor,
+               vq: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+               value_bits: torch.Tensor) -> torch.Tensor:
+    """y (M, r) f32; first (N,) int32; deltas (nnz-1, N) uint8/int16; vq
+    (nnz, N) uint8; scale, offset 0-d f32; value_bits 0-d int32 -> (M, N)
+    f32. Row indices outside ``[0, r)`` are skipped."""
+    name = "smm_matmul"
+    M, r = y.shape
+    nnz, N = vq.shape
+    if first.shape != (N,) or deltas.shape != (max(nnz - 1, 0), N):
+        raise ValueError(f"{name}: shape mismatch first{tuple(first.shape)} "
+                         f"deltas{tuple(deltas.shape)} vq{tuple(vq.shape)}")
+    if y.device.type == "cpu":
+        return smm_reference(y, first, deltas, vq, scale, offset, value_bits)
+    ts = (y, first, deltas, vq, scale, offset, value_bits)
+    for t in ts:
+        if t.device != y.device:
+            raise ValueError(f"{name}: all inputs must be on {y.device}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if y.dtype != torch.float32 or first.dtype != torch.int32 \
+            or deltas.dtype not in _DELTA_CODE or vq.dtype != torch.uint8 \
+            or scale.dtype != torch.float32 or offset.dtype != torch.float32 \
+            or value_bits.dtype != torch.int32:
+        raise TypeError(f"{name}: needs y f32, first int32, deltas "
+                        f"uint8/int16, vq uint8, scale/offset f32, value_bits "
+                        f"int32; got {[str(t.dtype) for t in ts]}")
+    if scale.numel() != 1 or offset.numel() != 1 or value_bits.numel() != 1:
+        raise ValueError(f"{name}: scale, offset and value_bits are scalars")
+    out = torch.empty((M, N), dtype=torch.float32, device=y.device)
+    if M == 0 or N == 0:
+        return out
+    from repro_torch.kernels.build import load
+    err = load("smm").smm(
+        y.data_ptr(), first.data_ptr(), deltas.data_ptr(), vq.data_ptr(),
+        scale.data_ptr(), offset.data_ptr(), value_bits.data_ptr(),
+        out.data_ptr(), M, r, nnz, N, _DELTA_CODE[deltas.dtype],
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err} "
+                           f"(M={M}, r={r}, nnz={nnz}, N={N}; rows of y are "
+                           f"staged in shared memory, which bounds r)")
+    LAUNCHES[name] += 1
+    return out

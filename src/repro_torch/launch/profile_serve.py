@@ -1,7 +1,7 @@
 """Where the time goes in the full-width serve: the workload of
 ``chip_smoke.py``'s serve phase under ``torch.profiler``.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -13,11 +13,14 @@ profiler, the mean device-busy time per step (union of kernel intervals)
 and its split by kernel category, and the device's idle share against the
 unprofiled host step time (the profiler itself slows the host). Kernels
 are assigned to the step whose host range contains their start: every
-step ends in a host sync, so its kernels finish inside its range. Needs a
-CUDA device.
+step ends in a host sync, so its kernels finish inside its range. With
+``--compressed`` it profiles :func:`compressed_config` instead, served
+from the compressed streams (weights projected and compressed on the card
+first). Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from typing import Dict, List, Tuple
@@ -25,7 +28,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ENGINE_KW", "serve_config", "workload", "main"]
+__all__ = ["ENGINE_KW", "serve_config", "compressed_config", "workload",
+           "main"]
 
 # The full-width serve's engine settings (besides ``prefix_share=False``):
 # paged lanes of 128-token pages and mixed steps of chunk width 256.
@@ -34,6 +38,8 @@ ENGINE_KW = dict(max_len=256, max_new_tokens=32, num_slots=8)
 _CATEGORIES = (
     ("tda_paged_decode", ("paged_decode_kernel",)),
     ("tda_mixed", ("mixed_kernel",)),
+    ("dmm", ("dmm_kernel", "sum_splits")),
+    ("smm", ("smm_kernel",)),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("gather_scatter_copy", ("index", "gather", "scatter", "copy", "memcpy",
                              "memset", "cat")),
@@ -44,6 +50,14 @@ def serve_config():
     """qwen2.5-32b at its published widths, depth cut from 64 to 8 layers."""
     from repro_torch.configs import get_config
     return get_config("qwen2.5-32b", "full", n_layers=8)
+
+
+def compressed_config():
+    """:func:`serve_config` factorized with the T-REX defaults (rank 0.625
+    and nnz 0.125 of the rank, every linear at these widths), served from
+    compressed streams by ``chip_smoke.py``'s compressed phase."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2.5-32b", "full", factorized=True, n_layers=8)
 
 
 def workload(vocab: int, max_new: int, seed: int = 0):
@@ -81,16 +95,27 @@ def _union(iv: List[Tuple[float, float]]) -> float:
     return total
 
 
-def main():
+def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.factorized import project_wd_leaves
     from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig
 
-    cfg, kw = serve_config(), ENGINE_KW
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--compressed", action="store_true")
+    args = ap.parse_args(argv)
+    cfg = compressed_config() if args.compressed else serve_config()
+    kw = ENGINE_KW
     model = Model(cfg)
     params = model.init(seed=0)
-    eng = Engine(model, params, config=EngineConfig(prefix_share=False, **kw))
+    wsb = None
+    if args.compressed:
+        model, params, stats = model.compress_params(
+            project_wd_leaves(params, cfg.factorization))
+        wsb = stats["weight_stream_bits"]
+    eng = Engine(model, params, config=EngineConfig(
+        prefix_share=False, weight_stream_bits=wsb, **kw))
     del params
     warm, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
     eng.submit(warm)
@@ -150,6 +175,7 @@ def main():
             + (b - a) / 1e3
         p["intervals"].append((a, b))
     out = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "weight_format": model.cfg.weight_format,
            "device": torch.cuda.get_device_name(0),
            "requests": len(done), "wall_s": wall,
            "kernel_events": len(kernels)}

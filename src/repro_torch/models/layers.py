@@ -1,6 +1,8 @@
 """Shared neural layers (``repro.models.layers``, the serving-path parts):
 norms, RoPE, the paged attention block (mixed step and decode), the dense
-decode attention, the SwiGLU FFN, embeddings and logits.
+decode attention, the SwiGLU FFN, embeddings and logits, and the init of
+the attention and FFN linears (dense or factorized through the family
+dictionaries).
 
 Layouts match the reference at every public function: ``w`` is ``(d_in,
 d_out)``, activations ``(B, S, d)``, queries ``(B, S, Hq, D)`` and KV page
@@ -16,7 +18,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.factorized import apply_linear
+from repro_torch.core.factorized import (DictionaryBank, apply_linear,
+                                        init_linear)
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ops import (
     fused_decode_attention,
@@ -28,8 +31,8 @@ from repro_torch.models.common import ModelConfig
 NEG_INF = -1e30
 
 __all__ = ["apply_norm", "rope_tables", "apply_rope", "decode_attention",
-           "attention_block", "ffn_block", "embed_tokens", "lm_logits",
-           "NEG_INF"]
+           "init_attention", "attention_block", "init_ffn", "ffn_block",
+           "embed_tokens", "lm_logits", "NEG_INF"]
 
 
 def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -103,11 +106,31 @@ def _write_pool(pool: torch.Tensor, phys: torch.Tensor,
     flat[phys[keep]] = new[keep].to(pool.dtype)
 
 
+def init_attention(g: torch.Generator, cfg: ModelConfig,
+                   bank: Optional[DictionaryBank], lead=(),
+                   prefix: str = "attn") -> Dict:
+    """``wq``/``wk``/``wv``/``wo`` with leading dims ``lead``, each dense or
+    factorized through the ``{prefix}_q`` ... ``{prefix}_o`` dictionary."""
+    d, hd, fcfg = cfg.d_model, cfg.head_dim, cfg.factorization
+    kw = dict(dtype=cfg.params_dtype, lead=lead)
+    return {
+        "wq": init_linear(g, d, cfg.n_heads * hd, fcfg, bank, f"{prefix}_q",
+                          use_bias=cfg.qkv_bias, **kw),
+        "wk": init_linear(g, d, cfg.kv_heads * hd, fcfg, bank, f"{prefix}_k",
+                          use_bias=cfg.qkv_bias, **kw),
+        "wv": init_linear(g, d, cfg.kv_heads * hd, fcfg, bank, f"{prefix}_v",
+                          use_bias=cfg.qkv_bias, **kw),
+        "wo": init_linear(g, cfg.n_heads * hd, d, fcfg, bank, f"{prefix}_o",
+                          **kw),
+    }
+
+
 def attention_block(
     p: Dict,
     x: torch.Tensor,                  # (B, S, d)
     *,
     cfg: ModelConfig,
+    dicts: Optional[Dict] = None,     # params["dicts"] (factorized weights)
     positions: torch.Tensor,          # (B, S) absolute positions (RoPE)
     cache: Dict[str, torch.Tensor],   # {"k","v"}: (L, P, ps, Hkv, D) pools
     layer_idx: int,
@@ -126,12 +149,12 @@ def attention_block(
     hd = cfg.head_dim
     dt = cfg.compute_dtype
 
-    def lin(name, inp):
-        return apply_linear(p[name], inp).to(dt)
+    def lin(name, inp, fam):
+        return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
 
-    q = lin("wq", x).reshape(B, S, cfg.n_heads, hd)
-    k = lin("wk", x).reshape(B, S, cfg.kv_heads, hd)
-    v = lin("wv", x).reshape(B, S, cfg.kv_heads, hd)
+    q = lin("wq", x, "attn_q").reshape(B, S, cfg.n_heads, hd)
+    k = lin("wk", x, "attn_k").reshape(B, S, cfg.kv_heads, hd)
+    v = lin("wv", x, "attn_v").reshape(B, S, cfg.kv_heads, hd)
     if cfg.rope:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -181,17 +204,34 @@ def attention_block(
             o = decode_attention(q, gather_paged_lanes(kpool, bt),
                                  gather_paged_lanes(vpool, bt), hi)
         o = o.reshape(B, S, cfg.n_heads * hd)
-    return apply_linear(p["wo"], o).to(dt)
+    return lin("wo", o, "attn_o")
 
 
-def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
+def init_ffn(g: torch.Generator, cfg: ModelConfig,
+             bank: Optional[DictionaryBank], lead=(),
+             prefix: str = "ffn") -> Dict:
+    """SwiGLU ``w_up``/``w_down``/``w_gate`` with leading dims ``lead``,
+    each dense or factorized through its ``{prefix}_*`` dictionary."""
+    d, f, fcfg = cfg.d_model, cfg.d_ff, cfg.factorization
+    kw = dict(dtype=cfg.params_dtype, lead=lead)
+    return {"w_up": init_linear(g, d, f, fcfg, bank, f"{prefix}_up", **kw),
+            "w_down": init_linear(g, f, d, fcfg, bank, f"{prefix}_down", **kw),
+            "w_gate": init_linear(g, d, f, fcfg, bank, f"{prefix}_gate", **kw)}
+
+
+def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
+              dicts: Optional[Dict] = None) -> torch.Tensor:
     """SwiGLU FFN: ``w_down(silu(w_gate x) * w_up x)``."""
     dt = cfg.compute_dtype
     if cfg.act != "swiglu":
         raise ValueError(f"only the swiglu FFN is ported, got {cfg.act!r}")
-    up = apply_linear(p["w_up"], x).to(dt)
-    h = F.silu(apply_linear(p["w_gate"], x).to(dt)) * up
-    return apply_linear(p["w_down"], h).to(dt)
+
+    def lin(name, inp, fam):
+        return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
+
+    up = lin("w_up", x, "ffn_up")
+    h = F.silu(lin("w_gate", x, "ffn_gate")) * up
+    return lin("w_down", h, "ffn_down")
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor,

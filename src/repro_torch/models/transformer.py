@@ -3,8 +3,9 @@ stack -> norm -> logits, for uniform dense attention stacks.
 
 The reference's ``lax.scan`` over layers is a Python loop here. Parameters
 are nested dicts of tensors in the reference's layout (uniform stacks carry
-a leading L axis on ``params["layers"]``), so ``models/bridge.py`` can hand
-over a reference ``Model.init`` tree unchanged. ``Model.init`` draws its
+a leading L axis on ``params["layers"]``; factorized models add the shared
+``params["dicts"]``), so ``models/bridge.py`` can hand over a reference
+``Model.init`` or ``compress_params`` tree unchanged. ``Model.init`` draws its
 own weights from a ``torch.Generator``; they cannot match the reference's
 numbers, so every parity test uses bridged parameters.
 """
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.core.factorized import DictionaryBank, compress_model_params
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
@@ -46,10 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the rmsnorm + swiglu + RoPE block is ported "
             f"(got act={cfg.act!r}, norm={cfg.norm!r}); the others come "
             "with a later slice (ROADMAP Queue 1 item 3)")
-    if cfg.factorization.enabled or cfg.weight_format != "dense":
-        raise UnsupportedConfigError(
-            f"{cfg.name}: factorized / compressed weights come with a later "
-            "slice (ROADMAP Queue 1 item 9)")
     if cfg.kv_quant:
         raise UnsupportedConfigError(
             f"{cfg.name}: int8 kv_quant lanes come with a later slice "
@@ -62,12 +60,40 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+_CAST_KEYS = ("w", "wd", "b")  # linear leaves used in the compute dtype
+
+
 class Model:
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
+        if cfg.weight_format not in ("dense", "compressed"):
+            raise ValueError(
+                f"weight_format must be 'dense' or 'compressed', "
+                f"got {cfg.weight_format!r}")
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+
+    def with_weight_format(self, fmt: str) -> "Model":
+        """Same model, another weight representation (``dense`` /
+        ``compressed``). The forward pass dispatches per leaf, so this is
+        metadata the engine reports in ``decode_stats``."""
+        if fmt == self.cfg.weight_format:
+            return self
+        return Model(dataclasses.replace(self.cfg, weight_format=fmt),
+                     self.device)
+
+    def compress_params(self, params: Dict, value_bits: int = 6):
+        """Factorized params -> the T-REX streaming format, on the params'
+        device. Returns ``(model, cparams, stats)``: a
+        ``weight_format="compressed"`` model, the compressed tree and the
+        stream-bits accounting of
+        :func:`repro_torch.core.factorized.compress_model_params` (feed
+        ``stats["weight_stream_bits"]`` to the engine's
+        ``weight_stream_bits``)."""
+        cparams, stats = compress_model_params(
+            params, self.cfg.factorization, value_bits=value_bits)
+        return self.with_weight_format("compressed"), cparams, stats
 
     def with_decode_attn(self, mode: str,
                          block_k: Optional[int] = None) -> "Model":
@@ -86,38 +112,30 @@ class Model:
 
     def init(self, seed: int = 0) -> Dict:
         """Random parameters in the reference's layout and distributions
-        (``w ~ N(0, 1/d_in)``, zero biases, unit norm scales, embeddings
-        ``N(0, 0.02^2)``, head ``N(0, 1/d)``), drawn on ``self.device``
-        from a ``torch.Generator`` seeded with ``seed``."""
+        (``w ~ N(0, 1/d_in)``; factorized: dictionaries ``N(0, 1/d_in)``
+        under ``params["dicts"]`` and per-layer ``wd ~ N(0, 1/r)``; zero
+        biases, unit norm scales, embeddings ``N(0, 0.02^2)``, head ``N(0,
+        1/d)``), drawn on ``self.device`` from a ``torch.Generator`` seeded
+        with ``seed``."""
         cfg = self.cfg
         g = torch.Generator(device=self.device).manual_seed(seed)
-        dt, dev, Ln = cfg.params_dtype, self.device, cfg.n_layers
-        d, hd = cfg.d_model, cfg.head_dim
+        dt, dev, Ln, d = cfg.params_dtype, self.device, cfg.n_layers, \
+            cfg.d_model
+        bank = DictionaryBank(cfg.factorization, dt) \
+            if cfg.factorization.enabled else None
 
         def normal(shape, std):
             return torch.empty(shape, dtype=dt, device=dev).normal_(
                 0.0, std, generator=g)
 
-        def linear(d_in, d_out, bias=False):
-            p = {"w": normal((Ln, d_in, d_out), 1.0 / math.sqrt(d_in))}
-            if bias:
-                p["b"] = torch.zeros((Ln, d_out), dtype=dt, device=dev)
-            return p
-
         def ones():
             return {"scale": torch.ones((Ln, d), dtype=dt, device=dev)}
 
-        qb = cfg.qkv_bias
         layers = {
             "norm1": ones(),
-            "attn": {"wq": linear(d, cfg.n_heads * hd, qb),
-                     "wk": linear(d, cfg.kv_heads * hd, qb),
-                     "wv": linear(d, cfg.kv_heads * hd, qb),
-                     "wo": linear(cfg.n_heads * hd, d)},
+            "attn": L.init_attention(g, cfg, bank, lead=(Ln,)),
             "norm2": ones(),
-            "ffn": {"w_up": linear(d, cfg.d_ff),
-                    "w_down": linear(cfg.d_ff, d),
-                    "w_gate": linear(d, cfg.d_ff)},
+            "ffn": L.init_ffn(g, cfg, bank, lead=(Ln,)),
         }
         params: Dict[str, Any] = {
             "embed": {"tok": normal((cfg.vocab_size, d), 0.02)},
@@ -126,27 +144,36 @@ class Model:
             "lm_head": {} if cfg.tie_embeddings
             else {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))},
         }
+        if bank is not None:
+            params["dicts"] = bank.dicts
         return params
 
     def prepare(self, params: Dict) -> Dict:
-        """Serving copy of ``params``: layer linear weights/biases and the
-        token embedding in the compute dtype, made once here instead of on
-        every step. At float32 this changes nothing. At bf16 compute over
-        f32 params the port then multiplies in bf16, where the reference's
-        dense ``apply_linear`` multiplies the bf16 activation by the f32
-        weight as an f32 product (and casts the result to bf16): the
-        projections and the FFN round their weights to bf16 first, so
-        their outputs differ from the reference's by that rounding. Norm
-        scales and the LM head stay as they are: the reference computes
-        norms and logits in f32."""
+        """Serving copy of ``params``: the layers' dense ``w``, factorized
+        ``wd`` and biases, the raw dictionaries and the token embedding in
+        the compute dtype, made once here instead of on every step.
+        Compressed streams, nibble-packed codes and LUTs stay as they are.
+        At float32 this changes nothing. At bf16 compute over f32 params
+        the port then multiplies in bf16, where the reference's dense and
+        factorized ``apply_linear`` multiplies the bf16 activation by the
+        f32 weight as an f32 product (and casts the result to bf16): those
+        outputs differ from the reference's by that rounding. Norm scales
+        and the LM head stay as they are: the reference computes norms and
+        logits in f32."""
         dt = self.cfg.compute_dtype
+
+        def cast(node):
+            return {k: (cast(v) if isinstance(v, dict)
+                        else v.to(dt) if k in _CAST_KEYS else v)
+                    for k, v in node.items()}
+
         out = dict(params)
-        out["layers"] = {
-            "norm1": params["layers"]["norm1"],
-            "norm2": params["layers"]["norm2"],
-            "attn": _tree_map(lambda t: t.to(dt), params["layers"]["attn"]),
-            "ffn": _tree_map(lambda t: t.to(dt), params["layers"]["ffn"]),
-        }
+        lay = params["layers"]
+        out["layers"] = {"norm1": lay["norm1"], "norm2": lay["norm2"],
+                         "attn": cast(lay["attn"]), "ffn": cast(lay["ffn"])}
+        if "dicts" in params:
+            out["dicts"] = {f: (e if isinstance(e, dict) else e.to(dt))
+                            for f, e in params["dicts"].items()}
         if not self.cfg.tie_embeddings:
             out["embed"] = {"tok": params["embed"]["tok"].to(dt)}
         return out
@@ -176,15 +203,16 @@ class Model:
                slot_mask, pages, n_new):
         cfg = self.cfg
         lay = params["layers"]
+        dicts = params.get("dicts")
         for i in range(cfg.n_layers):
             lp = _tree_map(lambda t: t[i], lay)
             h = L.apply_norm(lp["norm1"], x)
             x = x + L.attention_block(
-                lp["attn"], h, cfg=cfg, positions=positions, cache=caches,
-                layer_idx=i, cache_index=cache_index, pages=pages,
-                slot_mask=slot_mask, n_new=n_new)
+                lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
+                cache=caches, layer_idx=i, cache_index=cache_index,
+                pages=pages, slot_mask=slot_mask, n_new=n_new)
             h2 = L.apply_norm(lp["norm2"], x)
-            x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg)
+            x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
         return L.apply_norm(params["final_norm"], x)
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,13 @@ phase-serialized engine, sampling, faults, audits, meshes and fleets.
 Deadlines (``ttl_steps``), load shedding (``max_pending``), never-admissible
 rejection, the non-finite-logits guard and the no-progress watchdog are
 kept, as are ``run(arrivals=...)`` and the ``decode_stats`` counters.
+
+**Estimated HBM traffic** (``weight_bytes_per_token``,
+``kv_bytes_per_token``, ``bytes_per_token``), as the reference reports it:
+every step streams the whole weight set once — ``weight_stream_bits``
+(the audited number from ``Model.compress_params``) or, when it is not
+given, every leaf of the params as passed at its in-memory width — plus
+the K/V of the blocks the predicated attention visits.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.core.factorized import params_stream_bits
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ref import block_stats
 from repro_torch.serve.config import EngineConfig
@@ -63,6 +71,7 @@ class _RunState:
     decoded_tokens: int = 0
     blocks_visited: int = 0
     blocks_dense: int = 0
+    kv_bytes: float = 0.0
     pages_used_steps: int = 0
     mixed_steps: int = 0
     chunk_tokens: int = 0
@@ -106,6 +115,18 @@ class Engine:
         self._chunk_width = max(1, min(self.max_len,
                                        cfg_e.prefill_budget or self.max_len))
         self._width = self.slots.width
+        # Weights: every step streams the full weight set once, priced at
+        # the audited `weight_stream_bits` or at the in-memory width of the
+        # params as passed (before `prepare`'s compute-dtype copy).
+        self._weight_stream_bits = (
+            float(cfg_e.weight_stream_bits)
+            if cfg_e.weight_stream_bits is not None
+            else float(params_stream_bits(params)) if params is not None
+            else 0.0)
+        # KV: bytes per cached token the predicated attention visits.
+        c = model.cfg
+        self._kv_token_bytes = (2 * c.kv_heads * c.head_dim
+                                * c.compute_dtype.itemsize)
         self.params = self._dmodel.prepare(params) if params is not None \
             else None
         self._admit_seq = np.zeros(num_slots, np.int64)
@@ -265,6 +286,9 @@ class Engine:
                          self._width, min(self._block_k, self._width))
         st.blocks_visited += bs["visited"]
         st.blocks_dense += bs["dense"]
+        # visited blocks x tokens per block, once per attention layer
+        st.kv_bytes += (bs["visited"] * min(self._block_k, self._width)
+                        * self.model.cfg.n_layers * self._kv_token_bytes)
 
     def _mixed_step(self, st: _RunState, active_ix: np.ndarray) -> None:
         """Pack up to ``prefill_budget`` fresh prompt tokens (chunk rows,
@@ -414,6 +438,20 @@ class Engine:
             "kv_pages_total": sl.pool.total_pages,
             "kv_memory_ratio": (st.pages_used_steps
                                 / max(st.steps * sl.pool.total_pages, 1)),
+            # Estimated HBM bytes per decoded token: the weights streamed
+            # once per step plus the KV blocks actually visited.
+            "weight_format": self.model.cfg.weight_format,
+            "weight_bytes_per_step": self._weight_stream_bits / 8.0,
+            "weight_bytes_per_token": (st.steps
+                                       * self._weight_stream_bits / 8.0
+                                       / max(st.decoded_tokens, 1)),
+            "kv_bytes_per_token": st.kv_bytes / max(st.decoded_tokens, 1),
+            "tp_ranks": 1,
+            "kv_bytes_per_token_per_rank": (st.kv_bytes
+                                            / max(st.decoded_tokens, 1)),
+            "bytes_per_token": ((st.steps * self._weight_stream_bits / 8.0
+                                 + st.kv_bytes)
+                                / max(st.decoded_tokens, 1)),
             "status_counts": dict(self._counts),
             "completed_ok": self._counts["ok"],
             "clock_ticks": self._clock,

@@ -93,7 +93,10 @@ def test_port_imports_no_jax_or_reference():
     """The port and its launcher import neither ``jax`` nor ``repro``."""
     code = ("import sys\n"
             "import repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.models.bridge, repro_torch.kernels.build\n"
+            "repro_torch.models.bridge, repro_torch.kernels.build, "
+            "repro_torch.core.compression, repro_torch.core.sparsity, "
+            "repro_torch.kernels.dmm.ops, repro_torch.kernels.smm.ops, "
+            "repro_torch.launch.profile_serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -160,14 +163,17 @@ def test_refused_engine_settings(name):
 @pytest.mark.parametrize("arch,over", [
     ("mamba2-370m", {}), ("recurrentgemma-2b", {}), ("dbrx-132b", {}),
     ("starcoder2-15b", {}), ("llava-next-mistral-7b", {}),
-    ("qwen2.5-32b", {"factorized": True}),
-    ("qwen2.5-32b", {"weight_format": "compressed"})])
+    ("dbrx-132b", {"factorized": True}),
+    ("qwen2.5-32b", {"weight_format": "int3"})])
 def test_refused_models(arch, over):
-    """Families and weight formats outside the slice are refused by Model."""
+    """Families outside the slice (compressed MoE among them) are refused
+    by Model; an unknown weight format is a ValueError, as in the
+    reference."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model
-    with pytest.raises(UnsupportedConfigError):
+    exc = ValueError if "weight_format" in over else UnsupportedConfigError
+    with pytest.raises(exc):
         Model(get_config(arch, "smoke", **over), device="cpu")
 
 
