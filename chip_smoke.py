@@ -8,32 +8,45 @@ Phases (one line each, with its seconds; any failure exits nonzero):
 1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``
               (one nvcc per source, all started together).
 2. kernels  — each kernel against its plain PyTorch version on the card.
-              TDA: the ``kernels/tda/ref.py`` oracle over gathered lanes, on
-              the CPU tests' edge cases at small width (f32 and bf16) and
-              the full-width shapes of phase 4 (bf16); max abs diff <= 1e-3
-              on the f32 outputs of attended decode rows and live mixed
-              columns, exact zeros from the kernel everywhere else. DMM and
-              SMM: the CPU tests' edge cases (f32 and bf16 x) and every
-              linear family of qwen2.5-32b at full width at M = 8 (a decode
-              step) and M = 2048 (a mixed step); max abs diff <= 1e-3 x
-              max(1, max |plain|) (f32 sums in another order over K up to
-              27648). Times each kernel (L2 flushed before every launch),
+              TDA: the ``kernels/tda/ref.py`` oracle (over gathered lanes for
+              the paged kernels), on the CPU tests' edge cases at small width
+              (f32 and bf16; contiguous lanes of ragged widths 37, 48, 130;
+              hi <= lo rows, windows, FREE block-table entries; int8 codes
+              with f32 scales for both decode kernels) and the full-width
+              shapes of phase 4 (bf16, and int8 K/V with bf16 queries); max
+              abs diff <= 1e-3 on the f32 outputs of attended decode rows and
+              live mixed columns, exact zeros from the kernel everywhere
+              else. DMM and SMM: the CPU tests' edge cases (f32 and bf16 x)
+              and every linear family of qwen2.5-32b at full width at M = 8
+              (a decode step) and M = 2048 (a mixed step); max abs diff <=
+              1e-3 x max(1, max |plain|) (f32 sums in another order over K up
+              to 27648). Times each kernel (L2 flushed before every launch),
               its plain version, one PyTorch call computing the same
-              function (``library_ms``: SDPA over the gathered lanes, or
-              ``torch.matmul`` against the densified matrix; a yardstick the
-              port never calls) and its bound.
-3. tokens   — float32 qwen2.5 smoke: the Engine on the TDA kernels gives
-              the plain path's tokens (``decode_attn="dense"``); and the
-              compressed smoke Engine on the DMM/SMM kernels gives the
-              tokens of the same Engine over the explicitly decompressed
-              factors (plain ``(x @ ws) @ wd``).
+              function (``library_ms``: SDPA over the (gathered) lanes — for
+              int8 lanes over lanes dequantized to bf16 beforehand, the
+              dequantization untimed — or ``torch.matmul`` against the
+              densified matrix; a yardstick the port never calls) and its
+              bound.
+3. tokens   — float32 qwen2.5 smoke: the mixed Engine on the TDA kernels
+              gives the plain path's tokens (``decode_attn="dense"``); the
+              phase-serialized Engine over contiguous and over paged lanes
+              gives the plain path's tokens and the mixed Engine's; with
+              int8 ``kv_quant`` lanes, contiguous and paged give the same
+              tokens as each other and as the plain path; and the compressed
+              smoke Engine on the DMM/SMM kernels gives the tokens of the
+              same Engine over the explicitly decompressed factors (plain
+              ``(x @ ws) @ wd``).
 4. serve    — the main path at full width: qwen2.5-32b (d_model 5120, 40/8
               heads, d_head 128, d_ff 27648, vocab 152064; depth cut to 8
               of 64 layers), random weights from torch.Generator seed 0,
               16 greedy requests (8 up front, 8 arriving mid-run) through
-              ``Engine.run``. Every request must end ``ok`` and both TDA
-              kernels must launch exactly once per layer per step of their
-              kind.
+              ``Engine.run`` of the mixed-step engine; then, on the same
+              params, through three phase-serialized engines: contiguous
+              bf16 lanes, contiguous int8 lanes, and the default ``kv_quant``
+              engine (paged int8 lanes). Every request must end ``ok`` with
+              ``max_new_tokens`` valid tokens, and each TDA kernel must
+              launch exactly once per layer per step of its kind (zero times
+              in engines that do not run it).
 5. compressed — the same model factorized (T-REX defaults: rank 0.625,
               nnz 0.125 of the rank), its f32 weights drawn on the card,
               W_D projected and the whole tree compressed on the card, then
@@ -46,6 +59,8 @@ Then the card's name and power limit, the kernels' JSON line, and last the
 device JSON line. Exits nonzero with no result without a CUDA device or
 outside a checkout of the repository.
 """
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -129,6 +144,26 @@ def small_decode_cases(np):
                 bounds[4] = [ps + 2, ps]  # hi <= lo
                 q = rng.standard_normal((B, Hq, 16)).astype(np.float32)
                 yield q, k, v, bounds, bt
+
+
+def small_contig_cases(np):
+    """Contiguous lanes of ragged widths (no multiple of 32 or 128): an
+    empty lane, one token, a partial and a full lane, a hi <= lo row, a
+    window; G = 2 and 5."""
+    for Hq, Hkv in ((4, 2), (10, 2)):
+        for S in (37, 48, 130):
+            for window in (None, 5):
+                rng = np.random.default_rng(S + Hq)
+                B = 6
+                lengths = np.array([0, 1, S // 2 + 3, S, 7, S - 2])
+                lo = np.zeros_like(lengths) if window is None \
+                    else np.maximum(lengths - window, 0)
+                bounds = np.stack([lo, lengths], 1).astype(np.int32)
+                bounds[4] = [9, 7]  # hi <= lo
+                q = rng.standard_normal((B, Hq, 16)).astype(np.float32)
+                k = rng.standard_normal((B, S, Hkv, 16)).astype(np.float32)
+                v = rng.standard_normal((B, S, Hkv, 16)).astype(np.float32)
+                yield q, k, v, bounds
 
 
 def small_mixed_cases(np):
@@ -269,6 +304,7 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
     from repro_torch.kernels.tda.ref import (decode_attention_reference,
                                              mixed_attention_reference)
+    from repro_torch.models.layers import kv_dequantize, kv_quantize
     dev = torch.device("cuda")
 
     def T(a, dt=None):
@@ -278,10 +314,15 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     # Plain versions: the ref.py oracle over gathered lanes. Each kernel is
     # compared on what it must compute (attended decode rows, live mixed
     # columns) and must write exact zeros elsewhere.
-    def plain_decode(q, k, v, bounds, bt):
+    def plain_decode(q, k, v, bounds, bt, ks=None, vs=None):
+        return plain_contig(q, gather(k, bt), gather(v, bt), bounds,
+                            None if ks is None else gather(ks, bt),
+                            None if vs is None else gather(vs, bt))
+
+    def plain_contig(q, k, v, bounds, ks=None, vs=None):
         hi, lo = bounds[:, 1:].long(), bounds[:, :1].long()
-        return decode_attention_reference(q, gather(k, bt), gather(v, bt), hi,
-                                          window=hi - lo)
+        return decode_attention_reference(q, k, v, hi, k_scale=ks,
+                                          v_scale=vs, window=hi - lo)
 
     def plain_mixed(q, k, v, kr, vr, bounds, bt, **kw):
         return mixed_attention_reference(q, gather(k, bt), gather(v, bt), kr,
@@ -294,7 +335,9 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
             fail(f"{name} vs plain: max abs diff {e} (limit {TOL}); zeros "
                  f"outside the live part: {not got[~live].any().item()}")
 
-    err = {"tda_paged_decode_attention": 0.0, "tda_mixed_attention": 0.0}
+    err = {"tda_paged_decode_attention": 0.0, "tda_mixed_attention": 0.0,
+           "tda_decode_attention": 0.0, "tda_decode_attention.int8": 0.0,
+           "tda_paged_decode_attention.int8": 0.0}
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         for case in small_decode_cases(np):
@@ -303,7 +346,27 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
             check("tda_paged_decode_attention",
                   tda.tda_paged_decode_attention(*args), plain_decode(*args),
                   live)
-            n_cases += 1
+            # int8 pools (codes of the same values) through the same table
+            q, k, v, bounds, bt = args
+            kq, ks = kv_quantize(T(case[1]))
+            vq, vs = kv_quantize(T(case[2]))
+            check("tda_paged_decode_attention.int8",
+                  tda.tda_paged_decode_attention(q, kq, vq, bounds, bt, ks,
+                                                 vs),
+                  plain_decode(q, kq, vq, bounds, bt, ks, vs), live)
+            n_cases += 2
+        for case in small_contig_cases(np):
+            q, k, v, bounds = [T(a, dt) for a in case]
+            live = bounds[:, 1] > bounds[:, 0]
+            check("tda_decode_attention",
+                  tda.tda_decode_attention(q, k, v, bounds),
+                  plain_contig(q, k, v, bounds), live)
+            kq, ks = kv_quantize(T(case[1]))
+            vq, vs = kv_quantize(T(case[2]))
+            check("tda_decode_attention.int8",
+                  tda.tda_decode_attention(q, kq, vq, bounds, ks, vs),
+                  plain_contig(q, kq, vq, bounds, ks, vs), live)
+            n_cases += 2
         for case, kw in small_mixed_cases(np):
             args = [T(a, dt) for a in case]
             live = torch.arange(args[0].shape[1], device=dev)[None] \
@@ -351,6 +414,73 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
         "shape": {"B": int(q.shape[0]), "Hq": Hq, "Hkv": Hkv, "D": D,
                   "page_size": int(k.shape[1]), "pool_pages": int(k.shape[0]),
                   "tokens_attended": int(lens.sum()), "dtype": "bfloat16"}})
+
+    # --- contiguous decode over the same slots: lanes of cache_len (544)
+    # positions, the engine's contiguous layout; then int8 codes of the
+    # same values (contiguous and paged) with q in bf16.
+    tokens = int(lens.sum())
+    B = int(q.shape[0])
+    qo_bytes = q.numel() * 2 + got.numel() * 4 + bounds.numel() * 4
+    kl = gather(k, bt)[:, :cache_len].contiguous()
+    vl = gather(v, bt)[:, :cache_len].contiguous()
+    lmask = mask[:, :cache_len][:, None, None, :]
+    kq, ks = kv_quantize(kl)
+    vq, vs = kv_quantize(vl)
+    kpq, kps = kv_quantize(k)
+    vpq, vps = kv_quantize(v)
+    live = bounds[:, 1] > bounds[:, 0]
+    # SDPA yardsticks over bf16 lanes; the int8 ones over lanes dequantized
+    # beforehand (untimed)
+    sdpa_in = {"fp": (kl, vl), "int8": (kv_dequantize(kq, ks, bf),
+                                        kv_dequantize(vq, vs, bf)),
+               "paged_int8": (kv_dequantize(gather(kpq, bt), gather(kps, bt),
+                                            bf)[:, :cache_len],
+                              kv_dequantize(gather(vpq, bt), gather(vps, bt),
+                                            bf)[:, :cache_len])}
+
+    def sdpa(which):
+        kk, vv = (t.permute(0, 2, 1, 3) for t in sdpa_in[which])
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=lmask, enable_gqa=True)
+
+    variants = (
+        ("tda_decode_attention", "tda_decode.cu",
+         "src/repro/kernels/tda/tda.py:168",
+         lambda: tda.tda_decode_attention(q, kl, vl, bounds),
+         lambda: plain_contig(q, kl, vl, bounds), "fp", Hkv * D * 2 * 2, 0,
+         "bfloat16"),
+        ("tda_decode_attention.int8", "tda_decode.cu",
+         "src/repro/kernels/tda/tda.py:168",
+         lambda: tda.tda_decode_attention(q, kq, vq, bounds, ks, vs),
+         lambda: plain_contig(q, kq, vq, bounds, ks, vs), "int8",
+         Hkv * (D + 4) * 2, 0, "int8 k/v + f32 scales, bf16 q"),
+        ("tda_paged_decode_attention.int8", "tda_paged_decode.cu",
+         "src/repro/kernels/tda/tda.py:220",
+         lambda: tda.tda_paged_decode_attention(q, kpq, vpq, bounds, bt, kps,
+                                                vps),
+         lambda: plain_decode(q, kpq, vpq, bounds, bt, kps, vps),
+         "paged_int8", Hkv * (D + 4) * 2, bt.numel() * 4,
+         "int8 k/v + f32 scales, bf16 q"))
+    for name, src, repl, fn, plain, lib, tok_b, extra, dtype in variants:
+        check(name, fn(), plain(), live)
+        bms, by = bound(tokens * tok_b + qo_bytes + extra,
+                        4 * tokens * Hq * D, 2)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": repl, "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, sdpa(lib)),
+            "library": "SDPA over " + ("bf16 lanes" if lib == "fp" else
+                                       "lanes dequantized to bf16 "
+                                       "beforehand (untimed)"),
+            "bound_ms": bms, "bound_by": by,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
+                      "lane": int(cache_len) if lib != "paged_int8" else
+                      {"page_size": int(k.shape[1]),
+                       "pool_pages": int(k.shape[0])},
+                      "tokens_attended": tokens, "dtype": dtype}})
+    del kl, vl, kq, vq, kpq, vpq, sdpa_in
 
     # --- mixed step
     q, k, v, kr, vr, bnd, bt = [T(a, bf) for a in mix]
@@ -406,7 +536,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     torch.cuda.synchronize()
     line("kernels_full", **{r["name"]: {k: r[k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "max_abs_err", "shape")} for r in rows})
+        "max_abs_err", "shape") + (("library",) if "library" in r else ())}
+        for r in rows})
     return rows
 
 
@@ -574,13 +705,40 @@ def phase_tokens(torch):
         for mode in ("tda", "dense"):
             tda.reset_launch_counts()
             outs[mode], _ = run(model, params, budget, decode_attn=mode)
-            if mode == "tda" and not all(tda.LAUNCHES.values()):
+            if mode == "tda" and not (
+                    tda.LAUNCHES["tda_paged_decode_attention"]
+                    and tda.LAUNCHES["tda_mixed_attention"]):
                 fail(f"tda engine did not launch both kernels: {tda.LAUNCHES}")
         if outs["tda"] != outs["dense"]:
             fail(f"tokens differ, kernels vs plain path (budget {budget}): "
                  f"{outs}")
         checked.append(budget)
     n_tok = sum(len(v) for v in outs["tda"].values())
+
+    # Phase-serialized engine: contiguous and paged lanes, on the kernels
+    # and on the plain path, fp (against the mixed engine's tokens), then
+    # int8 kv_quant lanes (against each other and the plain path).
+    kernel_of = {False: "tda_decode_attention",
+                 True: "tda_paged_decode_attention"}
+    for quant in (False, True):
+        m = Model(dataclasses.replace(cfg, kv_quant=True)) if quant \
+            else model
+        want = None if quant else outs["tda"]
+        for paged in (False, True):
+            for mode in ("tda", "dense"):
+                tda.reset_launch_counts()
+                got_s, _ = run(m, params, None, decode_attn=mode, paged=paged,
+                               mixed=False)
+                if mode == "tda" and (not tda.LAUNCHES[kernel_of[paged]]
+                                      or tda.LAUNCHES["tda_mixed_attention"]
+                                      or tda.LAUNCHES[kernel_of[not paged]]):
+                    fail(f"serialized engine (paged={paged}, kv_quant="
+                         f"{quant}) launched {tda.LAUNCHES}")
+                want = got_s if want is None else want
+                if got_s != want:
+                    fail(f"serialized tokens differ (paged={paged}, "
+                         f"kv_quant={quant}, {mode}): {got_s} vs {want}")
+    ser_tok = sum(len(v) for v in want.values())
 
     # Compressed: the DMM/SMM kernels vs the same factors decompressed.
     fcfg = FactorizationConfig(enabled=True, min_dim=32, rank=32, nnz=8)
@@ -604,6 +762,10 @@ def phase_tokens(torch):
                  f"factors (budget {budget}): {got} vs {want}")
     line("tokens", seconds=round(time.perf_counter() - t0, 3),
          float32_smoke_identical=True, prefill_budgets=checked, tokens=n_tok,
+         serialized_identical={
+             "contiguous_and_paged_vs_mixed_and_plain": True,
+             "int8_contiguous_vs_paged_vs_plain": True},
+         serialized_int8_tokens=ser_tok,
          compressed_identical=True, compressed_prefill_budgets=[16, None],
          compressed_tokens=sum(len(v) for v in got.values()))
 
@@ -612,8 +774,11 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
     """Serve ``profile_serve.workload`` through ``Engine.run`` after one
     warm-up request, with every launch counter set to 0 just before the
     run and read just after. Checks every request ends ``ok`` with
-    ``max_new_tokens`` valid tokens and the TDA kernels launch once per
-    layer per step of their kind. Returns (summary dict, launches)."""
+    ``max_new_tokens`` valid tokens and each TDA kernel launches once per
+    layer per step of its kind: the mixed engine's paged decode and mixed
+    kernels, the serialized engine's contiguous or paged decode kernel
+    (every one of its steps is a decode step), and no other. Returns
+    (summary dict, launches)."""
     from repro_torch.kernels.dmm import dmm
     from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
@@ -631,6 +796,7 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
     eng.run()
     for r in up_front:
         eng.submit(r)
+    n_sweeps0 = len(eng.stats)
     torch.cuda.synchronize()
     for mod in (tda, dmm, smm):
         mod.reset_launch_counts()
@@ -652,16 +818,27 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
         fail("a request's output has the wrong length or an invalid token")
     L = cfg.n_layers
     n_dec = st["steps"] - st["mixed_steps"]
-    if launches["tda_paged_decode_attention"] != L * n_dec or \
-            launches["tda_mixed_attention"] != L * st["mixed_steps"] or \
-            not launches["tda_paged_decode_attention"] or \
-            not launches["tda_mixed_attention"]:
-        fail(f"launch counts {launches} != {L} layers x ({n_dec} decode, "
-             f"{st['mixed_steps']} mixed) steps")
+    want = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
+            "tda_mixed_attention": L * st["mixed_steps"]}
+    want["tda_paged_decode_attention" if eng.paged
+         else "tda_decode_attention"] = L * n_dec
+    n_used = sum(1 for n in want.values() if n)
+    if any(launches[k] != n for k, n in want.items()) or \
+            n_used != (2 if eng.mixed else 1):
+        fail(f"launch counts {launches}, want {want}: {L} layers x "
+             f"({n_dec} decode, {st['mixed_steps']} mixed) steps")
     ttft = sorted(v["wall_s"] for v in st["ttft"].values())
     toks = sum(len(r.output) for r in done)
+    sweeps = eng.stats[n_sweeps0:]
+
+    def median(v):
+        return float(np.median(v)) if v else None
+
     summary = dict(
         model=cfg.name, weight_format=cfg.weight_format,
+        engine="mixed" if eng.mixed else "serialized",
+        lanes="paged" if eng.paged else "contiguous",
+        kv="int8" if cfg.kv_quant else str(cfg.compute_dtype).split(".")[1],
         d_model=cfg.d_model, n_layers=L,
         reduced={"n_layers": "64 -> 8 (depth only)"},
         requests=len(done), ok=len(done), output_tokens=toks,
@@ -669,11 +846,17 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
         output_tok_s=toks / wall,
         ttft_p50_s=float(np.percentile(ttft, 50)),
         ttft_p99_s=float(np.percentile(ttft, 99)),
-        decode_step_ms_median=float(np.median(st["step_ms"]["decode"])),
-        mixed_step_ms_median=float(np.median(st["step_ms"]["mixed"])),
+        decode_step_ms_median=median(st["step_ms"]["decode"]),
+        mixed_step_ms_median=median(st["step_ms"]["mixed"]),
+        prefill_sweep_ms_median=median(st["step_ms"]["prefill"]),
+        prefill_sweeps=len(st["step_ms"]["prefill"]),
+        prefill_utilization_mean=(float(np.mean(
+            [w["utilization"] for w in sweeps])) if not eng.mixed else None),
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         slot_utilization=st["slot_utilization"],
         kv_memory_ratio=st["kv_memory_ratio"],
+        kv_blocks_visited=st["kv_blocks_visited"],
+        kv_bytes_per_token=st["kv_bytes_per_token"],
         weight_bytes_per_step=st["weight_bytes_per_step"],
         bytes_per_token=st["bytes_per_token"], launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
@@ -681,6 +864,9 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
 
 
 def phase_serve(torch, np, full_cfg, engine_kw):
+    """The mixed-step serve, then the three phase-serialized serves on the
+    same params (contiguous bf16, contiguous int8, the default kv_quant
+    engine: paged int8). Returns (mixed summary, launches per serve)."""
     from repro_torch.models.transformer import Model
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -688,10 +874,42 @@ def phase_serve(torch, np, full_cfg, engine_kw):
     params = model.init(seed=0)
     init_s = time.perf_counter() - t0
     summary, launches = serve_run(torch, np, model, params, engine_kw)
-    del params
     line("serve", seconds=round(time.perf_counter() - t0, 3),
          init_s=init_s, **summary)
-    return summary, launches
+    runs = {"mixed": launches}
+    qmodel = Model(dataclasses.replace(full_cfg, kv_quant=True))
+    kv_bytes = {}
+    for label, m, kw in (("contiguous_bf16", model,
+                          dict(paged=False, mixed=False)),
+                         ("contiguous_int8", qmodel, dict(paged=False)),
+                         ("paged_int8", qmodel, {})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        ser, runs[label] = serve_run(torch, np, m, params, engine_kw, **kw)
+        if ser["engine"] != "serialized":
+            fail(f"{label}: the {ser['engine']} engine served it")
+        kv_bytes[label] = (ser["kv_bytes_per_token"],
+                           ser["kv_blocks_visited"])
+        line("serve_serialized", label=label,
+             seconds=round(time.perf_counter() - t1, 3), **ser)
+    # int8 lanes move (D + 4) / (2 D) of the bf16 lanes' K/V bytes at equal
+    # visited blocks
+    D = full_cfg.head_dim
+    ratios = {}
+    for label in ("contiguous_int8", "paged_int8"):
+        if kv_bytes[label][1] != kv_bytes["contiguous_bf16"][1]:
+            fail(f"{label}: visited blocks differ from the bf16 serve's "
+                 f"{kv_bytes}")
+        ratios[label] = kv_bytes[label][0] / kv_bytes["contiguous_bf16"][0]
+        if abs(ratios[label] - (D + 4) / (2 * D)) > 1e-9:
+            fail(f"{label}: kv bytes/token ratio {ratios[label]} != "
+                 f"{(D + 4) / (2 * D)}")
+    line("serve_serialized_kv_bytes", ratio_vs_contiguous_bf16=ratios,
+         expected=(D + 4) / (2 * D))
+    del params
+    return summary, runs
 
 
 def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
@@ -769,15 +987,28 @@ def main():
     rows = timed("kernels", phase_kernels, torch, np, full_cfg, engine_kw)
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
     timed("tokens", phase_tokens, torch)
-    dense, launches = timed("serve", phase_serve, torch, np, full_cfg,
-                            engine_kw)
+    dense, runs = timed("serve", phase_serve, torch, np, full_cfg,
+                        engine_kw)
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
-    # Each kernel's launches come from the main-path run that uses it: the
-    # TDA kernels' from phase 4, DMM's and SMM's from phase 5.
+    # Each kernel's launches come from the main-path run that uses it (the
+    # int8 rows from the int8 serves): the TDA kernels' from phase 4, DMM's
+    # and SMM's from phase 5.
+    source = {"tda_paged_decode_attention": ("mixed", None),
+              "tda_mixed_attention": ("mixed", None),
+              "tda_decode_attention": ("contiguous_bf16", None),
+              "tda_decode_attention.int8": ("contiguous_int8",
+                                            "tda_decode_attention"),
+              "tda_paged_decode_attention.int8": (
+                  "paged_int8", "tda_paged_decode_attention")}
     for r in rows:
-        r["launches"] = (claunches if r["name"] in ("dmm_matmul", "smm_matmul")
-                         else launches)[r["name"]]
+        if r["name"] in ("dmm_matmul", "smm_matmul"):
+            r["launches"] = claunches[r["name"]]
+        else:
+            run, key = source[r["name"]]
+            r["launches"] = runs[run][key or r["name"]]
+        if not r["launches"]:
+            fail(f"{r['name']} was not launched by its main-path run")
     line("seconds", total=round(sum(seconds.values()), 3), **seconds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

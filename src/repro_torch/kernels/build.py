@@ -1,12 +1,13 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
-Each source under ``kernels/csrc/`` is one self-contained ``.cu`` file with
-a plain C interface. ``build_all`` compiles every source that has no
-up-to-date library yet, one ``nvcc`` process per source, all started
-together, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-Every C entry point returns ``cudaGetLastError()`` after its launch.
+Each source under ``kernels/csrc/`` is one ``.cu`` file with a plain C
+interface (the two decode kernels share ``tda_decode_body.cuh``).
+``build_all`` compiles every source that has no up-to-date library yet, one
+``nvcc`` process per source, all started together, into ``build/kernels/``
+at the root of the checkout (listed in ``.gitignore``). A library's file
+name carries a hash of its source, the shared headers and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Every C entry
+point returns ``cudaGetLastError()`` after its launch.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ __all__ = ["SOURCES", "build_all", "load", "build_dir"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> source file under csrc/
-SOURCES = {"tda_paged_decode": "tda_paged_decode.cu",
+SOURCES = {"tda_decode": "tda_decode.cu",
+           "tda_paged_decode": "tda_paged_decode.cu",
            "tda_mixed": "tda_mixed.cu",
            "dmm": "dmm.cu",
            "smm": "smm.cu"}
@@ -31,10 +33,11 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: (pointers..., int shape args..., dtype
-# code, [scale,] stream); every one returns an int.
+# code, [quant flag,] [scale,] stream); every one returns an int.
 _ARGTYPES = {
+    "tda_decode": {"tda_decode": [_P] * 7 + [_I] * 5 + [_I, _I, _F, _P]},
     "tda_paged_decode": {
-        "tda_paged_decode": [_P] * 6 + [_I] * 7 + [_I, _F, _P]},
+        "tda_paged_decode": [_P] * 8 + [_I] * 7 + [_I, _I, _F, _P]},
     "tda_mixed": {"tda_mixed": [_P] * 8 + [_I] * 10 + [_I, _F, _P]},
     "dmm": {"dmm": [_P] * 5 + [_I] * 4 + [_I, _P],
             "dmm_splits": [_I] * 3},
@@ -66,7 +69,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
+    src = (_CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

@@ -1,6 +1,9 @@
-"""Public TDA ops over paged slot lanes (``repro.kernels.tda.ops``, paged
-branches only): bound preparation, the paged addressing helpers, and the
-choice between the kernel wrappers and the dense reference."""
+"""Public TDA ops over slot lanes (``repro.kernels.tda.ops``): bound
+preparation, the paged addressing helpers, and the choice between the
+kernel wrappers and the dense reference. Contiguous lanes go to the
+kernel at their own width: the reference pads every lane to a multiple of
+``block_k`` on every call, which would copy each layer's whole lane a
+decode step; the kernel masks the ragged tail from the bounds instead."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +15,7 @@ from repro_torch.kernels.tda.ref import (
     mixed_attention_reference,
 )
 from repro_torch.kernels.tda.tda import (
+    tda_decode_attention,
     tda_mixed_attention,
     tda_paged_decode_attention,
 )
@@ -45,35 +49,47 @@ def gather_paged_lanes(pool: torch.Tensor,
 
 def fused_decode_attention(
     q: torch.Tensor,        # (B, 1, Hq, D) or (B, Hq, D)
-    k: torch.Tensor,        # (P, page_size, Hkv, D) page pool
+    k: torch.Tensor,        # (B, S, Hkv, D) lanes or (P, ps, Hkv, D) pool
     v: torch.Tensor,
     lengths,                # scalar or (B,): valid lane depth per slot
     *,
-    block_table: torch.Tensor,  # (B, n)
+    k_scale: Optional[torch.Tensor] = None,  # int8 codes' f32 scales
+    v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    block_table: Optional[torch.Tensor] = None,  # (B, n): paged pool
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Length-predicated decode attention over paged lanes: positions
-    ``[max(0, lengths - window), lengths)`` are attended, slots with
-    ``lengths <= 0`` return zeros. Output has ``q``'s shape and dtype."""
+    """Length-predicated decode attention over contiguous lanes or, with
+    ``block_table``, paged lanes: positions ``[max(0, lengths - window),
+    lengths)`` are attended, slots with ``lengths <= 0`` return zeros.
+    ``k``/``v`` are fp, or int8 codes with ``k_scale``/``v_scale`` (their
+    shape without the last axis). Output has ``q``'s shape and dtype."""
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
     if not use_kernel:
-        out = decode_attention_reference(
-            q, gather_paged_lanes(k, block_table),
-            gather_paged_lanes(v, block_table), lengths, window=window)
+        lanes = [t if t is None or block_table is None
+                 else gather_paged_lanes(t, block_table)
+                 for t in (k, v, k_scale, v_scale)]
+        out = decode_attention_reference(q, lanes[0], lanes[1], lengths,
+                                         k_scale=lanes[2], v_scale=lanes[3],
+                                         window=window)
     else:
         B = q.shape[0]
-        S = block_table.shape[1] * k.shape[1]  # logical lane width
+        S = k.shape[1] if block_table is None \
+            else block_table.shape[1] * k.shape[1]  # logical lane width
         hi = torch.clamp(torch.as_tensor(lengths, device=q.device)
                          .reshape(-1).expand(B), 0, S)
         lo = torch.zeros_like(hi) if window is None \
             else torch.clamp(hi - window, min=0)
         bounds = torch.stack([lo, hi], dim=1).to(torch.int32)
-        out = tda_paged_decode_attention(
-            q.contiguous(), k, v, bounds,
-            block_table.to(torch.int32).contiguous())
+        if block_table is None:
+            out = tda_decode_attention(q.contiguous(), k, v, bounds,
+                                       k_scale, v_scale)
+        else:
+            out = tda_paged_decode_attention(
+                q.contiguous(), k, v, bounds,
+                block_table.to(torch.int32).contiguous(), k_scale, v_scale)
     out = out.to(q.dtype)
     return out[:, None] if squeeze else out
 

@@ -33,9 +33,12 @@ def decode_attention_reference(
     v: torch.Tensor,
     lengths,          # scalar or (B,): valid positions are [lo, lengths)
     *,
+    k_scale: Optional[torch.Tensor] = None,  # (B, S, Hkv) when k is int8
+    v_scale: Optional[torch.Tensor] = None,
     window=None,      # None, scalar or (B,): lo = lengths - window
 ) -> torch.Tensor:
     """Dense decode attention; masked softmax over every cache position.
+    int8 codes (``k_scale``/``v_scale`` given) are dequantized in f32 first.
     Rows with ``lengths <= 0`` return zeros. Returns f32."""
     squeeze = q.dim() == 4
     if squeeze:
@@ -44,7 +47,9 @@ def decode_attention_reference(
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) / math.sqrt(D)
+    kf = k.float() if k_scale is None else k.float() * k_scale[..., None]
+    vf = v.float() if v_scale is None else v.float() * v_scale[..., None]
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kf) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
     hi = _rows(lengths, B, q.device)
     valid = pos[None, :] < hi
@@ -52,7 +57,7 @@ def decode_attention_reference(
         valid &= pos[None, :] >= (hi - _rows(window, B, q.device))
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    o = torch.einsum("bhgk,bkhd->bhgd", p, vf)
     o = torch.where(hi > 0, o.reshape(B, Hq * D), 0.0).reshape(B, Hq, D)
     return o[:, None] if squeeze else o
 

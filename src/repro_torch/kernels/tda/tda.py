@@ -1,12 +1,15 @@
 """TDA attention kernels: wrappers over the hand-written CUDA kernels.
 
-``tda_paged_decode_attention`` and ``tda_mixed_attention`` take the same
-arguments as the reference's Pallas kernels (``repro.kernels.tda.tda``).
-On CUDA tensors they launch the kernels built from ``kernels/csrc/``
-(``tda_paged_decode.cu``, ``tda_mixed.cu``) on the current stream, or
+``tda_decode_attention``, ``tda_paged_decode_attention`` and
+``tda_mixed_attention`` take the same arguments as the reference's Pallas
+kernels (``repro.kernels.tda.tda``). On CUDA tensors they launch the
+kernels built from ``kernels/csrc/`` (``tda_decode.cu``,
+``tda_paged_decode.cu``, ``tda_mixed.cu``) on the current stream, or
 raise: there is no fallback. On CPU tensors they run the kernels' plain
-PyTorch versions, the oracle of ``ref.py`` over gathered lanes, which is
-also what the kernels are held against on the card.
+PyTorch versions, the oracle of ``ref.py`` (over gathered lanes for the
+paged kernels), which is also what the kernels are held against on the
+card. The two decode kernels also take int8 K/V codes with f32
+per-(token, head) scales, dequantized inside the kernel.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls are not counted),
 so a run can show that its path went through the kernels.
@@ -23,11 +26,12 @@ from repro_torch.kernels.tda.ref import (
     mixed_attention_reference,
 )
 
-__all__ = ["tda_paged_decode_attention", "tda_mixed_attention", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["tda_decode_attention", "tda_paged_decode_attention",
+           "tda_mixed_attention", "LAUNCHES", "reset_launch_counts"]
 
-LAUNCHES = {"tda_paged_decode_attention": 0, "tda_mixed_attention": 0}
-MAX_GROUP = 8     # query rows per kv head the decode kernel holds
+LAUNCHES = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
+            "tda_mixed_attention": 0}
+MAX_GROUP = 8     # query rows per kv head the decode kernels hold
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,7 +48,7 @@ def _gather(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 
 
 def _check(name: str, tensors, fp, ints) -> int:
-    """Device / dtype / contiguity checks shared by both wrappers; returns
+    """Device / dtype / contiguity checks shared by the wrappers; returns
     the kernel's dtype code."""
     dev = tensors[0].device
     for t in tensors:
@@ -63,6 +67,27 @@ def _check(name: str, tensors, fp, ints) -> int:
     return _DTYPE_CODE[next(iter(dts))]
 
 
+def _decode_inputs(name: str, q, k, v, k_scale, v_scale, ints):
+    """Checks for the decode kernels, fp or int8 K/V: returns ``(dtype
+    code, quant flag, k_scale pointer, v_scale pointer)``. int8 codes need
+    contiguous f32 scales shaped like the codes without their last axis."""
+    quant = k_scale is not None or v_scale is not None
+    if not quant:
+        return _check(name, (q, k, v) + ints, (q, k, v), ints), 0, 0, 0
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{name}: int8 lanes need both k_scale and v_scale")
+    code = _check(name, (q, k, v, k_scale, v_scale) + ints, (q,), ints)
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"{name}: with scales, k/v must be int8 codes, got "
+                        f"{k.dtype}/{v.dtype}")
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or t.shape != k.shape[:-1]:
+            raise TypeError(f"{name}: scales must be float32 of shape "
+                            f"{tuple(k.shape[:-1])}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    return code, 1, k_scale.data_ptr(), v_scale.data_ptr()
+
+
 def _heads(name: str, Hq: int, Hkv: int, D: int, max_group: int) -> None:
     if Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv}")
@@ -76,21 +101,63 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def tda_paged_decode_attention(q, k, v, bounds, block_table) -> torch.Tensor:
-    """Paged slot-decode attention. q (B, Hq, D); k/v page pools (P,
-    page_size, Hkv, D) fp; bounds (B, 2) int32 ``[lo, hi)`` in logical
-    lane coordinates; block_table (B, n) int32 (entries are clamped to
-    ``[0, P-1]``; those outside ``[lo, hi)`` are never read). Returns
-    (B, Hq, D) f32, zeros where ``hi <= lo``."""
+def _plain_decode(q, k, v, bounds, k_scale, v_scale) -> torch.Tensor:
+    """The decode kernels' plain version over (gathered) lanes: ``[lo,
+    hi)`` attended, zeros where ``hi <= lo``."""
+    lo, hi = bounds[:, 0:1].long(), bounds[:, 1:2].long()
+    out = decode_attention_reference(q, k, v, hi, k_scale=k_scale,
+                                     v_scale=v_scale, window=hi - lo)
+    return torch.where((hi > lo)[:, :, None], out, 0.0)
+
+
+def tda_decode_attention(q, k, v, bounds, k_scale=None,
+                         v_scale=None) -> torch.Tensor:
+    """Slot-decode attention over contiguous lanes. q (B, Hq, D); k/v
+    (B, S, Hkv, D) in q's dtype, or int8 codes with ``k_scale``/``v_scale``
+    (B, S, Hkv) f32; bounds (B, 2) int32 ``[lo, hi)``, clamped to ``[0,
+    S]`` (any S: the ragged tail needs no padding). Returns (B, Hq, D)
+    f32, zeros where ``hi <= lo``."""
     if q.device.type == "cpu":
-        lo, hi = bounds[:, 0:1].long(), bounds[:, 1:2].long()
-        out = decode_attention_reference(
-            q, _gather(k, block_table), _gather(v, block_table), hi,
-            window=hi - lo)
-        return torch.where((hi > lo)[:, :, None], out, 0.0)
+        return _plain_decode(q, k, v, bounds, k_scale, v_scale)
+    name = "tda_decode_attention"
+    code, quant, ksp, vsp = _decode_inputs(name, q, k, v, k_scale, v_scale,
+                                           (bounds,))
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or bounds.shape != (B, 2):
+        raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
+                         f"{tuple(bounds.shape)}")
+    _heads(name, Hq, Hkv, D, MAX_GROUP)
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    from repro_torch.kernels.build import load
+    fn = load("tda_decode").tda_decode
+    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
+                       bounds.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, S,
+                       code, quant, 1.0 / math.sqrt(D),
+                       torch.cuda.current_stream(q.device).cuda_stream))
+    LAUNCHES[name] += 1
+    return out
+
+
+def tda_paged_decode_attention(q, k, v, bounds, block_table, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
+    """Paged slot-decode attention. q (B, Hq, D); k/v page pools (P,
+    page_size, Hkv, D) in q's dtype, or int8 codes with ``k_scale`` /
+    ``v_scale`` pools (P, page_size, Hkv) f32 read through the same block
+    table; bounds (B, 2) int32 ``[lo, hi)`` in logical lane coordinates;
+    block_table (B, n) int32 (entries are clamped to ``[0, P-1]``; those
+    outside ``[lo, hi)`` are never read). Returns (B, Hq, D) f32, zeros
+    where ``hi <= lo``."""
+    if q.device.type == "cpu":
+        sc = [None if t is None else _gather(t, block_table)
+              for t in (k_scale, v_scale)]
+        return _plain_decode(q, _gather(k, block_table),
+                             _gather(v, block_table), bounds, *sc)
     name = "tda_paged_decode_attention"
-    code = _check(name, (q, k, v, bounds, block_table), (q, k, v),
-                  (bounds, block_table))
+    code, quant, ksp, vsp = _decode_inputs(name, q, k, v, k_scale, v_scale,
+                                           (bounds, block_table))
     B, Hq, D = q.shape
     P, ps, Hkv = k.shape[0], k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[3] != D or bounds.shape != (B, 2) \
@@ -102,10 +169,10 @@ def tda_paged_decode_attention(q, k, v, bounds, block_table) -> torch.Tensor:
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_paged_decode").tda_paged_decode
-    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
                        bounds.data_ptr(), block_table.data_ptr(),
                        out.data_ptr(), B, Hq, Hkv, D, P, ps,
-                       block_table.shape[1], code, 1.0 / math.sqrt(D),
+                       block_table.shape[1], code, quant, 1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
     LAUNCHES[name] += 1
     return out

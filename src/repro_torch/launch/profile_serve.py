@@ -1,26 +1,32 @@
 """Where the time goes in the full-width serve: the workload of
 ``chip_smoke.py``'s serve phase under ``torch.profiler``.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
+      [--serialized] [--contiguous] [--kv-quant]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
 published widths, depth cut to 8 layers, random weights from seed 0),
 serves :func:`workload` once to warm up, once plainly and once under the
-profiler, and prints one JSON object: for each step kind (mixed, decode)
-the step count, the mean host wall per step with and without the
-profiler, the mean device-busy time per step (union of kernel intervals)
+profiler, and prints one JSON object: for each step kind (mixed, decode,
+and the prefill sweeps of the phase-serialized engine) the step count,
+the mean host wall per step with and without the profiler, the mean
+device-busy time per step (union of kernel intervals)
 and its split by kernel category, and the device's idle share against the
 unprofiled host step time (the profiler itself slows the host). Kernels
 are assigned to the step whose host range contains their start: every
 step ends in a host sync, so its kernels finish inside its range. With
 ``--compressed`` it profiles :func:`compressed_config` instead, served
 from the compressed streams (weights projected and compressed on the card
-first). Needs a CUDA device.
+first). ``--serialized``, ``--contiguous`` and ``--kv-quant`` select the
+phase-serialized engine, contiguous lanes and int8 K/V lanes (the last two
+imply the serialized engine), as ``launch/serve.py`` does. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Dict, List, Tuple
@@ -35,8 +41,11 @@ __all__ = ["ENGINE_KW", "serve_config", "compressed_config", "workload",
 # paged lanes of 128-token pages and mixed steps of chunk width 256.
 ENGINE_KW = dict(max_len=256, max_new_tokens=32, num_slots=8)
 
+_KINDS = {"mixed": "_run_mixed", "decode": "_run_decode",
+          "prefill": "_prefill_admission"}
 _CATEGORIES = (
-    ("tda_paged_decode", ("paged_decode_kernel",)),
+    ("tda_paged_decode", ("pagedaddr",)),
+    ("tda_decode", ("laneaddr",)),
     ("tda_mixed", ("mixed_kernel",)),
     ("dmm", ("dmm_kernel", "sum_splits")),
     ("smm", ("smm_kernel",)),
@@ -104,8 +113,13 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--compressed", action="store_true")
+    ap.add_argument("--serialized", action="store_true")
+    ap.add_argument("--contiguous", action="store_true")
+    ap.add_argument("--kv-quant", action="store_true")
     args = ap.parse_args(argv)
     cfg = compressed_config() if args.compressed else serve_config()
+    if args.kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
     kw = ENGINE_KW
     model = Model(cfg)
     params = model.init(seed=0)
@@ -115,7 +129,9 @@ def main(argv=None):
             project_wd_leaves(params, cfg.factorization))
         wsb = stats["weight_stream_bits"]
     eng = Engine(model, params, config=EngineConfig(
-        prefix_share=False, weight_stream_bits=wsb, **kw))
+        prefix_share=False, weight_stream_bits=wsb,
+        paged=not args.contiguous,
+        mixed=False if args.serialized else None, **kw))
     del params
     warm, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
     eng.submit(warm)
@@ -126,17 +142,17 @@ def main(argv=None):
     for r in up_front:
         eng.submit(r)
     eng.run(arrivals=arrivals)
-    plain_ms = {k: float(np.mean(v))
+    plain_ms = {k: float(np.mean(v)) if v else 0.0
                 for k, v in eng.decode_stats["step_ms"].items()}
     _, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
 
-    for kind in ("mixed", "decode"):
-        fn = getattr(eng, f"_run_{kind}")
+    for kind, attr in _KINDS.items():
+        fn = getattr(eng, attr)
 
         def wrapped(*a, _fn=fn, _name=f"serve.{kind}_step"):
             with record_function(_name):
                 return _fn(*a)
-        setattr(eng, f"_run_{kind}", wrapped)
+        setattr(eng, attr, wrapped)
     for r in up_front:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -152,14 +168,14 @@ def main(argv=None):
     steps = [(e.name.split(".")[1].split("_")[0], e.time_range.start,
               e.time_range.end) for e in events
              if e.device_type == DeviceType.CPU
-             and e.name in ("serve.mixed_step", "serve.decode_step")]
+             and e.name in {f"serve.{k}_step" for k in _KINDS}]
     kernels = [(e.name, e.time_range.start, e.time_range.end) for e in events
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith("serve.")]
     steps.sort(key=lambda s: s[1])
     starts = np.array([s[1] for s in steps])
     per: Dict[str, dict] = {}
-    for kind in ("mixed", "decode"):
+    for kind in _KINDS:
         per[kind] = {"steps": 0, "host_ms": 0.0, "by_category_ms": {},
                      "intervals": []}
     for kind, a, b in steps:
@@ -176,6 +192,9 @@ def main(argv=None):
         p["intervals"].append((a, b))
     out = {"model": cfg.name, "n_layers": cfg.n_layers,
            "weight_format": model.cfg.weight_format,
+           "engine": "mixed" if eng.mixed else "serialized",
+           "lanes": "paged" if eng.paged else "contiguous",
+           "kv_quant": cfg.kv_quant,
            "device": torch.cuda.get_device_name(0),
            "requests": len(done), "wall_s": wall,
            "kernel_events": len(kernels)}

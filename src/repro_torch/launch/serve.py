@@ -1,14 +1,18 @@
-"""Serving launcher: the mixed-step engine over synthetic request traffic.
+"""Serving launcher: the engine over synthetic request traffic.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       [--variant full] [--n-layers 8] [--requests 8] [--max-len 64] \\
-      [--max-new 8] [--device cuda]
+      [--max-new 8] [--serialized] [--contiguous] [--kv-quant] \\
+      [--device cuda]
 
 The reference launcher's flags, plus ``--n-layers`` (cut the depth: the
-full 64-layer qwen2.5-32b does not fit one 80 GB card with f32 params) and
-``--device``. Weights are random (``Model.init``, seed 0); ``--ckpt`` is
-refused until checkpoints are ported. Runs on the CUDA device unless
-``--device cpu`` is given.
+full 64-layer qwen2.5-32b does not fit one 80 GB card with f32 params),
+the engine's lanes and prefill (``--serialized``: packed / chunked prefill
+sweeps instead of mixed steps; ``--contiguous``: contiguous lanes instead
+of page pools; ``--kv-quant``: int8 K/V lanes — the last two imply the
+serialized engine) and ``--device``. Weights are random (``Model.init``,
+seed 0); ``--ckpt`` is refused until checkpoints are ported. Runs on the
+CUDA device unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -43,6 +47,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--serialized", action="store_true")
+    ap.add_argument("--contiguous", action="store_true")
+    ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     if args.ckpt:
@@ -50,12 +57,15 @@ def main(argv=None):
             "--ckpt: checkpoint restore comes with a later slice of the "
             "port (ROADMAP Queue 1 item 12)")
     over = {} if args.n_layers is None else {"n_layers": args.n_layers}
+    if args.kv_quant:
+        over["kv_quant"] = True
     cfg = get_config(args.arch, args.variant, **over)
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)
     eng = Engine(model, params, config=EngineConfig(
         max_len=args.max_len, max_new_tokens=args.max_new,
-        prefix_share=False))
+        prefix_share=False, paged=not args.contiguous,
+        mixed=False if args.serialized else None))
     rng = np.random.default_rng(0)
     for rid, n in enumerate(request_lengths(args.requests, args.max_len)):
         eng.submit(Request(rid=rid, prompt=rng.integers(
@@ -69,7 +79,11 @@ def main(argv=None):
     print(f"served {len(done)} requests on {model.device} | {toks} tokens "
           f"in {wall:.3f} s ({toks / max(wall, 1e-9):.1f} tok/s) | decode "
           f"slot utilization {ds['slot_utilization']:.2f} over "
-          f"{ds['steps']} steps ({ds['mixed_steps']} mixed)")
+          f"{ds['steps']} steps ({ds['mixed_steps']} mixed, "
+          f"{len(eng.stats)} admission rounds) | "
+          f"{'mixed' if eng.mixed else 'serialized'} engine, "
+          f"{'paged' if eng.paged else 'contiguous'} "
+          f"{'int8' if cfg.kv_quant else 'fp'} lanes")
 
 
 if __name__ == "__main__":

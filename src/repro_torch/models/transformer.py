@@ -48,10 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the rmsnorm + swiglu + RoPE block is ported "
             f"(got act={cfg.act!r}, norm={cfg.norm!r}); the others come "
             "with a later slice (ROADMAP Queue 1 item 3)")
-    if cfg.kv_quant:
-        raise UnsupportedConfigError(
-            f"{cfg.name}: int8 kv_quant lanes come with a later slice "
-            "(ROADMAP Queue 1 item 7)")
 
 
 def _tree_map(fn, tree):
@@ -188,19 +184,33 @@ class Model:
         return max_len
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zero contiguous caches ``(L, batch, max_len, Hkv, D)``."""
+        """Zero contiguous caches ``(L, batch, max_len, Hkv, D)`` in the
+        compute dtype, or, with ``kv_quant``, int8 codes plus f32
+        ``k_scale``/``v_scale`` ``(L, batch, max_len, Hkv)``. (The page
+        pools of the slot table are ``init_cache(num_pages, page_size)``.)"""
         cfg = self.cfg
         shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=self.device)}
+
+        def zeros(shp, dt):
+            return torch.zeros(shp, dtype=dt, device=self.device)
+
+        if cfg.kv_quant:
+            return {"k": zeros(shape, torch.int8),
+                    "v": zeros(shape, torch.int8),
+                    "k_scale": zeros(shape[:-1], torch.float32),
+                    "v_scale": zeros(shape[:-1], torch.float32)}
+        return {"k": zeros(shape, cfg.compute_dtype),
+                "v": zeros(shape, cfg.compute_dtype)}
 
     def cache_lane_specs(self) -> Dict[str, str]:
-        return {"k": "kv", "v": "kv"}
+        """Per-leaf lane kinds of :meth:`init_cache`: every leaf is a
+        per-token ``"kv"`` lane."""
+        return {name: "kv" for name in (
+            ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant
+            else ("k", "v"))}
 
-    def _stack(self, params, x, *, positions, caches, cache_index,
-               slot_mask, pages, n_new):
+    def _stack(self, params, x, *, positions, caches, cache_index=None,
+               slot_mask=None, pages=None, n_new=None, seg_ids=None):
         cfg = self.cfg
         lay = params["layers"]
         dicts = params.get("dicts")
@@ -210,7 +220,8 @@ class Model:
             x = x + L.attention_block(
                 lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
                 cache=caches, layer_idx=i, cache_index=cache_index,
-                pages=pages, slot_mask=slot_mask, n_new=n_new)
+                pages=pages, slot_mask=slot_mask, n_new=n_new,
+                seg_ids=seg_ids)
             h2 = L.apply_norm(lp["norm2"], x)
             x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
         return L.apply_norm(params["final_norm"], x)
@@ -218,24 +229,58 @@ class Model:
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg)
 
+    def hidden(self, params: Dict, batch: Dict, *,
+               caches: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+        """Full-sequence forward up to the final norm: ``(h (B, S, d),
+        caches)``. batch ``{"inputs": (B, S)}`` with optional
+        ``"positions"`` (default ``0..S-1``) and ``"seg_ids"`` (packed
+        rows; 0 is padding). With ``caches`` (contiguous, :meth:`init_cache`
+        with at least S positions) every layer writes its K/V at positions
+        ``[0, S)``, in place."""
+        tokens = batch["inputs"]
+        B, S = tokens.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device)[None] \
+                .expand(B, S)
+        x = L.embed_tokens(params["embed"], tokens, self.cfg)
+        h = self._stack(params, x, positions=positions.long(),
+                        caches=caches, seg_ids=batch.get("seg_ids"))
+        return h, caches
+
+    def apply(self, params: Dict, batch: Dict, *,
+              caches: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+        """:meth:`hidden` with all-position logits ``(B, S, V)`` f32. (The
+        reference also returns an aux loss, which only MoE stacks make.)"""
+        h, caches = self.hidden(params, batch, caches=caches)
+        return self.logits(params, h), caches
+
+    def prefill(self, params: Dict, batch: Dict, *,
+                max_len: int = 0) -> Tuple[torch.Tensor, Any]:
+        """Forward that fills fresh caches of ``max(max_len, S)`` positions;
+        returns the last position's logits ``(B, 1, V)`` and the caches."""
+        B, S = batch["inputs"].shape
+        caches = self.init_cache(B, max(max_len, S))
+        h, caches = self.hidden(params, batch, caches=caches)
+        return self.logits(params, h[:, -1:]), caches
+
     def decode_step(self, params: Dict, batch: Dict, caches,
                     cache_index: torch.Tensor, *,
                     slot_mask: Optional[torch.Tensor] = None,
-                    pages: Dict) -> Tuple[torch.Tensor, Any]:
-        """One-token step over paged lanes. batch ``{"inputs": (B, 1)}``;
-        ``cache_index`` (B,) tokens resident per row (the new token is
-        written there); ``slot_mask`` (B,) rows allowed to write; ``pages``
-        ``{"bt": (B, n) int32, "width": lane width, "page_size": int}``.
-        Returns ``(logits (B, 1, V) f32, caches)``; the page pools in
-        ``caches`` are updated in place."""
+                    pages: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+        """One-token step over contiguous lanes, or paged lanes when
+        ``pages`` is given. batch ``{"inputs": (B, 1)}``; ``cache_index``
+        (B,) tokens resident per row (the new token is written there);
+        ``slot_mask`` (B,) rows allowed to write; ``pages`` ``{"bt": (B, n)
+        int32, "width": lane width, "page_size": int}``. Returns ``(logits
+        (B, 1, V) f32, caches)``; the caches are updated in place."""
         tokens = batch["inputs"]
         B = tokens.shape[0]
-        ci = cache_index.reshape(-1).to(torch.int64)
-        positions = ci.reshape(-1, 1).expand(B, 1)
+        ci = cache_index.reshape(-1).to(torch.int64).expand(B)
+        positions = ci.reshape(-1, 1)
         x = L.embed_tokens(params["embed"], tokens, self.cfg)
         h = self._stack(params, x, positions=positions, caches=caches,
-                        cache_index=ci, slot_mask=slot_mask, pages=pages,
-                        n_new=None)
+                        cache_index=ci, slot_mask=slot_mask, pages=pages)
         return self.logits(params, h), caches
 
     def mixed_hidden(self, params: Dict, batch: Dict, caches,

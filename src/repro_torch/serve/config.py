@@ -2,10 +2,14 @@
 with the reference's fields and defaults, whose :meth:`EngineConfig.validate`
 holds every construction-time refusal.
 
-This slice serves the paged, mixed-step, greedy path. Settings outside it
-raise :class:`~repro_torch.core.errors.UnsupportedConfigError` naming the
-later slice (ROADMAP Queue 1) that brings them — never silently ignored,
-since each of them changes admission or tokens. The reference's default
+The port serves greedy decoding of attention-only stacks through the
+mixed-step engine (paged, unquantized lanes) or the phase-serialized one
+(contiguous or paged lanes, fp or int8 ``kv_quant``); ``mixed=None``
+picks the mixed step where the stack can take it, as the reference does.
+Settings outside the port so far raise
+:class:`~repro_torch.core.errors.UnsupportedConfigError` naming the later
+slice (ROADMAP Queue 1) that brings them — never silently ignored, since
+each of them changes admission or tokens. The reference's default
 ``prefix_share=True`` is one of them: pass ``prefix_share=False``.
 """
 from __future__ import annotations
@@ -74,14 +78,13 @@ class EngineConfig:
             raise UnsupportedConfigError(
                 "only attention-only stacks are served; recurrent layers "
                 "come with a later slice (ROADMAP Queue 1 item 10)")
-        if not self.paged:
+        if self.mixed and not traits["mixed_ok"]:
             raise UnsupportedConfigError(
-                f"contiguous lanes (paged=False) {_LATER}")
-        if self.mixed is False:
-            raise UnsupportedConfigError(
-                f"the phase-serialized prefill engine (mixed=False) {_LATER}")
-        if model_cfg.kv_quant:
-            raise UnsupportedConfigError(f"int8 kv_quant lanes {_LATER}")
+                "mixed-step serving needs a paged, attention-only, "
+                f"unquantized-KV stack: got paged={traits['paged']}, "
+                f"recurrent={traits['recurrent']}, "
+                f"kv_quant={model_cfg.kv_quant}. Drop mixed=True to use "
+                "the phase-serialized engine.")
         if self.temperature > 0 or self.top_k is not None:
             raise UnsupportedConfigError(
                 f"seeded sampling (temperature > 0 / top_k) {_LATER}; "

@@ -1,29 +1,42 @@
-"""Continuous-batching serving engine over paged KV lanes with mixed
-chunked-prefill steps (``repro.serve.engine``, the paged / mixed / greedy
-path).
+"""Continuous-batching serving engine (``repro.serve.engine``, greedy).
 
-Every admitted prompt streams through per-step chunks of ONE fixed-shape
-mixed step: up to ``prefill_budget`` fresh prompt tokens per step (oldest
-admission first), packed with every active decode slot, each chunk's K/V
-written straight into the slot's paged lane (``Model.mixed_step``). A new
-request claims a free slot immediately — there is no prefill sweep and no
-lane copy. Steps with nobody prefilling run the ``(B, 1)`` decode step.
-Finished requests (budget or ``eos_id``) release their slot and pages, and
-freed slots are refilled from the queue mid-decode.
+Two engines share the slot table, the run loop and the accounting:
 
-What the reference does that this slice refuses (``EngineConfig.validate``
-and here): preemption when the pool runs dry, prefix sharing, the
-phase-serialized engine, sampling, faults, audits, meshes and fleets.
-Deadlines (``ttl_steps``), load shedding (``max_pending``), never-admissible
+* the **mixed-step** engine (``mixed=True``, the default where the stack
+  can take it: paged, unquantized lanes): every admitted prompt streams
+  through per-step chunks of ONE fixed-shape mixed step, up to
+  ``prefill_budget`` fresh prompt tokens per step (oldest admission
+  first), packed with every active decode slot, each chunk's K/V written
+  straight into the slot's paged lane (``Model.mixed_step``). A new
+  request claims a free slot immediately; steps with nobody prefilling run
+  the ``(B, 1)`` decode step.
+* the **phase-serialized** engine (``mixed=False``, and the default for
+  ``kv_quant`` or contiguous lanes): each admission round is one prefill
+  sweep per admission group — short prompts packed into shared rows with
+  segment ids (T-REX dynamic batching, :meth:`Scheduler.next_admissions`),
+  each long prompt alone in ``max_len`` chunks — whose caches
+  ``SlotKVCache.assign_many`` copies into the claimed lanes; every step
+  after that is the ``(B, 1)`` decode step over contiguous (``paged=False``)
+  or paged lanes, fp or int8 (``kv_quant``).
+
+Finished requests (budget or ``eos_id``) release their slot (and pages),
+and freed slots are refilled from the queue mid-decode.
+
+What the reference does that the port refuses so far
+(``EngineConfig.validate`` and here): preemption when the pool runs dry,
+prefix sharing, sampling, faults, audits, meshes and fleets. Deadlines
+(``ttl_steps``), load shedding (``max_pending``), never-admissible
 rejection, the non-finite-logits guard and the no-progress watchdog are
-kept, as are ``run(arrivals=...)`` and the ``decode_stats`` counters.
+kept, as are ``run(arrivals=...)``, the ``decode_stats`` counters and one
+``stats`` entry per prefill sweep.
 
 **Estimated HBM traffic** (``weight_bytes_per_token``,
 ``kv_bytes_per_token``, ``bytes_per_token``), as the reference reports it:
 every step streams the whole weight set once — ``weight_stream_bits``
 (the audited number from ``Model.compress_params``) or, when it is not
 given, every leaf of the params as passed at its in-memory width — plus
-the K/V of the blocks the predicated attention visits.
+the K/V of the blocks the predicated attention visits (int8 codes and
+their f32 scales under ``kv_quant``).
 """
 from __future__ import annotations
 
@@ -41,7 +54,8 @@ from repro_torch.kernels.tda.ref import block_stats
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.kv_slots import SlotKVCache
 from repro_torch.serve.sampling import greedy_tokens
-from repro_torch.serve.scheduler import TERMINAL_STATUSES, Request, Scheduler
+from repro_torch.serve.scheduler import (TERMINAL_STATUSES, Admission,
+                                         Request, Scheduler)
 
 __all__ = ["Engine", "EngineConfig", "StepResult"]
 
@@ -77,7 +91,7 @@ class _RunState:
     chunk_tokens: int = 0
     idle: int = 0
     step_ms: Dict[str, List[float]] = dataclasses.field(
-        default_factory=lambda: {"decode": [], "mixed": []})
+        default_factory=lambda: {"decode": [], "mixed": [], "prefill": []})
 
 
 class Engine:
@@ -90,7 +104,7 @@ class Engine:
                     f"Engine({name}=...) comes with a later slice of the "
                     f"port (ROADMAP Queue 1 item {item})")
         cfg_e = config if config is not None else EngineConfig()
-        cfg_e.validate(model.cfg)
+        traits = cfg_e.validate(model.cfg)
         self.config = cfg_e
         self.device = model.device
         self.model = model
@@ -100,17 +114,25 @@ class Engine:
         self.eos_id = cfg_e.eos_id
         self.max_prompt_len = cfg_e.max_prompt_len or 2 * self.max_len
         self.cache_len = self.max_prompt_len + self.max_new
-        self.scheduler = Scheduler(max_prompt_len=self.max_prompt_len)
+        self.scheduler = Scheduler(max_len=self.max_len,
+                                   max_rows=cfg_e.max_rows,
+                                   max_prompt_len=self.max_prompt_len)
         self.decode_attn = resolve_decode_attn(cfg_e.decode_attn, self.device)
         self._dmodel = model.with_decode_attn(self.decode_attn,
                                               cfg_e.decode_block_k)
+        self._block_k = self._dmodel.cfg.decode_block_k
         # One page is one kv block of the predicated attention.
-        self.page_size = cfg_e.page_size or self._dmodel.cfg.decode_block_k
-        self._block_k = self.page_size
+        self.paged = traits["paged"]
+        self.page_size = (cfg_e.page_size or self._block_k) \
+            if self.paged else None
+        if self.paged:
+            self._block_k = self.page_size
         self.slots = SlotKVCache(model, num_slots, self.cache_len,
                                  page_size=self.page_size,
                                  pool_frac=cfg_e.pool_frac,
                                  page_cap=cfg_e.page_cap)
+        self.mixed = traits["mixed_ok"] if cfg_e.mixed is None \
+            else bool(cfg_e.mixed)
         self.prefill_budget = cfg_e.prefill_budget
         self._chunk_width = max(1, min(self.max_len,
                                        cfg_e.prefill_budget or self.max_len))
@@ -123,14 +145,18 @@ class Engine:
             if cfg_e.weight_stream_bits is not None
             else float(params_stream_bits(params)) if params is not None
             else 0.0)
-        # KV: bytes per cached token the predicated attention visits.
+        # KV: bytes per cached token the predicated attention visits (int8
+        # codes + per-(token, head) f32 scales under kv_quant).
         c = model.cfg
-        self._kv_token_bytes = (2 * c.kv_heads * c.head_dim
+        self._kv_token_bytes = (2 * c.kv_heads * (c.head_dim + 4)
+                                if c.kv_quant else
+                                2 * c.kv_heads * c.head_dim
                                 * c.compute_dtype.itemsize)
         self.params = self._dmodel.prepare(params) if params is not None \
             else None
         self._admit_seq = np.zeros(num_slots, np.int64)
         self._seq = 0
+        self.stats: List[Dict] = []  # one entry per prefill sweep
         self.decode_stats: Dict = {}
         self.max_pending = cfg_e.max_pending
         self.default_ttl = cfg_e.default_ttl_steps
@@ -162,7 +188,8 @@ class Engine:
                 f"max_pending={self.max_pending})")
             return
         pool = self.slots.pool
-        for w, need in pool.class_needs(len(req.prompt) + 1).items():
+        for w, need in (pool.class_needs(len(req.prompt) + 1).items()
+                        if self.paged else ()):
             cap = pool.classes[w].num_pages
             if need > cap:
                 self._finish_terminal(
@@ -246,7 +273,8 @@ class Engine:
                 done.extend(self._terminal)
                 self._terminal.clear()
             progressed = self._expire(done) > 0
-            self._ensure_pages()
+            if self.paged:
+                self._ensure_pages()
             for s in range(self.num_slots):
                 if not sl.active[s]:
                     pending[s] = None
@@ -254,8 +282,12 @@ class Engine:
                 free = sl.free_slots()
                 if free.size:
                     n_done = len(done)
-                    admitted = self._admit_mixed(free, cur, emitted, budget,
-                                                 pending, done)
+                    if self.mixed:
+                        admitted = self._admit_mixed(free, cur, emitted,
+                                                     budget, pending, done)
+                    else:
+                        admitted = self._admit(free, cur, emitted, budget,
+                                               done)
                     progressed |= admitted > 0 or len(done) > n_done
             active_ix = np.flatnonzero(sl.active)
             if active_ix.size == 0:
@@ -276,7 +308,9 @@ class Engine:
         finally:
             self._events = None
 
-    def _pages_arg(self) -> Dict:
+    def _pages_arg(self) -> Optional[Dict]:
+        if not self.paged:
+            return None
         bt = self.slots.pool.device_tables()[self._width][:self.num_slots]
         return {"bt": bt, "width": self._width, "page_size": self.page_size}
 
@@ -376,7 +410,8 @@ class Engine:
         self._device_time += 1
         st.steps += 1
         st.active_slot_steps += active_ix.size
-        st.pages_used_steps += sl.pool.pages_in_use()
+        if self.paged:
+            st.pages_used_steps += sl.pool.pages_in_use()
         for s in active_ix:
             sl.advance(s)
             tok = int(nxt[s])
@@ -433,11 +468,13 @@ class Engine:
             "kv_blocks_visited": st.blocks_visited,
             "kv_blocks_dense": st.blocks_dense,
             "kv_block_ratio": st.blocks_visited / max(st.blocks_dense, 1),
-            "paged": True,
+            "paged": self.paged,
             "preemptions": 0,
-            "kv_pages_total": sl.pool.total_pages,
+            # contiguous lanes hold everything up front: ratio 1.0
+            "kv_pages_total": sl.pool.total_pages if self.paged else 0,
             "kv_memory_ratio": (st.pages_used_steps
-                                / max(st.steps * sl.pool.total_pages, 1)),
+                                / max(st.steps * sl.pool.total_pages, 1)
+                                if self.paged else 1.0),
             # Estimated HBM bytes per decoded token: the weights streamed
             # once per step plus the KV blocks actually visited.
             "weight_format": self.model.cfg.weight_format,
@@ -456,7 +493,7 @@ class Engine:
             "completed_ok": self._counts["ok"],
             "clock_ticks": self._clock,
             "device_time": self._device_time,
-            "mixed": True,
+            "mixed": self.mixed,
             "prefill_budget": self.prefill_budget,
             "mixed_steps": st.mixed_steps,
             "prefill_chunk_tokens": st.chunk_tokens,
@@ -512,16 +549,18 @@ class Engine:
         req._ttft_dev = self._device_time - getattr(req, "_submit_dev",
                                                     self._device_time)
 
-    def _page_reserve(self, chunk: int):
+    def _page_reserve(self, chunk: Optional[int] = None):
         """Admission control over the page budget: a request reserves the
-        pages of its first chunk's span plus one position (FIFO
-        head-blocking once the budget would overcommit)."""
+        pages of its prompt's span plus one position — for the mixed step
+        (``chunk``) only its first chunk's span — with FIFO head-blocking
+        once the budget would overcommit."""
         pool = self.slots.pool
         ps = pool.page_size
         avail = {w: c.available() for w, c in pool.classes.items()}
 
         def reserve(req: Request) -> bool:
-            span = min(len(req.prompt), chunk)
+            span = len(req.prompt) if chunk is None \
+                else min(len(req.prompt), chunk)
             consume = {w: -(-min(span + 1, c.width) // ps)
                        for w, c in pool.classes.items()}
             if any(n > avail[w] for w, n in consume.items()):
@@ -562,7 +601,97 @@ class Engine:
             budget[slot] = total_budget
             self._admit_seq[slot] = self._seq
             self._seq += 1
+        if n_processed:
+            # One entry per admission round: chunk rows carry no padding
+            # (rows=0 flags the sweepless mixed path).
+            self.stats.append({"rows": 0, "n_requests": n_processed,
+                               "utilization": 1.0})
         return n_processed
+
+    def _admit(self, free: np.ndarray, cur, emitted, budget,
+               done: List[Request]) -> int:
+        """Prefill one round of admissions into the free slots (one sweep
+        per admission group, each group's lanes in one ``assign_many``);
+        returns the number of requests processed. With paged lanes the
+        run loop grows active lanes before admitting and ``assign_many``
+        holds each new lane's first decode page, so an admitted request
+        always reaches its first decode step."""
+        groups = self.scheduler.next_admissions(
+            len(free), reserve=self._page_reserve() if self.paged else None)
+        fi = 0
+        n_processed = 0
+        for adm in groups:
+            n_processed += len(adm.requests)
+            firsts, caches, slots_of = self._prefill_admission(adm)
+            assigns = []
+            for req, first, (row, start, length) in zip(adm.requests,
+                                                        firsts, slots_of):
+                total_budget = min(req.max_new_tokens, self.max_new)
+                if len(req.output) >= total_budget:
+                    self._finish(req, "ok", None, done)  # nothing left
+                    continue
+                first = int(first)
+                if first < 0:
+                    self._finish(req, "failed", "non-finite logits (NaN/Inf) "
+                                 "in the prefill sweep", done)
+                    continue
+                self._emit(req, first)
+                self._note_ttft(req)
+                if len(req.output) >= total_budget or first == self.eos_id:
+                    self._finish(req, "ok", None, done)  # slot stays free
+                    continue
+                slot = int(free[fi])
+                fi += 1
+                assigns.append((slot, req, row, start, length))
+                cur[slot] = first
+                emitted[slot] = len(req.output)
+                budget[slot] = total_budget
+                self._admit_seq[slot] = self._seq
+                self._seq += 1
+            self.slots.assign_many(assigns, caches)
+        return n_processed
+
+    @torch.inference_mode()
+    def _prefill_admission(self, adm: Admission):
+        """One prefill sweep: returns ``(first tokens (n,) on the host,
+        filled caches (L, rows, width, ...), per-request (row, start,
+        length))``. Packed rows are padded to a power of two (padding rows
+        ride segment id 0, fully masked), as the reference bounds its
+        compiled shapes. Logits are taken only at each request's last
+        prompt position."""
+        if adm.packed is not None:
+            packed = adm.packed
+            rows = packed.rows
+            pad = ((0, (1 << (rows - 1).bit_length()) - rows), (0, 0))
+            tokens, positions, seg = (np.pad(a, pad) for a in (
+                packed.tokens, packed.positions, packed.segment_ids))
+            slots_of = list(packed.request_slots)
+        else:  # solo long prompt, chunked
+            prompt = np.concatenate(adm.chunks)
+            width = len(adm.chunks) * self.max_len
+            n = len(prompt)
+            tokens = np.zeros((1, width), np.int32)
+            seg = np.zeros((1, width), np.int32)
+            tokens[0, :n] = prompt
+            seg[0, :n] = 1
+            positions = np.arange(width, dtype=np.int32)[None]
+            slots_of = [(0, 0, n)]
+            rows = 1
+        t0 = time.perf_counter()
+        caches = self._dmodel.init_cache(*tokens.shape)
+        h, caches = self._dmodel.hidden(
+            self.params, {"inputs": self._tensor(tokens),
+                          "positions": self._tensor(positions),
+                          "seg_ids": self._tensor(seg)}, caches=caches)
+        last = np.array([[r, s + n - 1] for r, s, n in slots_of], np.int64)
+        logits = self._dmodel.logits(self.params, h[self._tensor(last[:, 0]),
+                                                    self._tensor(last[:, 1])])
+        firsts = greedy_tokens(logits).cpu().numpy()  # the sweep's host sync
+        self._st.step_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
+        self._device_time += int(tokens.shape[1])
+        self.stats.append({"rows": rows, "n_requests": len(adm.requests),
+                           "utilization": adm.utilization})
+        return firsts, caches, slots_of
 
     def _finish(self, req: Request, status: str, reason: Optional[str],
                 done: List[Request]) -> None:

@@ -1,8 +1,20 @@
-"""Iteration-level request queue (``repro.serve.scheduler``, the parts
-the mixed-step engine uses): :class:`Request` and a FIFO
-:class:`Scheduler` whose :meth:`Scheduler.next_mixed` pops queue-head
-requests for chunked admission under a page-budget ``reserve`` callback
-(head-blocking, never skip-ahead, so admission order is deterministic)."""
+"""Iteration-level request queue (``repro.serve.scheduler``): the FIFO
+:class:`Scheduler` and its two admission forms.
+
+* :meth:`Scheduler.next_admissions` (the phase-serialized engine) groups
+  queue-head requests into prefill sweeps: short prompts (<= ``max_len``)
+  packed first-fit-decreasing into shared ``(rows, max_len)`` rows with
+  segment ids (T-REX dynamic batching, ``core/packing.py``), and each
+  longer prompt alone, chunked into a solo row of ``len(chunks) *
+  max_len`` tokens.
+* :meth:`Scheduler.next_mixed` (the mixed-step engine) pops requests for
+  chunk-granular admission.
+
+Both stop at the first queue head that a page-budget ``reserve`` callback
+refuses (head-blocking, never skip-ahead), so admission order is
+deterministic. Prefix-sharing probes and the row-per-request layout of
+recurrent stacks (``pack=False``) are refused in this slice.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -10,9 +22,12 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.core.packing import (PackedBatch, PackingPolicy,
+                                      chunk_prompt, pack_requests)
 from repro_torch.serve.sampling import SamplingParams
 
-__all__ = ["Request", "Scheduler", "TERMINAL_STATUSES"]
+__all__ = ["Request", "Admission", "Scheduler", "TERMINAL_STATUSES"]
 
 TERMINAL_STATUSES = ("ok", "rejected", "shed", "timed_out", "failed",
                      "cancelled")
@@ -38,12 +53,41 @@ class Request:
             self.output = []
 
 
-class Scheduler:
-    """FIFO admission queue. ``max_prompt_len`` (when set) is the hard
-    cache-capacity bound a prompt may not exceed. (The reference's packing
-    knobs, ``max_len``/``max_rows``, belong to the serialized prefill.)"""
+@dataclasses.dataclass
+class Admission:
+    """One prefill sweep's worth of admitted requests: a ``packed`` batch
+    of short prompts, or one long prompt's ``chunks`` (its prefill row is
+    ``len(chunks) * max_len`` wide)."""
 
-    def __init__(self, max_prompt_len: Optional[int] = None):
+    requests: List[Request]
+    packed: Optional[PackedBatch] = None
+    chunks: Optional[List[np.ndarray]] = None
+
+    @property
+    def utilization(self) -> float:
+        """Filled fraction of the prefill token slots this sweep."""
+        if self.packed is not None:
+            return float((self.packed.segment_ids > 0).mean())
+        total = sum(len(c) for c in self.chunks)
+        return total / max(len(self.chunks) * len(self.chunks[0]), 1)
+
+
+class Scheduler:
+    """FIFO admission queue with packing. ``max_len`` is the packed row
+    width (longer prompts are chunked), ``max_per_row`` the packing depth,
+    ``max_rows`` the rows of one packed sweep; ``max_prompt_len`` (when
+    set) is the hard cache-capacity bound a prompt may not exceed."""
+
+    def __init__(self, max_len: int = 128, max_per_row: int = 4,
+                 max_rows: int = 8, max_prompt_len: Optional[int] = None,
+                 pack: bool = True):
+        if not pack:
+            raise UnsupportedConfigError(
+                "row-per-request admissions (pack=False, recurrent stacks) "
+                "come with a later slice of the port (ROADMAP Queue 1 "
+                "item 10)")
+        self.policy = PackingPolicy(max_len=max_len, max_per_row=max_per_row)
+        self.max_rows = max_rows
         self.max_prompt_len = max_prompt_len
         self.queue: List[Request] = []
 
@@ -73,6 +117,39 @@ class Scheduler:
             (dropped if pred(r) else kept).append(r)
         self.queue = kept
         return dropped
+
+    def next_admissions(self, free_slots: int, reserve=None,
+                        probe=None) -> List[Admission]:
+        """Admit up to ``free_slots`` queue-head requests that ``reserve``
+        accepts, as admission groups: each prompt longer than ``max_len``
+        its own chunked group, in queue order, then one packed group of the
+        short ones. A packing wider than ``max_rows`` rows hands its last
+        requests back to the queue head."""
+        if probe is not None:
+            raise UnsupportedConfigError(
+                "prefix-sharing probes come with a later slice of the port "
+                "(ROADMAP Queue 1 item 7)")
+        groups: List[Admission] = []
+        shorts: List[Request] = []
+        taken = 0
+        while (self.queue and taken < free_slots
+               and (reserve is None or reserve(self.queue[0]))):
+            req = self.queue.pop(0)
+            if len(req.prompt) > self.policy.max_len:
+                groups.append(Admission(
+                    requests=[req],
+                    chunks=chunk_prompt(req.prompt, self.policy.max_len)))
+            else:
+                shorts.append(req)
+            taken += 1
+        if shorts:
+            packed = pack_requests([r.prompt for r in shorts], self.policy)
+            while packed.rows > self.max_rows and len(shorts) > 1:
+                self.queue.insert(0, shorts.pop())
+                packed = pack_requests([r.prompt for r in shorts],
+                                       self.policy)
+            groups.append(Admission(requests=shorts, packed=packed))
+        return groups
 
     def next_mixed(self, free_slots: int, reserve=None) -> List[Request]:
         """Pop up to ``free_slots`` queue-head requests that ``reserve``

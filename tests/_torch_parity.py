@@ -47,13 +47,13 @@ def t(a, device=CPU, dtype=None) -> torch.Tensor:
     return x if dtype is None else x.to(dtype)
 
 
-def jax_qwen_smoke(n_layers: int = 2, seed: int = 0):
+def jax_qwen_smoke(n_layers: int = 2, seed: int = 0, **over):
     """Float32 qwen2.5 smoke in the reference: (cfg, Model, params)."""
     import jax
     from repro.configs import get_config
     from repro.models.transformer import Model
     cfg = get_config("qwen2.5-32b", "smoke", dtype="float32",
-                     n_layers=n_layers)
+                     n_layers=n_layers, **over)
     m = Model(cfg)
     return cfg, m, m.init(jax.random.key(seed))
 

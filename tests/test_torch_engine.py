@@ -96,7 +96,8 @@ def test_port_imports_no_jax_or_reference():
             "repro_torch.models.bridge, repro_torch.kernels.build, "
             "repro_torch.core.compression, repro_torch.core.sparsity, "
             "repro_torch.kernels.dmm.ops, repro_torch.kernels.smm.ops, "
-            "repro_torch.launch.profile_serve\n"
+            "repro_torch.launch.profile_serve, repro_torch.core.packing, "
+            "repro_torch.serve.kv_slots, repro_torch.serve.scheduler\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -132,8 +133,12 @@ def _refusals():
     from repro_torch.serve import EngineConfig
     base = dict(prefix_share=False)
     return {
-        "mixed=False": (EngineConfig(mixed=False, **base), {}, {}),
-        "paged=False": (EngineConfig(paged=False, **base), {}, {}),
+        # the reference's own refusals: an explicit mixed=True needs paged,
+        # unquantized lanes (both serve through the serialized engine)
+        "kv_quant": (EngineConfig(mixed=True, **base), {},
+                     {"kv_quant": True}),
+        "paged=False": (EngineConfig(mixed=True, paged=False, **base), {},
+                        {}),
         "temperature": (EngineConfig(temperature=0.7, **base), {}, {}),
         "top_k": (EngineConfig(top_k=4, **base), {}, {}),
         "prefix_share": (EngineConfig(), {}, {}),
@@ -141,13 +146,13 @@ def _refusals():
         "faults": (EngineConfig(**base), {"faults": object()}, {}),
         "mesh": (EngineConfig(**base), {"mesh": object()}, {}),
         "fleet": (EngineConfig(**base), {"fleet": object()}, {}),
-        "kv_quant": (EngineConfig(**base), {}, {"kv_quant": True}),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_refusals()))
 def test_refused_engine_settings(name):
-    """Every setting outside the slice raises UnsupportedConfigError."""
+    """Every setting outside the port so far, and every setting the
+    reference refuses, raises UnsupportedConfigError."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError

@@ -1,7 +1,8 @@
-"""TDA attention parity: the port's paged-decode and mixed-step attention
-(kernel wrappers on CPU tensors run their plain versions) against the
-reference's Pallas kernels in interpret mode and its jnp oracle; plus, on a
-CUDA device only, each hand-written kernel against its plain version."""
+"""TDA attention parity: the port's decode attention over contiguous and
+paged lanes (fp and int8) and its mixed-step attention (kernel wrappers on
+CPU tensors run their plain versions) against the reference's Pallas
+kernels in interpret mode and its jnp oracle; plus, on a CUDA device only,
+each hand-written kernel against its plain version."""
 import numpy as np
 import pytest
 
@@ -58,6 +59,115 @@ def test_paged_decode_matches_reference(heads, ps, window):
         out = fused_decode_attention(tp.t(q), tp.t(k), tp.t(v),
                                      tp.t(lengths), block_table=tp.t(bt),
                                      window=window, use_kernel=use_kernel)
+        np.testing.assert_allclose(out.numpy(), jref, atol=tp.ATOL_ATTN,
+                                   rtol=0)
+
+
+def _quantized(rng, shape):
+    """int8 codes and f32 scales of random K/V (the codec's own output)."""
+    from repro_torch.models.layers import kv_quantize
+    codes, scale = kv_quantize(
+        tp.t(rng.standard_normal(shape).astype(np.float32)))
+    return codes.numpy(), scale.numpy()
+
+
+def _contig_case(seed, Hq, Hkv, S, window, quant):
+    """Contiguous lanes of a ragged width S: an empty lane, one token, a
+    partial lane, a full lane, a hi <= lo row and, without a window, a
+    length past S (clamped to the lane; with a window the reference's
+    kernel and oracle disagree there). Returns (q, k, v, k_scale, v_scale,
+    bounds, lengths)."""
+    rng = np.random.default_rng(seed)
+    B = 6
+    lengths = np.array([0, 1, S // 2 + 3, S, 7,
+                        S + 5 if window is None else S - 2], np.int32)
+    lo = np.zeros_like(lengths) if window is None \
+        else np.maximum(np.minimum(lengths, S) - window, 0)
+    bounds = np.stack([lo, np.minimum(lengths, S)], 1).astype(np.int32)
+    bounds[4] = [9, 7]  # hi <= lo: never attended
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    if quant:
+        k, ks = _quantized(rng, (B, S, Hkv, D))
+        v, vs = _quantized(rng, (B, S, Hkv, D))
+    else:
+        k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+        v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+        ks = vs = None
+    return q, k, v, ks, vs, bounds, lengths
+
+
+def _opt(a, f):
+    return None if a is None else f(a)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("S", [37, 48])
+@pytest.mark.parametrize("heads", HEADS)
+def test_contiguous_decode_matches_reference(heads, S, window, quant):
+    """``tda_decode_attention`` and the contiguous ``fused_decode_attention``
+    at a lane width that is no multiple of the block (the port passes the
+    lane as it is; the reference pads it), fp and int8."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ops import fused_decode_attention as jfused
+    from repro.kernels.tda.tda import tda_decode_attention as jkernel
+    from repro_torch.kernels.tda.ops import fused_decode_attention
+    from repro_torch.kernels.tda.tda import tda_decode_attention
+    Hq, Hkv = heads
+    q, k, v, ks, vs, bounds, lengths = _contig_case(S + Hq, Hq, Hkv, S,
+                                                    window, quant)
+    J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
+    Sp = -(-S // 16) * 16
+    pad = lambda a: _opt(a, lambda x: jnp.asarray(np.pad(  # noqa: E731
+        x, [(0, 0), (0, Sp - S)] + [(0, 0)] * (x.ndim - 2))))
+    ref = np.asarray(jkernel(J(q), pad(k), pad(v), J(bounds), pad(ks),
+                             pad(vs), block_k=16, interpret=True))
+    got = tda_decode_attention(tp.t(q), tp.t(k), tp.t(v), tp.t(bounds),
+                               _opt(ks, tp.t), _opt(vs, tp.t)).numpy()
+    np.testing.assert_allclose(got, ref, atol=tp.ATOL_ATTN, rtol=0)
+    assert not got[0].any() and not got[4].any()  # hi <= lo: exact zeros
+    jref = np.asarray(jfused(J(q), J(k), J(v), J(lengths), k_scale=J(ks),
+                             v_scale=J(vs), window=window, use_kernel=False))
+    for use_kernel in (False, True):
+        out = fused_decode_attention(
+            tp.t(q)[:, None], tp.t(k), tp.t(v), tp.t(lengths),
+            k_scale=_opt(ks, tp.t), v_scale=_opt(vs, tp.t), window=window,
+            use_kernel=use_kernel)
+        assert out.shape == (q.shape[0], 1, Hq, D)
+        np.testing.assert_allclose(out[:, 0].numpy(), jref,
+                                   atol=tp.ATOL_ATTN, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("heads", HEADS)
+def test_paged_decode_int8_matches_reference(heads, window):
+    """int8 page pools with scale pools read through the same block table
+    (FREE tail entries included)."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ops import fused_decode_attention as jfused
+    from repro.kernels.tda.tda import tda_paged_decode_attention as jkernel
+    from repro_torch.kernels.tda.ops import fused_decode_attention
+    from repro_torch.kernels.tda.tda import tda_paged_decode_attention
+    Hq, Hkv = heads
+    ps = 8
+    q, kf, _, bounds, bt, lengths = _decode_case(Hq + 3, Hq, Hkv, ps, window)
+    rng = np.random.default_rng(Hq)
+    k, ks = _quantized(rng, kf.shape)
+    v, vs = _quantized(rng, kf.shape)
+    J = [jnp.asarray(a) for a in (q, k, v, bounds, bt, ks, vs)]
+    T = [tp.t(a) for a in (q, k, v, bounds, bt, ks, vs)]
+    ref = np.asarray(jkernel(*J, interpret=True))
+    got = tda_paged_decode_attention(*T).numpy()
+    np.testing.assert_allclose(got, ref, atol=tp.ATOL_ATTN, rtol=0)
+    assert not got[0].any() and not got[4].any()
+    jref = np.asarray(jfused(J[0], J[1], J[2], jnp.asarray(lengths),
+                             k_scale=J[5], v_scale=J[6], block_table=J[4],
+                             window=window, use_kernel=False))
+    for use_kernel in (False, True):
+        out = fused_decode_attention(T[0], T[1], T[2], tp.t(lengths),
+                                     k_scale=T[5], v_scale=T[6],
+                                     block_table=T[4], window=window,
+                                     use_kernel=use_kernel)
         np.testing.assert_allclose(out.numpy(), jref, atol=tp.ATOL_ATTN,
                                    rtol=0)
 
@@ -145,7 +255,8 @@ def test_wrappers_refuse_bad_inputs_on_cuda_only_path():
     tda.reset_launch_counts()
     tda.tda_paged_decode_attention(tp.t(q), tp.t(k), tp.t(v), tp.t(bounds),
                                    tp.t(bt))
-    assert tda.LAUNCHES == {"tda_paged_decode_attention": 0,
+    assert tda.LAUNCHES == {"tda_decode_attention": 0,
+                            "tda_paged_decode_attention": 0,
                             "tda_mixed_attention": 0}
     with pytest.raises(TypeError):
         tda._check("x", (tp.t(q),), (tp.t(q), tp.t(k, dtype=torch.float64)),
@@ -201,3 +312,59 @@ def test_cuda_kernels_match_plain_versions(dtype):
                         tb[:, 0], tb[:, 1], ring=ring, window=window)
                     assert (got - plain)[live].abs().max().item() <= 1e-3
                     assert not got[~live].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_kernels_int8_and_contiguous(dtype):
+    """The contiguous decode kernel (fp and int8) and the int8 paged
+    decode kernel against their plain versions on the card: max abs diff
+    1e-3 on attended rows, exact zeros on the others. The int8 case keeps
+    q in the compute dtype and the scales in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
+    from repro_torch.kernels.tda.ref import decode_attention_reference
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+
+    def T(a):
+        x = tp.t(a, dev)
+        return x.to(dt) if x.is_floating_point() else x
+
+    def plain(q, k, v, bounds, ks=None, vs=None):
+        hi, lo = bounds[:, 1:].long(), bounds[:, :1].long()
+        return decode_attention_reference(q, k, v, hi, k_scale=ks,
+                                          v_scale=vs, window=hi - lo)
+
+    for Hq, Hkv in HEADS:
+        for window in (None, 5):
+            for S in (37, 48, 130):
+                for quant in (False, True):
+                    q, k, v, ks, vs, bounds, _ = _contig_case(
+                        3, Hq, Hkv, S, window, quant)
+                    tq, tk, tv, tb = T(q), T(k), T(v), tp.t(bounds, dev)
+                    tks = _opt(ks, lambda a: tp.t(a, dev))
+                    tvs = _opt(vs, lambda a: tp.t(a, dev))
+                    n0 = tda.LAUNCHES["tda_decode_attention"]
+                    got = tda.tda_decode_attention(tq, tk, tv, tb, tks, tvs)
+                    assert tda.LAUNCHES["tda_decode_attention"] == n0 + 1
+                    want = plain(tq, tk, tv, tb, tks, tvs)
+                    live = tb[:, 1] > tb[:, 0]
+                    assert (got - want)[live].abs().max().item() <= 1e-3
+                    assert not got[~live].any()
+            q, kf, _, bounds, bt, _ = _decode_case(4, Hq, Hkv, 8, window)
+            rng = np.random.default_rng(5)
+            k, ks = _quantized(rng, kf.shape)
+            v, vs = _quantized(rng, kf.shape)
+            tq, tk, tv = T(q), tp.t(k, dev), tp.t(v, dev)
+            tks, tvs = tp.t(ks, dev), tp.t(vs, dev)
+            tb, tt = tp.t(bounds, dev), tp.t(bt, dev)
+            got = tda.tda_paged_decode_attention(tq, tk, tv, tb, tt, tks,
+                                                 tvs)
+            want = plain(tq, gather(tk, tt), gather(tv, tt), tb,
+                         gather(tks, tt), gather(tvs, tt))
+            live = tb[:, 1] > tb[:, 0]
+            assert (got - want)[live].abs().max().item() <= 1e-3
+            assert not got[~live].any()
