@@ -8,15 +8,25 @@ Phases (one line each, with its seconds; any failure exits nonzero):
 1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``
               (one nvcc per source, all started together).
 2. kernels  — each kernel against its plain PyTorch version on the card.
-              TDA: the ``kernels/tda/ref.py`` oracle (over gathered lanes for
-              the paged kernels), on the CPU tests' edge cases at small width
-              (f32 and bf16; contiguous lanes of ragged widths 37, 48, 130;
+              TDA (phase ``kernels``): the ``kernels/tda/ref.py`` oracle
+              (over gathered lanes for the paged kernels; with the LUT exp,
+              the blockwise LUT recurrence ``decode_attention_lut`` /
+              ``mixed_attention_lut``), on the CPU tests' edge cases at small
+              width (f32 and bf16; contiguous lanes of ragged widths 37, 48,
+              130 with LUT blocks of 16 and 128 positions; pages of 8 and 16;
               hi <= lo rows, windows, FREE block-table entries; int8 codes
-              with f32 scales for both decode kernels) and the full-width
-              shapes of phase 4 (bf16, and int8 K/V with bf16 queries); max
-              abs diff <= 1e-3 on the f32 outputs of attended decode rows and
-              live mixed columns, exact zeros from the kernel everywhere
-              else. DMM and SMM: the CPU tests' edge cases (f32 and bf16 x)
+              with f32 scales for all three kernels) and the full-width
+              shapes of phase 4 (bf16, and int8 K/V with bf16 queries; exact
+              and LUT exp, contiguous LUT blocks at the reference's block_k
+              128); max abs diff <= 1e-3 on the f32 outputs of attended
+              decode rows and live mixed columns, exact zeros from the kernel
+              everywhere else. AFU (phase ``afu``): softmax_lut at (256, 512)
+              (the kernel table's), (320, 544) (decode scores of 8 slots x
+              40 heads), (8, 152064) (the LM head's rows, too long for shared
+              memory) and ragged edges; layernorm_residual at (40, 64),
+              (8, 5120), (2048, 5120) and a ragged edge; f32 and bf16
+              inputs; max abs diff <= 1e-3. DMM and SMM (phase
+              ``linear_kernels``): the CPU tests' edge cases (f32 and bf16 x)
               and every linear family of qwen2.5-32b at full width at M = 8
               (a decode step) and M = 2048 (a mixed step); max abs diff <=
               1e-3 x max(1, max |plain|) (f32 sums in another order over K up
@@ -24,9 +34,17 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               its plain version, one PyTorch call computing the same
               function (``library_ms``: SDPA over the (gathered) lanes — for
               int8 lanes over lanes dequantized to bf16 beforehand, the
-              dequantization untimed — or ``torch.matmul`` against the
-              densified matrix; a yardstick the port never calls) and its
-              bound.
+              dequantization untimed; exact exp beside the LUT rows —,
+              ``torch.softmax`` (exact exp: the same traffic, not the same
+              function), add + ``F.layer_norm``, or ``torch.matmul`` against
+              the densified matrix; a yardstick the port never calls) and
+              its bound.
+   kernel_table — the slice's entry point, ``python -m repro_torch.launch.
+              kernel_table``: the reference's ``kernels`` and ``decode_attn``
+              tables in-process on the card (DMM, SMM, LUT softmax, int8
+              contiguous decode). Every row must carry the reference's name
+              and a finite time, and the LUT softmax must stay within 5e-3
+              of the exact one (the reference test's bound).
 3. tokens   — float32 qwen2.5 smoke: the mixed Engine on the TDA kernels
               gives the plain path's tokens (``decode_attn="dense"``); the
               phase-serialized Engine over contiguous and over paged lanes
@@ -55,13 +73,19 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               x 8 times per step (every linear of every layer), and the TDA
               counts keep phase 4's invariants.
 
-Then the card's name and power limit, the kernels' JSON line, and last the
-device JSON line. Exits nonzero with no result without a CUDA device or
-outside a checkout of the repository.
+Each kernels-line row takes its launches from the run that drives it: the
+TDA rows from the phase-4 serves (int8 rows from the int8 serves), DMM and
+SMM from phase 5, softmax_lut from the kernel_table phase; layernorm_residual
+and the TDA LUT and int8-mixed variants, which no serve runs, from their
+checks in phase 2 (counted before they are timed). Then the card's name and
+power limit, the kernels' JSON line, and last the device JSON line. Exits
+nonzero with no result without a CUDA device or outside a checkout of the
+repository.
 """
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -300,80 +324,126 @@ def phase_build():
 
 def phase_kernels(torch, np, full_cfg, engine_kw):
     import torch.nn.functional as F
+    from repro_torch.kernels.afu.ref import exp_lut_table
     from repro_torch.kernels.tda import tda
     from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
-    from repro_torch.kernels.tda.ref import (decode_attention_reference,
+    from repro_torch.kernels.tda.ref import (decode_attention_lut,
+                                             decode_attention_reference,
+                                             mixed_attention_lut,
                                              mixed_attention_reference)
     from repro_torch.models.layers import kv_dequantize, kv_quantize
     dev = torch.device("cuda")
+    table = exp_lut_table(dev)
 
     def T(a, dt=None):
         x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         return x if dt is None or x.dtype == torch.int32 else x.to(dt)
 
-    # Plain versions: the ref.py oracle over gathered lanes. Each kernel is
+    def opt_gather(t, bt):
+        return None if t is None else gather(t, bt)
+
+    # Plain versions: the ref.py oracle (LUT: the blockwise LUT recurrence,
+    # one page a block for paged lanes) over gathered lanes. Each kernel is
     # compared on what it must compute (attended decode rows, live mixed
     # columns) and must write exact zeros elsewhere.
-    def plain_decode(q, k, v, bounds, bt, ks=None, vs=None):
+    def plain_decode(q, k, v, bounds, bt, ks=None, vs=None, lut=False):
+        if lut:
+            return decode_attention_lut(q, gather(k, bt), gather(v, bt),
+                                        bounds, table, k.shape[1],
+                                        opt_gather(ks, bt), opt_gather(vs, bt))
         return plain_contig(q, gather(k, bt), gather(v, bt), bounds,
-                            None if ks is None else gather(ks, bt),
-                            None if vs is None else gather(vs, bt))
+                            opt_gather(ks, bt), opt_gather(vs, bt))
 
-    def plain_contig(q, k, v, bounds, ks=None, vs=None):
+    def plain_contig(q, k, v, bounds, ks=None, vs=None, block_k=None):
+        if block_k:
+            return decode_attention_lut(q, k, v, bounds, table,
+                                        min(block_k, k.shape[1]), ks, vs)
         hi, lo = bounds[:, 1:].long(), bounds[:, :1].long()
         return decode_attention_reference(q, k, v, hi, k_scale=ks,
                                           v_scale=vs, window=hi - lo)
 
-    def plain_mixed(q, k, v, kr, vr, bounds, bt, **kw):
-        return mixed_attention_reference(q, gather(k, bt), gather(v, bt), kr,
-                                         vr, bounds[:, 0], bounds[:, 1], **kw)
+    def plain_mixed(q, k, v, kr, vr, bounds, bt, ks=None, vs=None, lut=False,
+                    **kw):
+        lanes = (q, gather(k, bt), gather(v, bt), kr, vr, bounds[:, 0],
+                 bounds[:, 1])
+        sc = dict(k_scale=opt_gather(ks, bt), v_scale=opt_gather(vs, bt))
+        if lut:
+            return mixed_attention_lut(*lanes, page_size=k.shape[1],
+                                       table=table, **sc, **kw)
+        return mixed_attention_reference(*lanes, **sc, **kw)
 
     def check(name, got, plain, live):
-        e = (got - plain)[live].abs().max().item()
+        e = (got - plain)[live].abs().max().item() if live.any() else 0.0
         err[name] = max(err[name], e)
-        if e > TOL or got[~live].any().item():
+        if not e <= TOL or got[~live].any().item():
             fail(f"{name} vs plain: max abs diff {e} (limit {TOL}); zeros "
                  f"outside the live part: {not got[~live].any().item()}")
 
-    err = {"tda_paged_decode_attention": 0.0, "tda_mixed_attention": 0.0,
-           "tda_decode_attention": 0.0, "tda_decode_attention.int8": 0.0,
-           "tda_paged_decode_attention.int8": 0.0}
+    # Rows no serve runs (the LUT and int8-mixed variants) take the launches
+    # of these checks.
+    check_only = ("tda_decode_attention.lut", "tda_decode_attention.int8.lut",
+                  "tda_paged_decode_attention.lut",
+                  "tda_paged_decode_attention.int8.lut",
+                  "tda_mixed_attention.lut", "tda_mixed_attention.int8",
+                  "tda_mixed_attention.int8.lut")
+    err = dict.fromkeys(
+        ("tda_paged_decode_attention", "tda_mixed_attention",
+         "tda_decode_attention", "tda_decode_attention.int8",
+         "tda_paged_decode_attention.int8") + check_only, 0.0)
+    tda.reset_launch_counts()
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         for case in small_decode_cases(np):
             args = [T(a, dt) for a in case]
             live = args[3][:, 1] > args[3][:, 0]
-            check("tda_paged_decode_attention",
-                  tda.tda_paged_decode_attention(*args), plain_decode(*args),
-                  live)
-            # int8 pools (codes of the same values) through the same table
+            # fp pools, then int8 pools (codes of the same values) through
+            # the same table; exact and LUT exp
             q, k, v, bounds, bt = args
             kq, ks = kv_quantize(T(case[1]))
             vq, vs = kv_quantize(T(case[2]))
-            check("tda_paged_decode_attention.int8",
-                  tda.tda_paged_decode_attention(q, kq, vq, bounds, bt, ks,
-                                                 vs),
-                  plain_decode(q, kq, vq, bounds, bt, ks, vs), live)
-            n_cases += 2
+            for suffix, pool in (("", (k, v)), (".int8", (kq, vq, ks, vs))):
+                for lut in (False, True):
+                    tab = table if lut else None
+                    sc = pool[2:] or (None, None)
+                    check("tda_paged_decode_attention" + suffix
+                          + (".lut" if lut else ""),
+                          tda.tda_paged_decode_attention(
+                              q, *pool[:2], bounds, bt, *sc, tab),
+                          plain_decode(q, *pool[:2], bounds, bt, *sc, lut),
+                          live)
+                    n_cases += 1
         for case in small_contig_cases(np):
             q, k, v, bounds = [T(a, dt) for a in case]
             live = bounds[:, 1] > bounds[:, 0]
-            check("tda_decode_attention",
-                  tda.tda_decode_attention(q, k, v, bounds),
-                  plain_contig(q, k, v, bounds), live)
             kq, ks = kv_quantize(T(case[1]))
             vq, vs = kv_quantize(T(case[2]))
-            check("tda_decode_attention.int8",
-                  tda.tda_decode_attention(q, kq, vq, bounds, ks, vs),
-                  plain_contig(q, kq, vq, bounds, ks, vs), live)
-            n_cases += 2
+            for suffix, lanes in (("", (k, v)), (".int8", (kq, vq, ks, vs))):
+                sc = lanes[2:] or (None, None)
+                check("tda_decode_attention" + suffix,
+                      tda.tda_decode_attention(q, *lanes[:2], bounds, *sc),
+                      plain_contig(q, *lanes[:2], bounds, *sc), live)
+                for bk in (16, 128):  # LUT blocks: several, or one lane
+                    check("tda_decode_attention" + suffix + ".lut",
+                          tda.tda_decode_attention(q, *lanes[:2], bounds,
+                                                   *sc, table, block_k=bk),
+                          plain_contig(q, *lanes[:2], bounds, *sc, bk), live)
+                n_cases += 3
         for case, kw in small_mixed_cases(np):
-            args = [T(a, dt) for a in case]
-            live = torch.arange(args[0].shape[1], device=dev)[None] \
-                < args[5][:, 1:]
-            check("tda_mixed_attention", tda.tda_mixed_attention(*args, **kw),
-                  plain_mixed(*args, **kw), live)
-            n_cases += 1
+            q, k, v, kr, vr, bnd, bt = [T(a, dt) for a in case]
+            live = torch.arange(q.shape[1], device=dev)[None] < bnd[:, 1:]
+            kq, ks = kv_quantize(T(case[1]))
+            vq, vs = kv_quantize(T(case[2]))
+            for name, pool, lut in (
+                    ("tda_mixed_attention", (k, v, None, None), False),
+                    ("tda_mixed_attention.lut", (k, v, None, None), True),
+                    ("tda_mixed_attention.int8", (kq, vq, ks, vs), False),
+                    ("tda_mixed_attention.int8.lut", (kq, vq, ks, vs), True)):
+                check(name, tda.tda_mixed_attention(
+                    q, *pool[:2], kr, vr, bnd, bt, *pool[2:],
+                    table if lut else None, **kw),
+                    plain_mixed(q, *pool[:2], kr, vr, bnd, bt, *pool[2:],
+                                lut, **kw), live)
+                n_cases += 1
     torch.cuda.synchronize()
     line("kernels_small", cases=n_cases, max_abs_err=err)
 
@@ -385,52 +455,45 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     Hq, Hkv, D = full_cfg.n_heads, full_cfg.kv_heads, full_cfg.head_dim
     rows = []
 
-    # --- paged decode: every slot attends [0, length); all rows live.
-    q, k, v, bounds, bt = [T(a, bf) for a in dec]
-    got = tda.tda_paged_decode_attention(q, k, v, bounds, bt)
-    check("tda_paged_decode_attention", got, plain_decode(q, k, v, bounds, bt),
-          bounds[:, 1] > bounds[:, 0])
-    lens = dec[3][:, 1] - dec[3][:, 0]
-    kv_b = int(lens.sum()) * Hkv * D * 2 * 2
-    nbytes = kv_b + q.numel() * 2 + got.numel() * 4 + bounds.numel() * 4 \
-        + bt.numel() * 4
-    flops = 4 * int(lens.sum()) * Hq * D
-    bms, by = bound(nbytes, flops, 2)
-    kl, vl = gather(k, bt), gather(v, bt)
-    pos = torch.arange(kl.shape[1], device=dev)
-    mask = ((pos[None] >= bounds[:, :1]) & (pos[None] < bounds[:, 1:]))
-    sq, sk, sv = q[:, :, None], kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3)
-    smask = mask[:, None, None, :]
-    rows.append({
-        "name": "tda_paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/tda_paged_decode.cu",
-        "replaces": "src/repro/kernels/tda/tda.py:220",
-        "ms": time_ms(torch, lambda: tda.tda_paged_decode_attention(
-            q, k, v, bounds, bt)),
-        "plain_ms": time_ms(torch, lambda: plain_decode(q, k, v, bounds, bt)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=smask, enable_gqa=True)),
-        "bound_ms": bms, "bound_by": by,
-        "shape": {"B": int(q.shape[0]), "Hq": Hq, "Hkv": Hkv, "D": D,
-                  "page_size": int(k.shape[1]), "pool_pages": int(k.shape[0]),
-                  "tokens_attended": int(lens.sum()), "dtype": "bfloat16"}})
+    def add_row(name, src, repl, fn, plain, library, lib_label, nbytes,
+                flops, shape, plain_reps=20):
+        """Time a checked kernel and its yardsticks; rows no serve runs
+        take their launches now, before the timing launches."""
+        bms, by = bound(nbytes, flops, 2)
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": repl}
+        if name in check_only:
+            row["launches"] = tda.VARIANT_LAUNCHES[name]
+        row.update({
+            "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain, plain_reps),
+            "library_ms": time_ms(torch, library), "library": lib_label,
+            "bound_ms": bms, "bound_by": by, "shape": shape})
+        rows.append(row)
 
-    # --- contiguous decode over the same slots: lanes of cache_len (544)
-    # positions, the engine's contiguous layout; then int8 codes of the
-    # same values (contiguous and paged) with q in bf16.
+    # --- decode: every slot attends [0, length); all rows live. Paged
+    # (128-token pages) and contiguous lanes of cache_len (544) positions,
+    # the engine's layouts; bf16, then int8 codes of the same values with
+    # q in bf16; exact exp, then the LUT exp (contiguous: the reference's
+    # block_k 128).
+    q, k, v, bounds, bt = [T(a, bf) for a in dec]
+    lens = dec[3][:, 1] - dec[3][:, 0]
     tokens = int(lens.sum())
     B = int(q.shape[0])
-    qo_bytes = q.numel() * 2 + got.numel() * 4 + bounds.numel() * 4
+    live = bounds[:, 1] > bounds[:, 0]
+    qo_bytes = q.numel() * 2 + B * Hq * D * 4 + bounds.numel() * 4
     kl = gather(k, bt)[:, :cache_len].contiguous()
     vl = gather(v, bt)[:, :cache_len].contiguous()
-    lmask = mask[:, :cache_len][:, None, None, :]
+    pos = torch.arange(cache_len, device=dev)
+    lmask = ((pos[None] >= bounds[:, :1]) & (pos[None] < bounds[:, 1:]))[
+        :, None, None, :]
     kq, ks = kv_quantize(kl)
     vq, vs = kv_quantize(vl)
     kpq, kps = kv_quantize(k)
     vpq, vps = kv_quantize(v)
-    live = bounds[:, 1] > bounds[:, 0]
-    # SDPA yardsticks over bf16 lanes; the int8 ones over lanes dequantized
-    # beforehand (untimed)
+    # SDPA yardsticks (exact exp) over bf16 lanes; the int8 ones over lanes
+    # dequantized beforehand (untimed)
     sdpa_in = {"fp": (kl, vl), "int8": (kv_dequantize(kq, ks, bf),
                                         kv_dequantize(vq, vs, bf)),
                "paged_int8": (kv_dequantize(gather(kpq, bt), gather(kps, bt),
@@ -443,68 +506,73 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
         return lambda: F.scaled_dot_product_attention(
             q[:, :, None], kk, vv, attn_mask=lmask, enable_gqa=True)
 
-    variants = (
-        ("tda_decode_attention", "tda_decode.cu",
-         "src/repro/kernels/tda/tda.py:168",
-         lambda: tda.tda_decode_attention(q, kl, vl, bounds),
-         lambda: plain_contig(q, kl, vl, bounds), "fp", Hkv * D * 2 * 2, 0,
-         "bfloat16"),
-        ("tda_decode_attention.int8", "tda_decode.cu",
-         "src/repro/kernels/tda/tda.py:168",
-         lambda: tda.tda_decode_attention(q, kq, vq, bounds, ks, vs),
-         lambda: plain_contig(q, kq, vq, bounds, ks, vs), "int8",
-         Hkv * (D + 4) * 2, 0, "int8 k/v + f32 scales, bf16 q"),
-        ("tda_paged_decode_attention.int8", "tda_paged_decode.cu",
-         "src/repro/kernels/tda/tda.py:220",
-         lambda: tda.tda_paged_decode_attention(q, kpq, vpq, bounds, bt, kps,
-                                                vps),
-         lambda: plain_decode(q, kpq, vpq, bounds, bt, kps, vps),
-         "paged_int8", Hkv * (D + 4) * 2, bt.numel() * 4,
-         "int8 k/v + f32 scales, bf16 q"))
-    for name, src, repl, fn, plain, lib, tok_b, extra, dtype in variants:
+    paged = {"page_size": int(k.shape[1]), "pool_pages": int(k.shape[0])}
+    fp_b, q8_b = Hkv * D * 2 * 2, Hkv * (D + 4) * 2
+    variants = (  # name, source, lanes (k, v[, ks, vs]), paged, LUT, SDPA
+        ("tda_paged_decode_attention", (k, v), True, False, "fp"),
+        ("tda_decode_attention", (kl, vl), False, False, "fp"),
+        ("tda_decode_attention.int8", (kq, vq, ks, vs), False, False, "int8"),
+        ("tda_paged_decode_attention.int8", (kpq, vpq, kps, vps), True, False,
+         "paged_int8"),
+        ("tda_decode_attention.lut", (kl, vl), False, True, "fp"),
+        ("tda_decode_attention.int8.lut", (kq, vq, ks, vs), False, True,
+         "int8"),
+        ("tda_paged_decode_attention.lut", (k, v), True, True, "fp"),
+        ("tda_paged_decode_attention.int8.lut", (kpq, vpq, kps, vps), True,
+         True, "paged_int8"))
+    for name, lanes, is_paged, lut, lib in variants:
+        sc = lanes[2:] or (None, None)
+        tab = table if lut else None
+        if is_paged:
+            fn = (lambda lanes=lanes, sc=sc, tab=tab:
+                  tda.tda_paged_decode_attention(q, *lanes[:2], bounds, bt,
+                                                 *sc, tab))
+            plain = (lambda lanes=lanes, sc=sc, lut=lut: plain_decode(
+                q, *lanes[:2], bounds, bt, *sc, lut))
+        else:
+            fn = (lambda lanes=lanes, sc=sc, tab=tab:
+                  tda.tda_decode_attention(q, *lanes[:2], bounds, *sc, tab,
+                                           block_k=128))
+            plain = (lambda lanes=lanes, sc=sc, lut=lut: plain_contig(
+                q, *lanes[:2], bounds, *sc, 128 if lut else None))
         check(name, fn(), plain(), live)
-        bms, by = bound(tokens * tok_b + qo_bytes + extra,
-                        4 * tokens * Hq * D, 2)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": repl, "ms": time_ms(torch, fn),
-            "plain_ms": time_ms(torch, plain),
-            "library_ms": time_ms(torch, sdpa(lib)),
-            "library": "SDPA over " + ("bf16 lanes" if lib == "fp" else
-                                       "lanes dequantized to bf16 "
-                                       "beforehand (untimed)"),
-            "bound_ms": bms, "bound_by": by,
-            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
-                      "lane": int(cache_len) if lib != "paged_int8" else
-                      {"page_size": int(k.shape[1]),
-                       "pool_pages": int(k.shape[0])},
-                      "tokens_attended": tokens, "dtype": dtype}})
+        quant = len(lanes) == 4
+        dtype = ("int8 k/v + f32 scales, bf16 q" if quant else "bfloat16") \
+            + (", LUT exp" if lut else "")
+        add_row(name, "tda_paged_decode.cu" if is_paged else "tda_decode.cu",
+                "src/repro/kernels/tda/tda.py:" + ("220" if is_paged
+                                                   else "168"),
+                fn, plain, sdpa(lib),
+                "SDPA over " + ("bf16 lanes" if lib == "fp" else
+                                "lanes dequantized to bf16 beforehand "
+                                "(untimed)") + (" (exact exp)" if lut else ""),
+                tokens * (q8_b if quant else fp_b) + qo_bytes
+                + (bt.numel() * 4 if is_paged else 0),
+                4 * tokens * Hq * D,
+                {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
+                 "lane": paged if is_paged else int(cache_len),
+                 "tokens_attended": tokens, "dtype": dtype})
     del kl, vl, kq, vq, kpq, vpq, sdpa_in
 
-    # --- mixed step
+    # --- mixed step: the bf16 pool, then int8 codes of the same values
+    # (the chunk stays bf16); exact and LUT exp.
     q, k, v, kr, vr, bnd, bt = [T(a, bf) for a in mix]
     ring = cache_len
     S = q.shape[1]
     cols = torch.arange(S, device=dev)
-    got = tda.tda_mixed_attention(q, k, v, kr, vr, bnd, bt, ring=ring)
-    check("tda_mixed_attention", got,
-          plain_mixed(q, k, v, kr, vr, bnd, bt, ring=ring),
-          cols[None] < bnd[:, 1:])
+    mlive = cols[None] < bnd[:, 1:]
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
     # The bound counts the live work only: a row's cache keys are read only
     # when it has a live column (n_new > 0), and only live columns' queries
-    # and outputs count. The kernel's zero-writes of unread columns are its
+    # and outputs count; an int8 pool moves 1-byte codes plus a 4-byte
+    # scale per head row. The kernel's zero-writes of unread columns are its
     # own cost, not the function's.
     ci, nn = mix[5][:, 0].astype(np.int64), mix[5][:, 1].astype(np.int64)
     cache_keys = np.where(nn > 0, np.minimum(ci, ring), 0)
     keys = int((nn * cache_keys + nn * (nn + 1) // 2).sum())  # per live column
-    flops = 4 * keys * Hq * D
     live_cols = int(nn.sum())
-    nbytes = (int(cache_keys.sum()) + live_cols) * Hkv * D * 2 * 2 \
-        + live_cols * Hq * D * (2 + 4) + bnd.numel() * 4 + bt.numel() * 4
-    bms, by = bound(nbytes, flops, 2)
-    kl, vl = gather(k, bt), gather(v, bt)
-    r = torch.arange(kl.shape[1], device=dev)
+    r = torch.arange(bt.shape[1] * k.shape[1], device=dev)
     cit, nnt = bnd[:, :1].long(), bnd[:, 1:].long()
     cmask = (r[None] < torch.clamp(cit, max=ring))[:, None, :].expand(-1, S,
                                                                       -1)
@@ -512,33 +580,186 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
         (cols[None, None, :] < nnt[:, :, None])
     fmask = torch.cat([cmask, rmask], -1)
     fmask = fmask | ~fmask.any(-1, keepdim=True)  # no all-masked rows
-    keys_all = torch.cat([kl, kr], 1).permute(0, 2, 1, 3)
-    vals_all = torch.cat([vl, vr], 1).permute(0, 2, 1, 3)
     sq = q.permute(0, 2, 1, 3)
-    rows.append({
-        "name": "tda_mixed_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/tda_mixed.cu",
-        "replaces": "src/repro/kernels/tda/tda.py:391",
-        "ms": time_ms(torch, lambda: tda.tda_mixed_attention(
-            q, k, v, kr, vr, bnd, bt, ring=ring)),
-        "plain_ms": time_ms(torch, lambda: plain_mixed(
-            q, k, v, kr, vr, bnd, bt, ring=ring), reps=5),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            sq, keys_all, vals_all, attn_mask=fmask[:, None],
-            enable_gqa=True)),
-        "bound_ms": bms, "bound_by": by,
-        "shape": {"B": int(q.shape[0]), "S": int(S), "Hq": Hq, "Hkv": Hkv,
-                  "D": D, "rows_ci_nnew": mix[5].tolist(),
-                  "live_columns": live_cols, "bound_bytes": nbytes,
-                  "live_query_key_pairs_per_head": keys, "dtype": "bfloat16"}})
+    for name, pool, lut in (
+            ("tda_mixed_attention", (k, v, None, None), False),
+            ("tda_mixed_attention.lut", (k, v, None, None), True),
+            ("tda_mixed_attention.int8", (kq, vq, ks, vs), False),
+            ("tda_mixed_attention.int8.lut", (kq, vq, ks, vs), True)):
+        tab = table if lut else None
+        fn = (lambda pool=pool, tab=tab: tda.tda_mixed_attention(
+            q, *pool[:2], kr, vr, bnd, bt, *pool[2:], tab, ring=ring))
+        plain = (lambda pool=pool, lut=lut: plain_mixed(
+            q, *pool[:2], kr, vr, bnd, bt, *pool[2:], lut, ring=ring))
+        check(name, fn(), plain(), mlive)
+        quant = pool[2] is not None
+        kl, vl = (gather(t, bt) if not quant else
+                  kv_dequantize(gather(t, bt), gather(s, bt), bf)
+                  for t, s in ((pool[0], pool[2]), (pool[1], pool[3])))
+        keys_all = torch.cat([kl, kr], 1).permute(0, 2, 1, 3)
+        vals_all = torch.cat([vl, vr], 1).permute(0, 2, 1, 3)
+        nbytes = int(cache_keys.sum()) * (q8_b if quant else fp_b) \
+            + live_cols * fp_b + live_cols * Hq * D * (2 + 4) \
+            + bnd.numel() * 4 + bt.numel() * 4
+        add_row(name, "tda_mixed.cu", "src/repro/kernels/tda/tda.py:391", fn,
+                plain, lambda ka=keys_all, va=vals_all:
+                F.scaled_dot_product_attention(
+                    sq, ka, va, attn_mask=fmask[:, None], enable_gqa=True),
+                "SDPA over " + ("lanes dequantized to bf16 beforehand "
+                                "(untimed)" if quant else "bf16 lanes")
+                + " and the chunk" + (" (exact exp)" if lut else ""),
+                nbytes, 4 * keys * Hq * D,
+                {"B": B, "S": int(S), "Hq": Hq, "Hkv": Hkv, "D": D,
+                 "rows_ci_nnew": mix[5].tolist(), "live_columns": live_cols,
+                 "bound_bytes": nbytes, "live_query_key_pairs_per_head": keys,
+                 "dtype": ("int8 pool + f32 scales, bf16 q and chunk"
+                           if quant else "bfloat16")
+                 + (", LUT exp" if lut else "")}, plain_reps=5)
+        del kl, vl, keys_all, vals_all
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
     line("kernels_full", **{r["name"]: {k: r[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "max_abs_err", "shape") + (("library",) if "library" in r else ())}
-        for r in rows})
+        "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by",
+        "max_abs_err", "shape")} for r in rows})
     return rows
+
+
+# AFU shapes: the kernel table's softmax (256, 512); decode scores of 8
+# slots x 40 heads over a 544-token lane; the LM head's rows over 152 064
+# entries (re-read from device memory); the reference test's ragged edge.
+# LayerNorm: the reference test's (40, 64), a decode step's 8 and a mixed
+# step's 2048 tokens of d_model 5120, and a ragged edge.
+SOFTMAX_SHAPES = [(256, 512), (320, 544), (8, 152064), (7, 999), (33, 50)]
+LN_SHAPES = [(40, 64), (8, 5120), (2048, 5120), (7, 999)]
+
+
+def phase_afu(torch):
+    """The AFU kernels against their plain versions at SOFTMAX_SHAPES and
+    LN_SHAPES, f32 and bf16 inputs, then timed at each shape (f32 softmax,
+    bf16 LayerNorm as the serve's hidden states). Returns the two rows:
+    softmax at the kernel table's shape, its launches from the
+    ``kernel_table`` phase; LayerNorm at (2048, 5120), its launches from
+    these checks."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.afu import afu
+    from repro_torch.kernels.afu.ref import (exp_lut_table,
+                                             layernorm_residual_reference,
+                                             softmax_lut_reference)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4)
+    table = exp_lut_table(dev)
+    err = {"softmax_lut": 0.0, "layernorm_residual": 0.0}
+
+    def check(name, got, plain):
+        e = (got - plain).abs().max().item()
+        err[name] = max(err[name], e)
+        if not e <= TOL:
+            fail(f"{name} vs plain: max abs diff {e} (limit {TOL}) at "
+                 f"{tuple(got.shape)}")
+
+    afu.reset_launch_counts()
+    inputs = {}
+    for R, C in SOFTMAX_SHAPES:
+        x = torch.randn(R, C, generator=g, device=dev) * 4
+        for xx in (x, x.to(torch.bfloat16)):
+            check("softmax_lut", afu.softmax_lut(xx, table),
+                  softmax_lut_reference(xx, table))
+        inputs["softmax", R, C] = x
+    for R, C in LN_SHAPES:
+        x, res = (torch.randn(R, C, generator=g, device=dev) for _ in "xr")
+        sc, bi = (torch.randn(C, generator=g, device=dev) for _ in "sb")
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x.to(dt), res.to(dt), sc, bi)
+            check("layernorm_residual", afu.layernorm_residual(*args),
+                  layernorm_residual_reference(*args))
+        inputs["ln", R, C] = (x.to(torch.bfloat16), res.to(torch.bfloat16),
+                              sc, bi)
+    torch.cuda.synchronize()
+    ln_launches = afu.LAUNCHES["layernorm_residual"]
+    times = {}
+    for (kind, R, C), a in inputs.items():
+        if kind == "softmax":
+            nbytes, ops = R * C * (4 + 4) + 256, 14 * R * C
+            fn = (lambda x=a: afu.softmax_lut(x, table))
+            plain = (lambda x=a: softmax_lut_reference(x, table))
+            lib = (lambda x=a: torch.softmax(x.float(), -1))
+        else:
+            nbytes, ops = R * C * (2 * 2 + 4) + 8 * C, 8 * R * C
+            fn = (lambda a=a: afu.layernorm_residual(*a))
+            plain = (lambda a=a: layernorm_residual_reference(*a))
+            lib = (lambda a=a: F.layer_norm(
+                a[0].float() + a[1].float(), (a[0].shape[1],), a[2], a[3],
+                1e-6))
+        bms, by = bound(nbytes, ops, 4)
+        times[f"{kind} {R}x{C}"] = {
+            "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, 5),
+            "library_ms": time_ms(torch, lib), "bound_ms": bms,
+            "bound_by": by,
+            "dtype": "float32" if kind == "softmax" else "bfloat16"}
+    line("afu", seconds=round(time.perf_counter() - t0, 3),
+         max_abs_err=err, **times)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out = []
+    for name, repl, key, lib in (
+            ("softmax_lut", "src/repro/kernels/afu/afu.py:35",
+             "softmax 256x512", "torch.softmax (exact exp: the same "
+             "traffic, not the same function)"),
+            ("layernorm_residual", "src/repro/kernels/afu/afu.py:61",
+             "ln 2048x5120", "add + F.layer_norm, timed together")):
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/afu.cu",
+                    "replaces": repl, "max_abs_err": err[name],
+                    **{k: times[key][k] for k in keys}, "library": lib,
+                    "shape": key.split()[1],
+                    "other_shapes": {k: {kk: v[kk] for kk in keys}
+                                     for k, v in times.items()
+                                     if k.startswith(key.split()[0])
+                                     and k != key}})
+    out[1]["launches"] = ln_launches
+    return out
+
+
+def phase_kernel_table(torch):
+    """The slice's entry point: the launcher's ``kernels`` and
+    ``decode_attn`` tables in-process on the card, every launch counter
+    set to 0 just before and read just after. Every row must carry the
+    reference's name and a finite time, and the LUT softmax's error
+    against the exact one must stay below 5e-3 (the reference test's
+    bound). Returns the launches."""
+    from repro_torch.kernels.afu import afu
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.smm import smm
+    from repro_torch.kernels.tda import tda
+    from repro_torch.launch import kernel_table
+    t0 = time.perf_counter()
+    mods = (afu, dmm, smm, tda)
+    for mod in mods:
+        mod.reset_launch_counts()
+    results = kernel_table.run(kernel_table.TABLES, torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    rows = [r for table_rows, _ in results.values() for r in table_rows]
+    want = ["kernels/dmm_lut_matmul", "kernels/smm_compressed_matmul",
+            "kernels/afu_softmax_lut", "decode_attn/fused",
+            "decode_attn/dense", "decode_attn/blocks"]
+    if [r[0] for r in rows] != want:
+        fail(f"kernel table rows {[r[0] for r in rows]} != {want}")
+    if not all(math.isfinite(us) for _, us, _ in rows):
+        fail(f"kernel table: a non-finite time in {rows}")
+    lut_err = results["kernels"][1]["max_err_vs_exact"]
+    if not lut_err < 5e-3:
+        fail(f"kernels/afu_softmax_lut: max_err_vs_exact {lut_err} >= 5e-3")
+    for name in ("dmm_matmul", "smm_matmul", "softmax_lut",
+                 "tda_decode_attention"):
+        if not launches[name]:
+            fail(f"kernel table: {name} was not launched ({launches})")
+    line("kernel_table", seconds=round(time.perf_counter() - t0, 3),
+         csv=[f"{n},{us:.1f},{d}" for n, us, d in rows],
+         max_err_vs_exact=lut_err,
+         decode_attn=results["decode_attn"][1], launches=launches)
+    return launches
 
 
 def phase_linear_kernels(torch, np, ccfg):
@@ -985,15 +1206,19 @@ def main():
 
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, torch, np, full_cfg, engine_kw)
+    rows += timed("afu", phase_afu, torch)
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
+    table_launches = timed("kernel_table", phase_kernel_table, torch)
     timed("tokens", phase_tokens, torch)
     dense, runs = timed("serve", phase_serve, torch, np, full_cfg,
                         engine_kw)
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
-    # Each kernel's launches come from the main-path run that uses it (the
-    # int8 rows from the int8 serves): the TDA kernels' from phase 4, DMM's
-    # and SMM's from phase 5.
+    # Each kernel's launches come from the run that drives it: the TDA
+    # kernels' from the phase-4 serves (the int8 rows from the int8 serves),
+    # DMM's and SMM's from phase 5, the LUT softmax's from the kernel_table
+    # phase; the rows of no serve's path (LayerNorm, the LUT and int8-mixed
+    # TDA variants) carry the launches of their phase-2 checks.
     source = {"tda_paged_decode_attention": ("mixed", None),
               "tda_mixed_attention": ("mixed", None),
               "tda_decode_attention": ("contiguous_bf16", None),
@@ -1004,11 +1229,13 @@ def main():
     for r in rows:
         if r["name"] in ("dmm_matmul", "smm_matmul"):
             r["launches"] = claunches[r["name"]]
-        else:
+        elif r["name"] == "softmax_lut":
+            r["launches"] = table_launches["softmax_lut"]
+        elif r["name"] in source:
             run, key = source[r["name"]]
             r["launches"] = runs[run][key or r["name"]]
-        if not r["launches"]:
-            fail(f"{r['name']} was not launched by its main-path run")
+        if not r.get("launches"):
+            fail(f"{r['name']} was not launched by the run that drives it")
     line("seconds", total=round(sum(seconds.values()), 3), **seconds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1016,8 +1243,8 @@ def main():
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("M8",) if k in r}
-                                  for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + (
+        "M8", "other_shapes") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 Each source under ``kernels/csrc/`` is one ``.cu`` file with a plain C
-interface (the two decode kernels share ``tda_decode_body.cuh``).
+interface (the two decode kernels share ``tda_decode_body.cuh``; it, the
+mixed kernel and the AFU share ``lut_exp.cuh``).
 ``build_all`` compiles every source that has no up-to-date library yet, one
 ``nvcc`` process per source, all started together, into ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``). A library's file
@@ -28,20 +29,23 @@ SOURCES = {"tda_decode": "tda_decode.cu",
            "tda_paged_decode": "tda_paged_decode.cu",
            "tda_mixed": "tda_mixed.cu",
            "dmm": "dmm.cu",
-           "smm": "smm.cu"}
+           "smm": "smm.cu",
+           "afu": "afu.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: (pointers..., int shape args..., dtype
 # code, [quant flag,] [scale,] stream); every one returns an int.
 _ARGTYPES = {
-    "tda_decode": {"tda_decode": [_P] * 7 + [_I] * 5 + [_I, _I, _F, _P]},
+    "tda_decode": {"tda_decode": [_P] * 8 + [_I] * 6 + [_I, _I, _F, _P]},
     "tda_paged_decode": {
-        "tda_paged_decode": [_P] * 8 + [_I] * 7 + [_I, _I, _F, _P]},
-    "tda_mixed": {"tda_mixed": [_P] * 8 + [_I] * 10 + [_I, _F, _P]},
+        "tda_paged_decode": [_P] * 9 + [_I] * 7 + [_I, _I, _F, _P]},
+    "tda_mixed": {"tda_mixed": [_P] * 11 + [_I] * 10 + [_I, _I, _F, _P]},
     "dmm": {"dmm": [_P] * 5 + [_I] * 4 + [_I, _P],
             "dmm_splits": [_I] * 3},
     "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P]},
+    "afu": {"softmax_lut": [_P] * 3 + [_I] * 2 + [_I, _P],
+            "layernorm_residual": [_P] * 5 + [_I] * 2 + [_I, _F, _P]},
 }
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time, "ptxas": compiler resource report}

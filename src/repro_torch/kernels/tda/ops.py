@@ -56,6 +56,8 @@ def fused_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # int8 codes' f32 scales
     v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    lut_table: Optional[torch.Tensor] = None,  # AFU exp LUT (else exact)
+    block_k: int = 128,
     block_table: Optional[torch.Tensor] = None,  # (B, n): paged pool
     use_kernel: bool = True,
 ) -> torch.Tensor:
@@ -63,7 +65,12 @@ def fused_decode_attention(
     ``block_table``, paged lanes: positions ``[max(0, lengths - window),
     lengths)`` are attended, slots with ``lengths <= 0`` return zeros.
     ``k``/``v`` are fp, or int8 codes with ``k_scale``/``v_scale`` (their
-    shape without the last axis). Output has ``q``'s shape and dtype."""
+    shape without the last axis). ``lut_table`` routes the softmax's
+    exponentials through the AFU's LUT, rescaled per block of
+    ``min(block_k, S)`` positions (contiguous lanes) or per page (paged;
+    ``block_k`` is ignored there). ``use_kernel=False`` runs the dense
+    exact-exp oracle and ignores ``lut_table``, as the reference's does.
+    Output has ``q``'s shape and dtype."""
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
@@ -85,11 +92,13 @@ def fused_decode_attention(
         bounds = torch.stack([lo, hi], dim=1).to(torch.int32)
         if block_table is None:
             out = tda_decode_attention(q.contiguous(), k, v, bounds,
-                                       k_scale, v_scale)
+                                       k_scale, v_scale, lut_table,
+                                       block_k=block_k)
         else:
             out = tda_paged_decode_attention(
                 q.contiguous(), k, v, bounds,
-                block_table.to(torch.int32).contiguous(), k_scale, v_scale)
+                block_table.to(torch.int32).contiguous(), k_scale, v_scale,
+                lut_table)
     out = out.to(q.dtype)
     return out[:, None] if squeeze else out
 
@@ -98,7 +107,7 @@ def fused_mixed_attention(
     q: torch.Tensor,        # (B, S, Hq, D) chunk queries, left-aligned
     k: torch.Tensor,        # (P, page_size, Hkv, D) PRE-write page pool
     v: torch.Tensor,
-    k_row: torch.Tensor,    # (B, S, Hkv, D) this chunk's keys
+    k_row: torch.Tensor,    # (B, S, Hkv, D) this chunk's fp keys
     v_row: torch.Tensor,
     cache_index,            # (B,)
     n_new,                  # (B,)
@@ -106,26 +115,35 @@ def fused_mixed_attention(
     block_table: torch.Tensor,
     ring: int,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (P, page_size, Hkv)
+    v_scale: Optional[torch.Tensor] = None,
+    lut_table: Optional[torch.Tensor] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """Mixed-step attention over paged lanes (masks pinned by
-    :func:`~repro_torch.kernels.tda.ref.mixed_attention_reference`).
-    Returns ``(B, S, Hq, D)`` in ``q.dtype``; only columns ``j < n_new``
-    are meaningful."""
+    :func:`~repro_torch.kernels.tda.ref.mixed_attention_reference`). The
+    pool is fp, or int8 codes with ``k_scale``/``v_scale`` pools that
+    follow the block table; ``lut_table`` routes the exponentials through
+    the AFU's LUT (per page, then the row chunk). ``use_kernel=False`` runs
+    the dense exact-exp oracle and ignores ``lut_table``, as the
+    reference's does. Returns ``(B, S, Hq, D)`` in ``q.dtype``; only
+    columns ``j < n_new`` are meaningful."""
     B = q.shape[0]
     ci = torch.as_tensor(cache_index, device=q.device).reshape(-1) \
         .to(torch.int32).expand(B)
     nn = torch.as_tensor(n_new, device=q.device).reshape(-1) \
         .to(torch.int32).expand(B)
     if not use_kernel:
+        sc = [None if t is None else gather_paged_lanes(t, block_table)
+              for t in (k_scale, v_scale)]
         out = mixed_attention_reference(
             q, gather_paged_lanes(k, block_table),
             gather_paged_lanes(v, block_table), k_row, v_row, ci, nn,
-            ring=ring, window=window)
+            ring=ring, window=window, k_scale=sc[0], v_scale=sc[1])
     else:
         bounds = torch.stack([ci, nn], dim=1).contiguous()
         out = tda_mixed_attention(
             q.contiguous(), k, v, k_row.contiguous(), v_row.contiguous(),
-            bounds, block_table.to(torch.int32).contiguous(), ring=ring,
-            window=window)
+            bounds, block_table.to(torch.int32).contiguous(), k_scale,
+            v_scale, lut_table, ring=ring, window=window)
     return out.to(q.dtype)

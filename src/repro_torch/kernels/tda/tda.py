@@ -6,13 +6,19 @@ kernels (``repro.kernels.tda.tda``). On CUDA tensors they launch the
 kernels built from ``kernels/csrc/`` (``tda_decode.cu``,
 ``tda_paged_decode.cu``, ``tda_mixed.cu``) on the current stream, or
 raise: there is no fallback. On CPU tensors they run the kernels' plain
-PyTorch versions, the oracle of ``ref.py`` (over gathered lanes for the
-paged kernels), which is also what the kernels are held against on the
-card. The two decode kernels also take int8 K/V codes with f32
-per-(token, head) scales, dequantized inside the kernel.
+PyTorch versions of ``ref.py`` (over gathered lanes for the paged
+kernels), which are also what the kernels are held against on the card.
+All three take int8 pool or lane codes with f32 per-(token, head) scales,
+dequantized inside the kernel (the mixed kernel's in-row chunk stays fp),
+and an optional ``lut_table``: the AFU's 64-entry exp for both
+exponentials of the online softmax, rescaled per reference block
+(``block_k`` positions for contiguous lanes, one page for paged ones, the
+row chunk as one more block in the mixed step).
 
-``LAUNCHES`` counts kernel launches (plain-version calls are not counted),
-so a run can show that its path went through the kernels.
+``LAUNCHES`` counts kernel launches and ``VARIANT_LAUNCHES`` the same
+launches by variant (``name``, ``name.int8``, ``name.lut``,
+``name.int8.lut``); plain-version calls are not counted, so a run can show
+that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,24 +27,38 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.afu.ref import LUT_SIZE
 from repro_torch.kernels.tda.ref import (
+    decode_attention_lut,
     decode_attention_reference,
+    mixed_attention_lut,
     mixed_attention_reference,
 )
 
 __all__ = ["tda_decode_attention", "tda_paged_decode_attention",
-           "tda_mixed_attention", "LAUNCHES", "reset_launch_counts"]
+           "tda_mixed_attention", "LAUNCHES", "VARIANT_LAUNCHES",
+           "reset_launch_counts"]
 
 LAUNCHES = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
             "tda_mixed_attention": 0}
+VARIANT_LAUNCHES = {name + suffix: 0 for name in LAUNCHES
+                    for suffix in ("", ".int8", ".lut", ".int8.lut")}
 MAX_GROUP = 8     # query rows per kv head the decode kernels hold
 MAX_HEAD_DIM = 128
+MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, quant: int, table_ptr: int) -> None:
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[name + (".int8" if quant else "")
+                     + (".lut" if table_ptr else "")] += 1
 
 
 def _gather(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -67,16 +87,19 @@ def _check(name: str, tensors, fp, ints) -> int:
     return _DTYPE_CODE[next(iter(dts))]
 
 
-def _decode_inputs(name: str, q, k, v, k_scale, v_scale, ints):
-    """Checks for the decode kernels, fp or int8 K/V: returns ``(dtype
-    code, quant flag, k_scale pointer, v_scale pointer)``. int8 codes need
-    contiguous f32 scales shaped like the codes without their last axis."""
+def _kv_inputs(name: str, q, k, v, k_scale, v_scale, ints, rows=()):
+    """Checks for fp or int8 K/V: returns ``(dtype code, quant flag,
+    k_scale pointer, v_scale pointer)``. int8 codes need contiguous f32
+    scales shaped like the codes without their last axis; ``rows`` (the
+    mixed step's chunk keys/values) are always in q's dtype."""
     quant = k_scale is not None or v_scale is not None
     if not quant:
-        return _check(name, (q, k, v) + ints, (q, k, v), ints), 0, 0, 0
+        fp = (q, k, v) + tuple(rows)
+        return _check(name, fp + ints, fp, ints), 0, 0, 0
     if k_scale is None or v_scale is None:
         raise ValueError(f"{name}: int8 lanes need both k_scale and v_scale")
-    code = _check(name, (q, k, v, k_scale, v_scale) + ints, (q,), ints)
+    code = _check(name, (q, k, v, k_scale, v_scale) + tuple(rows) + ints,
+                  (q,) + tuple(rows), ints)
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError(f"{name}: with scales, k/v must be int8 codes, got "
                         f"{k.dtype}/{v.dtype}")
@@ -86,6 +109,23 @@ def _decode_inputs(name: str, q, k, v, k_scale, v_scale, ints):
                             f"{tuple(k.shape[:-1])}, got {t.dtype} "
                             f"{tuple(t.shape)}")
     return code, 1, k_scale.data_ptr(), v_scale.data_ptr()
+
+
+def _table(name: str, table, q, block: int) -> int:
+    """The LUT's pointer (0 without one): a contiguous (LUT_SIZE,) f32
+    tensor on q's device, with LUT-mode blocks of at most MAX_LUT_BLOCK
+    positions."""
+    if table is None:
+        return 0
+    if table.device != q.device or table.dtype != torch.float32 \
+            or tuple(table.shape) != (LUT_SIZE,) or not table.is_contiguous():
+        raise TypeError(f"{name}: lut_table must be a contiguous float32 "
+                        f"({LUT_SIZE},) tensor on {q.device}, got "
+                        f"{table.dtype}{tuple(table.shape)} on {table.device}")
+    if not 1 <= block <= MAX_LUT_BLOCK:
+        raise ValueError(f"{name}: the LUT mode's blocks hold 1 to "
+                         f"{MAX_LUT_BLOCK} positions, got {block}")
+    return table.data_ptr()
 
 
 def _heads(name: str, Hq: int, Hkv: int, D: int, max_group: int) -> None:
@@ -101,105 +141,133 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _plain_decode(q, k, v, bounds, k_scale, v_scale) -> torch.Tensor:
+def _plain_decode(q, k, v, bounds, k_scale, v_scale, table,
+                  block_k) -> torch.Tensor:
     """The decode kernels' plain version over (gathered) lanes: ``[lo,
-    hi)`` attended, zeros where ``hi <= lo``."""
+    hi)`` attended, zeros where ``hi <= lo``; with a table, the LUT exp
+    over blocks of ``block_k`` positions."""
+    if table is not None:
+        return decode_attention_lut(q, k, v, bounds, table, block_k, k_scale,
+                                    v_scale)
     lo, hi = bounds[:, 0:1].long(), bounds[:, 1:2].long()
     out = decode_attention_reference(q, k, v, hi, k_scale=k_scale,
                                      v_scale=v_scale, window=hi - lo)
     return torch.where((hi > lo)[:, :, None], out, 0.0)
 
 
-def tda_decode_attention(q, k, v, bounds, k_scale=None,
-                         v_scale=None) -> torch.Tensor:
+def tda_decode_attention(q, k, v, bounds, k_scale=None, v_scale=None,
+                         lut_table=None, *, block_k: int = 128
+                         ) -> torch.Tensor:
     """Slot-decode attention over contiguous lanes. q (B, Hq, D); k/v
     (B, S, Hkv, D) in q's dtype, or int8 codes with ``k_scale``/``v_scale``
     (B, S, Hkv) f32; bounds (B, 2) int32 ``[lo, hi)``, clamped to ``[0,
-    S]`` (any S: the ragged tail needs no padding). Returns (B, Hq, D)
-    f32, zeros where ``hi <= lo``."""
+    S]`` (any S: the ragged tail needs no padding); ``lut_table`` the
+    AFU's (64,) f32 exp table, with softmax blocks of ``min(block_k, S)``
+    positions (``block_k`` changes nothing without a table). Returns (B,
+    Hq, D) f32, zeros where ``hi <= lo``."""
+    S = k.shape[1]
+    bk = min(block_k, max(S, 1))
     if q.device.type == "cpu":
-        return _plain_decode(q, k, v, bounds, k_scale, v_scale)
+        return _plain_decode(q, k, v, bounds, k_scale, v_scale, lut_table,
+                             bk)
     name = "tda_decode_attention"
-    code, quant, ksp, vsp = _decode_inputs(name, q, k, v, k_scale, v_scale,
-                                           (bounds,))
+    code, quant, ksp, vsp = _kv_inputs(name, q, k, v, k_scale, v_scale,
+                                       (bounds,))
     B, Hq, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
             or bounds.shape != (B, 2):
         raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
                          f"{tuple(bounds.shape)}")
     _heads(name, Hq, Hkv, D, MAX_GROUP)
+    tp = _table(name, lut_table, q, bk)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_decode").tda_decode
     _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
-                       bounds.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, S,
-                       code, quant, 1.0 / math.sqrt(D),
+                       bounds.data_ptr(), tp, out.data_ptr(), B, Hq, Hkv, D,
+                       S, bk, code, quant, 1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
-    LAUNCHES[name] += 1
+    _count(name, quant, tp)
     return out
 
 
 def tda_paged_decode_attention(q, k, v, bounds, block_table, k_scale=None,
-                               v_scale=None) -> torch.Tensor:
+                               v_scale=None, lut_table=None) -> torch.Tensor:
     """Paged slot-decode attention. q (B, Hq, D); k/v page pools (P,
     page_size, Hkv, D) in q's dtype, or int8 codes with ``k_scale`` /
     ``v_scale`` pools (P, page_size, Hkv) f32 read through the same block
     table; bounds (B, 2) int32 ``[lo, hi)`` in logical lane coordinates;
     block_table (B, n) int32 (entries are clamped to ``[0, P-1]``; those
-    outside ``[lo, hi)`` are never read). Returns (B, Hq, D) f32, zeros
-    where ``hi <= lo``."""
+    outside ``[lo, hi)`` are never read); ``lut_table`` the AFU's exp
+    table, one page per softmax block. Returns (B, Hq, D) f32, zeros where
+    ``hi <= lo``."""
+    ps = k.shape[1]
     if q.device.type == "cpu":
-        sc = [None if t is None else _gather(t, block_table)
-              for t in (k_scale, v_scale)]
-        return _plain_decode(q, _gather(k, block_table),
-                             _gather(v, block_table), bounds, *sc)
+        lanes = [None if t is None else _gather(t, block_table)
+                 for t in (k, v, k_scale, v_scale)]
+        return _plain_decode(q, lanes[0], lanes[1], bounds, lanes[2],
+                             lanes[3], lut_table, ps)
     name = "tda_paged_decode_attention"
-    code, quant, ksp, vsp = _decode_inputs(name, q, k, v, k_scale, v_scale,
-                                           (bounds, block_table))
+    code, quant, ksp, vsp = _kv_inputs(name, q, k, v, k_scale, v_scale,
+                                       (bounds, block_table))
     B, Hq, D = q.shape
-    P, ps, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    P, Hkv = k.shape[0], k.shape[2]
     if k.shape != v.shape or k.shape[3] != D or bounds.shape != (B, 2) \
             or block_table.shape[0] != B:
         raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
                          f"{tuple(bounds.shape)} bt{tuple(block_table.shape)}")
     _heads(name, Hq, Hkv, D, MAX_GROUP)
+    tp = _table(name, lut_table, q, ps)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_paged_decode").tda_paged_decode
     _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
-                       bounds.data_ptr(), block_table.data_ptr(),
+                       bounds.data_ptr(), block_table.data_ptr(), tp,
                        out.data_ptr(), B, Hq, Hkv, D, P, ps,
                        block_table.shape[1], code, quant, 1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
-    LAUNCHES[name] += 1
+    _count(name, quant, tp)
     return out
 
 
-def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table, *,
+def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
+                        k_scale=None, v_scale=None, lut_table=None, *,
                         ring: int, window: Optional[int] = None
                         ) -> torch.Tensor:
     """Mixed-step attention over a paged pool. q (B, S, Hq, D); k/v page
-    pools (P, page_size, Hkv, D); k_row/v_row (B, S, Hkv, D); bounds (B,
+    pools (P, page_size, Hkv, D) in q's dtype, or int8 codes with
+    ``k_scale``/``v_scale`` pools (P, page_size, Hkv) f32 read through the
+    same block table; k_row/v_row (B, S, Hkv, D) in q's dtype; bounds (B,
     2) int32 ``[cache_index, n_new]``; block_table (B, n) int32; ``ring``
-    the logical lane width. Returns (B, S, Hq, D) f32; rows with no key
-    (``ci == 0`` and ``n_new == 0``) are zeros. Columns ``j >= n_new``
-    are never read by the caller: the kernel writes them as zeros (so the
-    projections after attention see finite values), the CPU path leaves
-    the oracle's values there."""
+    the logical lane width; ``lut_table`` the AFU's exp table (softmax
+    blocks: each page, then the row chunk; page_size and S <= 256).
+    Returns (B, S, Hq, D) f32; rows with no key (``ci == 0`` and ``n_new
+    == 0``) are zeros. Columns ``j >= n_new`` are never read by the
+    caller: the kernel writes them as zeros (so the projections after
+    attention see finite values), the CPU path leaves the plain version's
+    values there."""
     if ring < 1:
         raise ValueError(f"tda_mixed_attention: ring must be >= 1, got {ring}")
+    ps = k.shape[1]
     if q.device.type == "cpu":
+        lanes = [None if t is None else _gather(t, block_table)
+                 for t in (k, v, k_scale, v_scale)]
+        if lut_table is not None:
+            return mixed_attention_lut(
+                q, lanes[0], lanes[1], k_row, v_row, bounds[:, 0],
+                bounds[:, 1], page_size=ps, ring=ring, window=window,
+                table=lut_table, k_scale=lanes[2], v_scale=lanes[3])
         return mixed_attention_reference(
-            q, _gather(k, block_table), _gather(v, block_table), k_row,
-            v_row, bounds[:, 0], bounds[:, 1], ring=ring, window=window)
+            q, lanes[0], lanes[1], k_row, v_row, bounds[:, 0], bounds[:, 1],
+            ring=ring, window=window, k_scale=lanes[2], v_scale=lanes[3])
     name = "tda_mixed_attention"
-    code = _check(name, (q, k, v, k_row, v_row, bounds, block_table),
-                  (q, k, v, k_row, v_row), (bounds, block_table))
+    code, quant, ksp, vsp = _kv_inputs(name, q, k, v, k_scale, v_scale,
+                                       (bounds, block_table), (k_row, v_row))
     B, S, Hq, D = q.shape
-    P, ps, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    P, Hkv = k.shape[0], k.shape[2]
     if k.shape != v.shape or k.shape[3] != D \
             or k_row.shape != (B, S, Hkv, D) or v_row.shape != k_row.shape \
             or bounds.shape != (B, 2) or block_table.shape[0] != B:
@@ -208,15 +276,16 @@ def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table, *,
                          f"bounds{tuple(bounds.shape)} "
                          f"bt{tuple(block_table.shape)}")
     _heads(name, Hq, Hkv, D, Hq)
+    tp = _table(name, lut_table, q, max(ps, S))
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_mixed").tda_mixed
-    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
                        k_row.data_ptr(), v_row.data_ptr(), bounds.data_ptr(),
-                       block_table.data_ptr(), out.data_ptr(), B, S, Hq, Hkv,
-                       D, P, ps, block_table.shape[1], ring,
-                       0 if window is None else int(window), code,
+                       block_table.data_ptr(), tp, out.data_ptr(), B, S, Hq,
+                       Hkv, D, P, ps, block_table.shape[1], ring,
+                       0 if window is None else int(window), code, quant,
                        1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
-    LAUNCHES[name] += 1
+    _count(name, quant, tp)
     return out

@@ -368,3 +368,294 @@ def test_cuda_decode_kernels_int8_and_contiguous(dtype):
             live = tb[:, 1] > tb[:, 0]
             assert (got - want)[live].abs().max().item() <= 1e-3
             assert not got[~live].any()
+
+
+# ---- LUT exp and int8 mixed ------------------------------------------------
+# The reference has no plain LUT oracle (its ``use_kernel=False`` ops ignore
+# the table), so the port's blockwise LUT plain versions are held against
+# the reference's Pallas kernels in interpret mode, at the same atol: both
+# take the same per-block recurrence in f32, summed in another order.
+
+
+def _lut_tables():
+    from repro.kernels.afu.ref import exp_lut_table as jtable
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    return jtable(), exp_lut_table()
+
+
+def _padded(a, Sp):
+    """A contiguous lane (B, S, ...) zero-padded to Sp positions, as the
+    reference's ops pads it for its kernel."""
+    import jax.numpy as jnp
+    return _opt(a, lambda x: jnp.asarray(np.pad(
+        x, [(0, 0), (0, Sp - x.shape[1])] + [(0, 0)] * (x.ndim - 2))))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("S", [37, 48])
+@pytest.mark.parametrize("block_k", [16, 32])
+def test_lut_contiguous_decode_matches_reference(block_k, S, window, quant):
+    """LUT softmax blocks of ``block_k`` positions over a ragged lane (the
+    reference pads it to a multiple of the block), fp and int8, with an
+    empty lane and a hi <= lo row; also through the ops with lengths."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ops import fused_decode_attention as jfused
+    from repro.kernels.tda.tda import tda_decode_attention as jkernel
+    from repro_torch.kernels.tda.ops import fused_decode_attention
+    from repro_torch.kernels.tda.tda import tda_decode_attention
+    Hq, Hkv = HEADS[(S + block_k) % 2]
+    q, k, v, ks, vs, bounds, lengths = _contig_case(S + block_k, Hq, Hkv, S,
+                                                    window, quant)
+    jt, tt = _lut_tables()
+    Sp = -(-S // block_k) * block_k
+    J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
+    ref = np.asarray(jkernel(J(q), _padded(k, Sp), _padded(v, Sp),
+                             J(bounds), _padded(ks, Sp), _padded(vs, Sp), jt,
+                             block_k=block_k, interpret=True))
+    T = lambda a: _opt(a, tp.t)  # noqa: E731
+    got = tda_decode_attention(T(q), T(k), T(v), T(bounds), T(ks), T(vs), tt,
+                               block_k=block_k).numpy()
+    np.testing.assert_allclose(got, ref, atol=tp.ATOL_ATTN, rtol=0)
+    assert not got[0].any() and not got[4].any()  # hi <= lo: exact zeros
+    jref = np.asarray(jfused(J(q), J(k), J(v), J(lengths), k_scale=J(ks),
+                             v_scale=J(vs), window=window, lut_table=jt,
+                             block_k=block_k, interpret=True))
+    out = fused_decode_attention(T(q), T(k), T(v), T(lengths), k_scale=T(ks),
+                                 v_scale=T(vs), window=window, lut_table=tt,
+                                 block_k=block_k)
+    np.testing.assert_allclose(out.numpy(), jref, atol=tp.ATOL_ATTN, rtol=0)
+
+
+def test_lut_follows_the_reference_block_partition():
+    """Under the LUT exp the result depends on the blocks: the reference's
+    outputs at block_k 16 and 32 differ by more than 1e-4, and the port
+    follows each (a port that rescaled on its own tiles would match at
+    most one of them)."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.tda import tda_decode_attention as jkernel
+    from repro_torch.kernels.tda.tda import tda_decode_attention
+    rng = np.random.default_rng(11)
+    B, S, Hq, Hkv = 4, 64, 4, 2
+    q = (rng.standard_normal((B, Hq, D)) * 2).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    bounds = np.array([[0, 64], [3, 61], [10, 40], [0, 33]], np.int32)
+    jt, tt = _lut_tables()
+    outs = {}
+    for bk in (16, 32):
+        ref = np.asarray(jkernel(*(jnp.asarray(a) for a in (q, k, v, bounds)),
+                                 lut_table=jt, block_k=bk, interpret=True))
+        got = tda_decode_attention(tp.t(q), tp.t(k), tp.t(v), tp.t(bounds),
+                                   lut_table=tt, block_k=bk).numpy()
+        np.testing.assert_allclose(got, ref, atol=tp.ATOL_ATTN, rtol=0)
+        outs[bk] = ref
+    assert np.abs(outs[16] - outs[32]).max() > 1e-4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_lut_paged_decode_matches_reference(ps, window, quant):
+    """One page per LUT block, FREE tail entries, fp and int8 pools."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ops import fused_decode_attention as jfused
+    from repro.kernels.tda.tda import tda_paged_decode_attention as jkernel
+    from repro_torch.kernels.tda.ops import fused_decode_attention
+    from repro_torch.kernels.tda.tda import tda_paged_decode_attention
+    Hq, Hkv = HEADS[ps // 8 - 1]
+    q, k, v, bounds, bt, lengths = _decode_case(ps + 7, Hq, Hkv, ps, window)
+    ks = vs = None
+    if quant:
+        rng = np.random.default_rng(ps)
+        k, ks = _quantized(rng, k.shape)
+        v, vs = _quantized(rng, k.shape)
+    jt, tt = _lut_tables()
+    J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
+    T = lambda a: _opt(a, tp.t)  # noqa: E731
+    ref = np.asarray(jkernel(J(q), J(k), J(v), J(bounds), J(bt), J(ks),
+                             J(vs), jt, interpret=True))
+    got = tda_paged_decode_attention(T(q), T(k), T(v), T(bounds), T(bt),
+                                     T(ks), T(vs), tt).numpy()
+    np.testing.assert_allclose(got, ref, atol=tp.ATOL_ATTN, rtol=0)
+    assert not got[0].any() and not got[4].any()
+    jref = np.asarray(jfused(J(q), J(k), J(v), J(lengths), k_scale=J(ks),
+                             v_scale=J(vs), block_table=J(bt), window=window,
+                             lut_table=jt, interpret=True))
+    out = fused_decode_attention(T(q), T(k), T(v), T(lengths), k_scale=T(ks),
+                                 v_scale=T(vs), block_table=T(bt),
+                                 window=window, lut_table=tt)
+    np.testing.assert_allclose(out.numpy(), jref, atol=tp.ATOL_ATTN, rtol=0)
+
+
+def _quantized_pool(k, v, seed):
+    """int8 codes and f32 scale pools of random pages shaped like k."""
+    rng = np.random.default_rng(seed)
+    kq, ks = _quantized(rng, k.shape)
+    vq, vs = _quantized(rng, v.shape)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("ring_short", [False, True])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_mixed_lut_and_int8_match_reference(ps, ring_short, window, lut):
+    """The mixed step with the LUT exp (fp pool; per page, then the row
+    chunk as one block) or over int8 pool codes with f32 scales (exact
+    exp; then also its oracle with scales through the ops), on live
+    columns; a wrapped short ring and a window."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ops import fused_mixed_attention as jfused
+    from repro.kernels.tda.tda import tda_mixed_attention as jkernel
+    from repro_torch.kernels.tda.ops import fused_mixed_attention
+    from repro_torch.kernels.tda.tda import tda_mixed_attention
+    Hq, Hkv = HEADS[int(ring_short)]
+    q, k, v, kr, vr, bounds, bt, ring = _mixed_case(ps + Hq + 2, Hq, Hkv, ps,
+                                                    ring_short)
+    ks = vs = None
+    if not lut:
+        k, v, ks, vs = _quantized_pool(k, v, ps + 1)
+    jt, tt = _lut_tables() if lut else (None, None)
+    J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
+    T = lambda a: _opt(a, tp.t)  # noqa: E731
+    args = (q, k, v, kr, vr, bounds, bt, ks, vs)
+    ref = np.asarray(jkernel(*map(J, args), jt, ring=ring, window=window,
+                             interpret=True))
+    got = tda_mixed_attention(*map(T, args), tt, ring=ring,
+                              window=window).numpy()
+    live = np.arange(q.shape[1])[None, :] < bounds[:, 1:2]  # (B, S)
+    np.testing.assert_allclose(got[live], ref[live], atol=tp.ATOL_ATTN,
+                               rtol=0)
+    assert not got[0].any()  # ci = 0 and n_new = 0: no key, exact zeros
+    ci, nn = bounds[:, 0], bounds[:, 1]
+    kern = fused_mixed_attention(*map(T, args[:5]), T(ci), T(nn),
+                                 block_table=T(bt), ring=ring, window=window,
+                                 k_scale=T(ks), v_scale=T(vs),
+                                 lut_table=tt).numpy()
+    np.testing.assert_allclose(kern[live], ref[live], atol=tp.ATOL_ATTN,
+                               rtol=0)
+    if not lut:
+        jref = np.asarray(jfused(*map(J, args[:5]), J(ci), J(nn),
+                                 block_table=J(bt), ring=ring, window=window,
+                                 k_scale=J(ks), v_scale=J(vs),
+                                 use_kernel=False))
+        out = fused_mixed_attention(*map(T, args[:5]), T(ci), T(nn),
+                                    block_table=T(bt), ring=ring,
+                                    window=window, k_scale=T(ks),
+                                    v_scale=T(vs), use_kernel=False).numpy()
+        np.testing.assert_allclose(out, jref, atol=tp.ATOL_ATTN, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lut_and_int8_mixed_kernels(dtype):
+    """The LUT mode of all three kernels (decode over fp and int8 lanes)
+    and the mixed kernel over int8 pools (exact and LUT) against their
+    plain versions on the card: max abs diff 1e-3 on attended rows and
+    live columns, exact zeros elsewhere; each launch counted under its
+    variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
+    from repro_torch.kernels.tda.ref import (decode_attention_lut,
+                                             mixed_attention_lut,
+                                             mixed_attention_reference)
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    table = exp_lut_table(dev)
+
+    def T(a):
+        x = tp.t(a, dev)
+        return x.to(dt) if x.dtype == torch.float32 else x
+
+    def close(got, want, live):
+        assert (got - want)[live].abs().max().item() <= 1e-3
+        assert not got[~live].any()
+
+    for Hq, Hkv in HEADS:
+        for S in (37, 48, 130):
+            for quant in (False, True):
+                q, k, v, ks, vs, bounds, _ = _contig_case(3, Hq, Hkv, S, 5,
+                                                          quant)
+                tq, tk, tv, tb = T(q), T(k), T(v), tp.t(bounds, dev)
+                tks = _opt(ks, lambda a: tp.t(a, dev))
+                tvs = _opt(vs, lambda a: tp.t(a, dev))
+                for bk in (16, 128):
+                    key = "tda_decode_attention" + (".int8" if quant
+                                                    else "") + ".lut"
+                    n0 = tda.VARIANT_LAUNCHES[key]
+                    got = tda.tda_decode_attention(tq, tk, tv, tb, tks, tvs,
+                                                   table, block_k=bk)
+                    assert tda.VARIANT_LAUNCHES[key] == n0 + 1
+                    close(got, decode_attention_lut(
+                        tq, tk, tv, tb, table, min(bk, S), tks, tvs),
+                        tb[:, 1] > tb[:, 0])
+        for ps in (8, 16):
+            q, kf, vf, bounds, bt, _ = _decode_case(4, Hq, Hkv, ps, 5)
+            kq, vq, ks, vs = _quantized_pool(kf, vf, ps)
+            tq, tb, tt = T(q), tp.t(bounds, dev), tp.t(bt, dev)
+            for k, v, ks_, vs_ in ((T(kf), T(vf), None, None),
+                                   (tp.t(kq, dev), tp.t(vq, dev),
+                                    tp.t(ks, dev), tp.t(vs, dev))):
+                got = tda.tda_paged_decode_attention(tq, k, v, tb, tt, ks_,
+                                                     vs_, table)
+                want = decode_attention_lut(
+                    tq, gather(k, tt), gather(v, tt), tb, table, ps,
+                    _opt(ks_, lambda a: gather(a, tt)),
+                    _opt(vs_, lambda a: gather(a, tt)))
+                close(got, want, tb[:, 1] > tb[:, 0])
+            q, kf, vf, kr, vr, bounds, bt, ring = _mixed_case(
+                5, Hq, Hkv, ps, True)
+            kq, vq, ks, vs = _quantized_pool(kf, vf, ps + 2)
+            tq, tkr, tvr = T(q), T(kr), T(vr)
+            tb, tt = tp.t(bounds, dev), tp.t(bt, dev)
+            live = torch.arange(q.shape[1], device=dev)[None] < tb[:, 1:]
+            for window in (None, 6):
+                for k, v, ks_, vs_ in ((T(kf), T(vf), None, None),
+                                       (tp.t(kq, dev), tp.t(vq, dev),
+                                        tp.t(ks, dev), tp.t(vs, dev))):
+                    lanes = (tq, gather(k, tt), gather(v, tt), tkr, tvr,
+                             tb[:, 0], tb[:, 1])
+                    sc = dict(k_scale=_opt(ks_, lambda a: gather(a, tt)),
+                              v_scale=_opt(vs_, lambda a: gather(a, tt)))
+                    got = tda.tda_mixed_attention(tq, k, v, tkr, tvr, tb, tt,
+                                                  ks_, vs_, table, ring=ring,
+                                                  window=window)
+                    close(got, mixed_attention_lut(
+                        *lanes, page_size=ps, ring=ring, window=window,
+                        table=table, **sc), live)
+                    if ks_ is not None:
+                        got = tda.tda_mixed_attention(
+                            tq, k, v, tkr, tvr, tb, tt, ks_, vs_, ring=ring,
+                            window=window)
+                        close(got, mixed_attention_reference(
+                            *lanes, ring=ring, window=window, **sc), live)
+
+
+def test_lut_table_and_variant_counts_checked_before_launch():
+    """A LUT table must be a contiguous (64,) f32 tensor on q's device and
+    its blocks at most 256 positions; launch counts keep one key per
+    variant and reset together."""
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    from repro_torch.kernels.tda import tda
+    q = tp.t(np.zeros((2, 4, D), np.float32))
+    table = exp_lut_table()
+    assert tda._table("x", None, q, 1000) == 0
+    assert tda._table("x", table, q, 256) == table.data_ptr()
+    for bad in (table.double(), table[:32], table.reshape(8, 8)):
+        with pytest.raises(TypeError):
+            tda._table("x", bad, q, 16)
+    for block in (0, 257):
+        with pytest.raises(ValueError):
+            tda._table("x", table, q, block)
+    assert set(tda.VARIANT_LAUNCHES) == {
+        name + suffix for name in tda.LAUNCHES
+        for suffix in ("", ".int8", ".lut", ".int8.lut")}
+    tda._count("tda_mixed_attention", 1, 0)
+    assert tda.VARIANT_LAUNCHES["tda_mixed_attention.int8"] == 1
+    tda.reset_launch_counts()
+    assert not any(tda.LAUNCHES.values()) \
+        and not any(tda.VARIANT_LAUNCHES.values())
