@@ -18,20 +18,26 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               with f32 scales for all three kernels) and the full-width
               shapes of phase 4 (bf16, and int8 K/V with bf16 queries; exact
               and LUT exp, contiguous LUT blocks at the reference's block_k
-              128); max abs diff <= 1e-3 on the f32 outputs of attended
-              decode rows and live mixed columns, exact zeros from the kernel
-              everywhere else. AFU (phase ``afu``): softmax_lut at (256, 512)
-              (the kernel table's), (320, 544) (decode scores of 8 slots x
-              40 heads), (8, 152064) (the LM head's rows, too long for shared
-              memory) and ragged edges; layernorm_residual at (40, 64),
-              (8, 5120), (2048, 5120) and a ragged edge; f32 and bf16
-              inputs; max abs diff <= 1e-3. DMM and SMM (phase
-              ``linear_kernels``): the CPU tests' edge cases (f32 and bf16 x)
-              and every linear family of qwen2.5-32b at full width at M = 8
-              (a decode step) and M = 2048 (a mixed step); max abs diff <=
-              1e-3 x max(1, max |plain|) (f32 sums in another order over K up
-              to 27648). Times each kernel (L2 flushed before every launch),
-              its plain version, one PyTorch call computing the same
+              128); max abs diff on the f32 outputs of attended decode rows
+              and live mixed columns <= 1e-3 with the exact exp and <= 1e-5
+              with the LUT exp, exact zeros from the kernel everywhere else.
+              Negative controls at full width, which must miss the LUT plain
+              version by more than 1e-5: the exact-exp kernel's output, and
+              LUT blocks of 64 positions (the contiguous kernel at block_k 64
+              over the same codes; the mixed step's plain version on 64-key
+              blocks). AFU (phase ``afu``): softmax_lut at (256, 512) (the
+              kernel table's), (320, 544) (decode scores of 8 slots x 40
+              heads), (8, 152064) (the LM head's rows, too long for shared
+              memory) and ragged edges, within 1e-5 x |plain| per element
+              (the exact-exp softmax must miss it); layernorm_residual at
+              (40, 64), (8, 5120), (2048, 5120) and a ragged edge, within
+              1e-5 x max(1, max |plain|); f32 and bf16 inputs. DMM and SMM
+              (phase ``linear_kernels``): the CPU tests' edge cases (f32 and
+              bf16 x) and every linear family of qwen2.5-32b at full width
+              at M = 8 (a decode step) and M = 2048 (a mixed step); max abs
+              diff <= 1e-3 x max(1, max |plain|) (f32 sums in another order
+              over K up to 27648). Times each kernel (L2 flushed before every
+              launch), its plain version, one PyTorch call computing the same
               function (``library_ms``: SDPA over the (gathered) lanes — for
               int8 lanes over lanes dequantized to bf16 beforehand, the
               dequantization untimed; exact exp beside the LUT rows —,
@@ -43,8 +49,10 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
               contiguous decode). Every row must carry the reference's name
-              and a finite time, and the LUT softmax must stay within 5e-3
-              of the exact one (the reference test's bound).
+              and a finite time, each kernel's output in the tables must
+              match its plain version on the same inputs (the limits above),
+              and the LUT softmax must stay within 5e-3 of the exact one (the
+              reference test's bound).
 3. tokens   — float32 qwen2.5 smoke: the mixed Engine on the TDA kernels
               gives the plain path's tokens (``decode_attn="dense"``); the
               phase-serialized Engine over contiguous and over paged lanes
@@ -73,14 +81,17 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               x 8 times per step (every linear of every layer), and the TDA
               counts keep phase 4's invariants.
 
-Each kernels-line row takes its launches from the run that drives it: the
-TDA rows from the phase-4 serves (int8 rows from the int8 serves), DMM and
-SMM from phase 5, softmax_lut from the kernel_table phase; layernorm_residual
-and the TDA LUT and int8-mixed variants, which no serve runs, from their
-checks in phase 2 (counted before they are timed). Then the card's name and
-power limit, the kernels' JSON line, and last the device JSON line. Exits
-nonzero with no result without a CUDA device or outside a checkout of the
-repository.
+Each kernels-line row takes its launches from the run that drives it, and
+names that run in ``launches_from``: the TDA rows from the phase-4 serves
+(``serve:<engine>``; int8 rows from the int8 serves), DMM and SMM from phase
+5 (``compressed_serve``), softmax_lut from the kernel_table phase
+(``kernel_table``); layernorm_residual and the TDA LUT and int8-mixed
+variants, which no serve runs, from their check at the row's full-width
+shape in phase 2 (``check``: the one launch at that shape, two for
+LayerNorm's f32 and bf16 inputs; counted before they are timed). Then the
+card's name and power limit, the kernels' JSON line, and last the device
+JSON line. Exits nonzero with no result without a CUDA device or outside a
+checkout of the repository.
 """
 import dataclasses
 import gc
@@ -92,7 +103,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TOL = 1e-3          # max abs diff, kernel vs plain version, f32 outputs
+TOL = 1e-3          # max abs diff, exact-exp TDA kernels vs plain version
+# The LUT-exp and AFU kernels compute their plain versions' f32 formulas,
+# summed in another order (on the card: <= 5.4e-7 for the LUT TDA rows,
+# 3.0e-7 for softmax, 2.9e-6 for LayerNorm at outputs of up to ~20), so
+# their limits sit far below the differences that a wrong kernel makes:
+# the negative controls below must fail these limits on the same inputs.
+LUT_TOL = 1e-5      # max abs diff, LUT TDA kernels vs blockwise LUT plain
+SOFTMAX_RTOL = 1e-5  # max |diff| / |plain| per element (entries ~1e-12..1)
+LN_TOL = 1e-5       # max abs diff / max(1, max |plain|), LayerNorm
+LUT_CONTROL_BLOCK = 64  # a partition other than the reference's (128)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12      # H100 SXM f32 (no tensor cores)
@@ -129,6 +149,12 @@ def time_ms(torch, fn, reps=20):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def rel_err(got, plain):
+    """max |got - plain| / |plain| per element (LUT softmax: every entry
+    is positive, down to table[0] / row sum)."""
+    return ((got - plain).abs() / plain.abs()).max().item()
 
 
 def bound(nbytes, flops, itemsize):
@@ -363,24 +389,39 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                                           v_scale=vs, window=hi - lo)
 
     def plain_mixed(q, k, v, kr, vr, bounds, bt, ks=None, vs=None, lut=False,
-                    **kw):
+                    block=None, **kw):
         lanes = (q, gather(k, bt), gather(v, bt), kr, vr, bounds[:, 0],
                  bounds[:, 1])
         sc = dict(k_scale=opt_gather(ks, bt), v_scale=opt_gather(vs, bt))
-        if lut:
-            return mixed_attention_lut(*lanes, page_size=k.shape[1],
+        if lut:  # LUT blocks: one page each (``block`` for a control)
+            return mixed_attention_lut(*lanes, page_size=block or k.shape[1],
                                        table=table, **sc, **kw)
         return mixed_attention_reference(*lanes, **sc, **kw)
 
+    def diff(got, plain, live):
+        return (got - plain)[live].abs().max().item() if live.any() else 0.0
+
     def check(name, got, plain, live):
-        e = (got - plain)[live].abs().max().item() if live.any() else 0.0
+        e, lim = diff(got, plain, live), LUT_TOL if ".lut" in name else TOL
         err[name] = max(err[name], e)
-        if not e <= TOL or got[~live].any().item():
-            fail(f"{name} vs plain: max abs diff {e} (limit {TOL}); zeros "
+        if not e <= lim or got[~live].any().item():
+            fail(f"{name} vs plain: max abs diff {e} (limit {lim}); zeros "
                  f"outside the live part: {not got[~live].any().item()}")
 
+    # Negative controls at full width: outputs a wrong kernel would give
+    # (exact exp; LUT blocks of LUT_CONTROL_BLOCK positions) must miss the
+    # LUT plain version by more than LUT_TOL on the same inputs.
+    controls = {}
+
+    def control(name, what, wrong, plain, live):
+        e = diff(wrong, plain, live)
+        controls.setdefault(name, {})[what] = e
+        if not e > LUT_TOL:
+            fail(f"{name}: the {what} control is within {LUT_TOL} of the "
+                 f"LUT plain version ({e}): the check cannot tell them apart")
+
     # Rows no serve runs (the LUT and int8-mixed variants) take the launches
-    # of these checks.
+    # of their full-width check below.
     check_only = ("tda_decode_attention.lut", "tda_decode_attention.int8.lut",
                   "tda_paged_decode_attention.lut",
                   "tda_paged_decode_attention.int8.lut",
@@ -455,16 +496,24 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     Hq, Hkv, D = full_cfg.n_heads, full_cfg.kv_heads, full_cfg.head_dim
     rows = []
 
+    def checked(name, fn, plain, live):
+        """Check one full-width call; returns the launches it made."""
+        n0 = tda.VARIANT_LAUNCHES[name]
+        got = fn()
+        n = tda.VARIANT_LAUNCHES[name] - n0
+        check(name, got, plain(), live)
+        return n
+
     def add_row(name, src, repl, fn, plain, library, lib_label, nbytes,
-                flops, shape, plain_reps=20):
+                flops, shape, launches, plain_reps=20):
         """Time a checked kernel and its yardsticks; rows no serve runs
-        take their launches now, before the timing launches."""
+        take the launches of their full-width check."""
         bms, by = bound(nbytes, flops, 2)
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
                "replaces": repl}
         if name in check_only:
-            row["launches"] = tda.VARIANT_LAUNCHES[name]
+            row.update(launches=launches, launches_from="check")
         row.update({
             "ms": time_ms(torch, fn),
             "plain_ms": time_ms(torch, plain, plain_reps),
@@ -508,7 +557,11 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
 
     paged = {"page_size": int(k.shape[1]), "pool_pages": int(k.shape[0])}
     fp_b, q8_b = Hkv * D * 2 * 2, Hkv * (D + 4) * 2
-    variants = (  # name, source, lanes (k, v[, ks, vs]), paged, LUT, SDPA
+    # contiguous lanes of each variant's values (by its SDPA key), for the
+    # block-partition control
+    contig = {"fp": (kl, vl), "int8": (kq, vq, ks, vs),
+              "paged_int8": (kq, vq, ks, vs)}
+    variants = (  # name, lanes (k, v[, ks, vs]), paged, LUT, SDPA
         ("tda_paged_decode_attention", (k, v), True, False, "fp"),
         ("tda_decode_attention", (kl, vl), False, False, "fp"),
         ("tda_decode_attention.int8", (kq, vq, ks, vs), False, False, "int8"),
@@ -535,7 +588,18 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                                            block_k=128))
             plain = (lambda lanes=lanes, sc=sc, lut=lut: plain_contig(
                 q, *lanes[:2], bounds, *sc, 128 if lut else None))
-        check(name, fn(), plain(), live)
+        launches = checked(name, fn, plain, live)
+        if lut:
+            want = plain()
+            exact = (tda.tda_paged_decode_attention(q, *lanes[:2], bounds, bt,
+                                                    *sc) if is_paged else
+                     tda.tda_decode_attention(q, *lanes[:2], bounds, *sc))
+            control(name, "exact_exp", exact, want, live)
+            cl = contig[lib]
+            control(name, f"block_{LUT_CONTROL_BLOCK}",
+                    tda.tda_decode_attention(
+                        q, *cl[:2], bounds, *(cl[2:] or (None, None)),
+                        table, block_k=LUT_CONTROL_BLOCK), want, live)
         quant = len(lanes) == 4
         dtype = ("int8 k/v + f32 scales, bf16 q" if quant else "bfloat16") \
             + (", LUT exp" if lut else "")
@@ -551,8 +615,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                 4 * tokens * Hq * D,
                 {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
                  "lane": paged if is_paged else int(cache_len),
-                 "tokens_attended": tokens, "dtype": dtype})
-    del kl, vl, kq, vq, kpq, vpq, sdpa_in
+                 "tokens_attended": tokens, "dtype": dtype}, launches)
+    del kl, vl, kq, vq, kpq, vpq, sdpa_in, contig
 
     # --- mixed step: the bf16 pool, then int8 codes of the same values
     # (the chunk stays bf16); exact and LUT exp.
@@ -591,7 +655,15 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
             q, *pool[:2], kr, vr, bnd, bt, *pool[2:], tab, ring=ring))
         plain = (lambda pool=pool, lut=lut: plain_mixed(
             q, *pool[:2], kr, vr, bnd, bt, *pool[2:], lut, ring=ring))
-        check(name, fn(), plain(), mlive)
+        launches = checked(name, fn, plain, mlive)
+        if lut:
+            want = plain()
+            control(name, "exact_exp", tda.tda_mixed_attention(
+                q, *pool[:2], kr, vr, bnd, bt, *pool[2:], ring=ring), want,
+                mlive)
+            control(name, f"block_{LUT_CONTROL_BLOCK}", plain_mixed(
+                q, *pool[:2], kr, vr, bnd, bt, *pool[2:], True,
+                LUT_CONTROL_BLOCK, ring=ring), want, mlive)
         quant = pool[2] is not None
         kl, vl = (gather(t, bt) if not quant else
                   kv_dequantize(gather(t, bt), gather(s, bt), bf)
@@ -614,14 +686,16 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                  "bound_bytes": nbytes, "live_query_key_pairs_per_head": keys,
                  "dtype": ("int8 pool + f32 scales, bf16 q and chunk"
                            if quant else "bfloat16")
-                 + (", LUT exp" if lut else "")}, plain_reps=5)
+                 + (", LUT exp" if lut else "")}, launches, plain_reps=5)
         del kl, vl, keys_all, vals_all
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
-    line("kernels_full", **{r["name"]: {k: r[k] for k in (
-        "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by",
-        "max_abs_err", "shape")} for r in rows})
+    line("kernels_full", controls=controls, limits={"exact": TOL,
+                                                    "lut": LUT_TOL},
+         **{r["name"]: {k: r[k] for k in (
+             "ms", "plain_ms", "library_ms", "library", "bound_ms",
+             "bound_by", "max_abs_err", "shape")} for r in rows})
     return rows
 
 
@@ -632,15 +706,19 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
 # step's 2048 tokens of d_model 5120, and a ragged edge.
 SOFTMAX_SHAPES = [(256, 512), (320, 544), (8, 152064), (7, 999), (33, 50)]
 LN_SHAPES = [(40, 64), (8, 5120), (2048, 5120), (7, 999)]
+LN_ROW = (2048, 5120)  # the kernels-line row's shape
 
 
 def phase_afu(torch):
     """The AFU kernels against their plain versions at SOFTMAX_SHAPES and
-    LN_SHAPES, f32 and bf16 inputs, then timed at each shape (f32 softmax,
-    bf16 LayerNorm as the serve's hidden states). Returns the two rows:
-    softmax at the kernel table's shape, its launches from the
-    ``kernel_table`` phase; LayerNorm at (2048, 5120), its launches from
-    these checks."""
+    LN_SHAPES, f32 and bf16 inputs (softmax within SOFTMAX_RTOL per
+    element, LayerNorm within LN_TOL), then timed at each shape (f32
+    softmax, bf16 LayerNorm as the serve's hidden states). Negative
+    control: the exact-exp softmax (``torch.softmax``) must miss the LUT
+    plain version by more than SOFTMAX_RTOL at every shape. Returns the two
+    rows: softmax at the kernel table's shape, its launches from the
+    ``kernel_table`` phase; LayerNorm at LN_ROW, its launches from the
+    checks at that shape (f32 and bf16)."""
     import torch.nn.functional as F
     from repro_torch.kernels.afu import afu
     from repro_torch.kernels.afu.ref import (exp_lut_table,
@@ -651,12 +729,18 @@ def phase_afu(torch):
     g = torch.Generator(device=dev).manual_seed(4)
     table = exp_lut_table(dev)
     err = {"softmax_lut": 0.0, "layernorm_residual": 0.0}
+    rel = {"softmax_lut": 0.0, "layernorm_residual": 0.0}  # vs the limits
+    controls = {}
 
     def check(name, got, plain):
         e = (got - plain).abs().max().item()
-        err[name] = max(err[name], e)
-        if not e <= TOL:
-            fail(f"{name} vs plain: max abs diff {e} (limit {TOL}) at "
+        if name == "softmax_lut":
+            r, lim = rel_err(got, plain), SOFTMAX_RTOL
+        else:
+            r, lim = e / max(1.0, plain.abs().max().item()), LN_TOL
+        err[name], rel[name] = max(err[name], e), max(rel[name], r)
+        if not r <= lim:
+            fail(f"{name} vs plain: {r} (limit {lim}; max abs diff {e}) at "
                  f"{tuple(got.shape)}")
 
     afu.reset_launch_counts()
@@ -666,18 +750,25 @@ def phase_afu(torch):
         for xx in (x, x.to(torch.bfloat16)):
             check("softmax_lut", afu.softmax_lut(xx, table),
                   softmax_lut_reference(xx, table))
+        c = rel_err(torch.softmax(x, -1), softmax_lut_reference(x, table))
+        controls[f"exact_exp {R}x{C}"] = c
+        if not c > SOFTMAX_RTOL:
+            fail(f"softmax_lut: the exact-exp control is within "
+                 f"{SOFTMAX_RTOL} of the LUT plain version ({c}) at {R}x{C}")
         inputs["softmax", R, C] = x
     for R, C in LN_SHAPES:
         x, res = (torch.randn(R, C, generator=g, device=dev) for _ in "xr")
         sc, bi = (torch.randn(C, generator=g, device=dev) for _ in "sb")
+        n0 = afu.LAUNCHES["layernorm_residual"]
         for dt in (torch.float32, torch.bfloat16):
             args = (x.to(dt), res.to(dt), sc, bi)
             check("layernorm_residual", afu.layernorm_residual(*args),
                   layernorm_residual_reference(*args))
+        if (R, C) == LN_ROW:
+            ln_launches = afu.LAUNCHES["layernorm_residual"] - n0
         inputs["ln", R, C] = (x.to(torch.bfloat16), res.to(torch.bfloat16),
                               sc, bi)
     torch.cuda.synchronize()
-    ln_launches = afu.LAUNCHES["layernorm_residual"]
     times = {}
     for (kind, R, C), a in inputs.items():
         if kind == "softmax":
@@ -699,7 +790,9 @@ def phase_afu(torch):
             "bound_by": by,
             "dtype": "float32" if kind == "softmax" else "bfloat16"}
     line("afu", seconds=round(time.perf_counter() - t0, 3),
-         max_abs_err=err, **times)
+         max_abs_err=err, err_vs_limit=rel,
+         limits={"softmax_rtol": SOFTMAX_RTOL, "layernorm": LN_TOL},
+         controls=controls, **times)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     out = []
     for name, repl, key, lib in (
@@ -707,7 +800,7 @@ def phase_afu(torch):
              "softmax 256x512", "torch.softmax (exact exp: the same "
              "traffic, not the same function)"),
             ("layernorm_residual", "src/repro/kernels/afu/afu.py:61",
-             "ln 2048x5120", "add + F.layer_norm, timed together")):
+             "ln %dx%d" % LN_ROW, "add + F.layer_norm, timed together")):
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/afu.cu",
                     "replaces": repl, "max_abs_err": err[name],
@@ -717,7 +810,7 @@ def phase_afu(torch):
                                      for k, v in times.items()
                                      if k.startswith(key.split()[0])
                                      and k != key}})
-    out[1]["launches"] = ln_launches
+    out[1].update(launches=ln_launches, launches_from="check")
     return out
 
 
@@ -725,9 +818,13 @@ def phase_kernel_table(torch):
     """The slice's entry point: the launcher's ``kernels`` and
     ``decode_attn`` tables in-process on the card, every launch counter
     set to 0 just before and read just after. Every row must carry the
-    reference's name and a finite time, and the LUT softmax's error
-    against the exact one must stay below 5e-3 (the reference test's
-    bound). Returns the launches."""
+    reference's name and a finite time, the LUT softmax's error against
+    the exact one must stay below 5e-3 (the reference test's bound), and
+    each kernel's output in the tables is held against its plain version
+    on the same inputs (``Table.outputs``): DMM and SMM within TOL x
+    max(1, max |plain|) as in ``linear_kernels``, the LUT softmax within
+    SOFTMAX_RTOL per element, the int8 decode kernel within TOL of the
+    dense oracle. Returns the launches."""
     from repro_torch.kernels.afu import afu
     from repro_torch.kernels.dmm import dmm
     from repro_torch.kernels.smm import smm
@@ -740,15 +837,30 @@ def phase_kernel_table(torch):
     results = kernel_table.run(kernel_table.TABLES, torch.device("cuda"))
     torch.cuda.synchronize()
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
-    rows = [r for table_rows, _ in results.values() for r in table_rows]
+    rows = [r for t in results.values() for r in t.rows]
     want = ["kernels/dmm_lut_matmul", "kernels/smm_compressed_matmul",
             "kernels/afu_softmax_lut", "decode_attn/fused",
             "decode_attn/dense", "decode_attn/blocks"]
+    errs = {}
+    for name, (got, plain) in (kv for t in results.values()
+                               for kv in t.outputs.items()):
+        e = (got - plain).abs().max().item()
+        if name == "kernels/afu_softmax_lut":
+            e, lim = rel_err(got, plain), SOFTMAX_RTOL
+        elif name == "decode_attn/fused":
+            lim = TOL
+        else:
+            lim = TOL * max(1.0, plain.abs().max().item())
+        errs[name] = e
+        if not e <= lim:
+            fail(f"kernel table {name} vs plain: {e} (limit {lim})")
+    if sorted(errs) != sorted(want[:4]):
+        fail(f"kernel table: outputs of {sorted(errs)}, want {want[:4]}")
     if [r[0] for r in rows] != want:
         fail(f"kernel table rows {[r[0] for r in rows]} != {want}")
     if not all(math.isfinite(us) for _, us, _ in rows):
         fail(f"kernel table: a non-finite time in {rows}")
-    lut_err = results["kernels"][1]["max_err_vs_exact"]
+    lut_err = results["kernels"].metrics["max_err_vs_exact"]
     if not lut_err < 5e-3:
         fail(f"kernels/afu_softmax_lut: max_err_vs_exact {lut_err} >= 5e-3")
     for name in ("dmm_matmul", "smm_matmul", "softmax_lut",
@@ -757,8 +869,8 @@ def phase_kernel_table(torch):
             fail(f"kernel table: {name} was not launched ({launches})")
     line("kernel_table", seconds=round(time.perf_counter() - t0, 3),
          csv=[f"{n},{us:.1f},{d}" for n, us, d in rows],
-         max_err_vs_exact=lut_err,
-         decode_attn=results["decode_attn"][1], launches=launches)
+         max_err_vs_exact=lut_err, err_vs_plain=errs,
+         decode_attn=results["decode_attn"].metrics, launches=launches)
     return launches
 
 
@@ -1214,11 +1326,12 @@ def main():
                         engine_kw)
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
-    # Each kernel's launches come from the run that drives it: the TDA
-    # kernels' from the phase-4 serves (the int8 rows from the int8 serves),
-    # DMM's and SMM's from phase 5, the LUT softmax's from the kernel_table
-    # phase; the rows of no serve's path (LayerNorm, the LUT and int8-mixed
-    # TDA variants) carry the launches of their phase-2 checks.
+    # Each kernel's launches come from the run that drives it, named in the
+    # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
+    # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
+    # softmax's from the kernel_table phase; the rows of no serve's path
+    # (LayerNorm, the LUT and int8-mixed TDA variants) carry the launches of
+    # their check at the row's full-width shape ("check").
     source = {"tda_paged_decode_attention": ("mixed", None),
               "tda_mixed_attention": ("mixed", None),
               "tda_decode_attention": ("contiguous_bf16", None),
@@ -1228,12 +1341,15 @@ def main():
                   "paged_int8", "tda_paged_decode_attention")}
     for r in rows:
         if r["name"] in ("dmm_matmul", "smm_matmul"):
-            r["launches"] = claunches[r["name"]]
+            r.update(launches=claunches[r["name"]],
+                     launches_from="compressed_serve")
         elif r["name"] == "softmax_lut":
-            r["launches"] = table_launches["softmax_lut"]
+            r.update(launches=table_launches["softmax_lut"],
+                     launches_from="kernel_table")
         elif r["name"] in source:
             run, key = source[r["name"]]
-            r["launches"] = runs[run][key or r["name"]]
+            r.update(launches=runs[run][key or r["name"]],
+                     launches_from=f"serve:{run}")
         if not r.get("launches"):
             fail(f"{r['name']} was not launched by the run that drives it")
     line("seconds", total=round(sum(seconds.values()), 3), **seconds)
@@ -1241,8 +1357,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
         "M8", "other_shapes") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,14 +15,15 @@ exponentials of the online softmax, rescaled per reference block
 (``block_k`` positions for contiguous lanes, one page for paged ones, the
 row chunk as one more block in the mixed step).
 
-``LAUNCHES`` counts kernel launches and ``VARIANT_LAUNCHES`` the same
-launches by variant (``name``, ``name.int8``, ``name.lut``,
-``name.int8.lut``); plain-version calls are not counted, so a run can show
-that its path went through the kernels.
+``VARIANT_LAUNCHES`` counts kernel launches by variant (``name``,
+``name.int8``, ``name.lut``, ``name.int8.lut``) and ``LAUNCHES`` reads
+them per kernel (the sum of its variants); plain-version calls are not
+counted, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -39,10 +40,32 @@ __all__ = ["tda_decode_attention", "tda_paged_decode_attention",
            "tda_mixed_attention", "LAUNCHES", "VARIANT_LAUNCHES",
            "reset_launch_counts"]
 
-LAUNCHES = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
-            "tda_mixed_attention": 0}
-VARIANT_LAUNCHES = {name + suffix: 0 for name in LAUNCHES
-                    for suffix in ("", ".int8", ".lut", ".int8.lut")}
+_KERNELS = ("tda_decode_attention", "tda_paged_decode_attention",
+            "tda_mixed_attention")
+_VARIANTS = ("", ".int8", ".lut", ".int8.lut")
+VARIANT_LAUNCHES = {name + suffix: 0 for name in _KERNELS
+                    for suffix in _VARIANTS}
+
+
+class _KernelLaunches(Mapping):
+    """Launches per kernel, read from ``VARIANT_LAUNCHES`` (read-only)."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in _KERNELS:
+            raise KeyError(name)
+        return sum(VARIANT_LAUNCHES[name + s] for s in _VARIANTS)
+
+    def __iter__(self):
+        return iter(_KERNELS)
+
+    def __len__(self) -> int:
+        return len(_KERNELS)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = _KernelLaunches()
 MAX_GROUP = 8     # query rows per kv head the decode kernels hold
 MAX_HEAD_DIM = 128
 MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
@@ -50,13 +73,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, VARIANT_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    for name in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[name] = 0
 
 
 def _count(name: str, quant: int, table_ptr: int) -> None:
-    LAUNCHES[name] += 1
     VARIANT_LAUNCHES[name + (".int8" if quant else "")
                      + (".lut" if table_ptr else "")] += 1
 

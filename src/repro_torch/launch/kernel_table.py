@@ -15,6 +15,9 @@ does it write a JSON sidecar per table (``DIR/BENCH_<table>.json``), never
 into the working directory. Runs on the CUDA device unless ``--device cpu``
 is given; on the card each call is timed with CUDA events after a warm-up
 (mean of 5 calls, the reference's count), on the CPU with the host clock.
+``run`` also returns, per kernel row, the kernel's output (its warm-up
+call's) beside its plain version's on the same inputs (``Table.outputs``),
+for holding each kernel against its plain version on the card.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import argparse
 import json
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +36,18 @@ Row = Tuple[str, float, str]
 TABLES = ("kernels", "decode_attn")
 
 
-def time_us(fn: Callable, device: torch.device, n: int = 5) -> float:
-    """Mean microseconds per call after one warm-up call."""
-    fn()
+class Table(NamedTuple):
+    rows: List[Row]
+    metrics: Dict
+    # {row name: (kernel output, plain version's output)}, same inputs
+    outputs: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def time_us(fn: Callable, device: torch.device,
+            n: int = 5) -> Tuple[float, torch.Tensor]:
+    """Mean microseconds per call after one warm-up call, and the warm-up
+    call's output."""
+    out = fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         a = torch.cuda.Event(enable_timing=True)
@@ -45,14 +57,14 @@ def time_us(fn: Callable, device: torch.device, n: int = 5) -> float:
             fn()
         b.record()
         torch.cuda.synchronize(device)
-        return a.elapsed_time(b) / n * 1e3
+        return a.elapsed_time(b) / n * 1e3, out
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
-    return (time.perf_counter() - t0) / n * 1e6
+    return (time.perf_counter() - t0) / n * 1e6, out
 
 
-def bench_kernels(device: torch.device) -> Tuple[List[Row], Dict]:
+def bench_kernels(device: torch.device) -> Table:
     from repro_torch.core import compression as comp
     from repro_torch.core.factorized import pack_nibbles
     from repro_torch.kernels import compressed_matmul, fused_softmax
@@ -62,13 +74,15 @@ def bench_kernels(device: torch.device) -> Tuple[List[Row], Dict]:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     rng = np.random.default_rng(0)
-    rows = []
+    rows, outputs = [], {}
     M, K, r, N, nnz = 128, 512, 320, 512, 40
     ws = rng.normal(size=(K, r)).astype(np.float32) * 0.1
     cws = comp.compress_ws(T(ws))
     packed = pack_nibbles(cws.codes)
     x = T(rng.normal(size=(M, K)).astype(np.float32))
-    us = time_us(lambda: lut_matmul(x, packed, cws.lut), device)
+    us, out = time_us(lambda: lut_matmul(x, packed, cws.lut), device)
+    outputs["kernels/dmm_lut_matmul"] = (
+        out, lut_matmul(x, packed, cws.lut, use_kernel=False))
     dense_bytes = K * r * 2
     comp_bytes = K * r // 2 + 64
     rows.append(("kernels/dmm_lut_matmul", us,
@@ -80,8 +94,10 @@ def bench_kernels(device: torch.device) -> Tuple[List[Row], Dict]:
     first = comp.delta_decode(cwd.deltas)[0].to(torch.int32)
     deltas = cwd.deltas[1:].to(torch.uint8)
     y = T(rng.normal(size=(M, r)).astype(np.float32))
-    us = time_us(lambda: compressed_matmul(y, first, deltas, cwd.values_q,
-                                           cwd.scale, cwd.offset), device)
+    smm_args = (y, first, deltas, cwd.values_q, cwd.scale, cwd.offset)
+    us, out = time_us(lambda: compressed_matmul(*smm_args), device)
+    outputs["kernels/smm_compressed_matmul"] = (
+        out, compressed_matmul(*smm_args, use_kernel=False))
     dense_bytes = r * N * 2
     stream_bytes = (comp.wd_compressed_bits(cwd) + 7) // 8
     rows.append(("kernels/smm_compressed_matmul", us,
@@ -89,15 +105,16 @@ def bench_kernels(device: torch.device) -> Tuple[List[Row], Dict]:
                  f"({dense_bytes / stream_bytes:.1f}x less HBM)"))
 
     s = T(rng.normal(size=(256, 512)).astype(np.float32))
-    us = time_us(lambda: fused_softmax(s), device)
-    err = (fused_softmax(s) - torch.softmax(s, -1)).abs().max().item()
+    us, out = time_us(lambda: fused_softmax(s), device)
+    err = (out - torch.softmax(s, -1)).abs().max().item()
+    outputs["kernels/afu_softmax_lut"] = (out,
+                                          fused_softmax(s, use_kernel=False))
     rows.append(("kernels/afu_softmax_lut", us, f"max_err_vs_exact={err:.1e}"))
-    return rows, {"max_err_vs_exact": err}
+    return Table(rows, {"max_err_vs_exact": err}, outputs)
 
 
 def bench_decode_attn(device: torch.device, num_slots: int = 8,
-                      cache_len: int = 128,
-                      block_k: int = 32) -> Tuple[List[Row], Dict]:
+                      cache_len: int = 128, block_k: int = 32) -> Table:
     """The int8 contiguous decode kernel on a mixed-length slot workload
     against the dense oracle, plus the blocks-visited ratio of the
     predicated walk (the work that follows occupancy, not cache_len)."""
@@ -116,9 +133,9 @@ def bench_decode_attn(device: torch.device, num_slots: int = 8,
     kq, ks = kv_quantize(T(kf))
     vq, vs = kv_quantize(T(vf))
     lens = T(lengths.astype(np.int32))
-    fused_us = time_us(lambda: fused_decode_attention(
+    fused_us, fused = time_us(lambda: fused_decode_attention(
         q, kq, vq, lens, k_scale=ks, v_scale=vs, block_k=block_k), device)
-    dense_us = time_us(lambda: fused_decode_attention(
+    dense_us, dense = time_us(lambda: fused_decode_attention(
         q, kq, vq, lens, k_scale=ks, v_scale=vs, use_kernel=False), device)
     bs = block_stats(lengths, cache_len, block_k)
     how = "cuda kernel" if device.type == "cuda" else "cpu plain version"
@@ -142,11 +159,11 @@ def bench_decode_attn(device: torch.device, num_slots: int = 8,
          f"visited={bs['visited']}/{bs['dense']} "
          f"ratio={bs['ratio']:.2f} (target <0.7: work follows occupancy)"),
     ]
-    return rows, metrics
+    return Table(rows, metrics, {"decode_attn/fused": (fused, dense)})
 
 
-def run(tables, device: torch.device) -> Dict[str, Tuple[List[Row], Dict]]:
-    """{table: (rows, metrics)} for each named table, in order."""
+def run(tables, device: torch.device) -> Dict[str, Table]:
+    """{table: Table} for each named table, in order."""
     fns = {"kernels": bench_kernels, "decode_attn": bench_decode_attn}
     return {name: fns[name](device) for name in tables}
 
@@ -165,7 +182,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     results = run(args.tables or TABLES, device)
     print("name,us_per_call,derived")
-    for name, (rows, metrics) in results.items():
+    for name, (rows, metrics, _) in results.items():
         for row, us, derived in rows:
             print(f"{row},{us:.1f},{derived}")
         if args.out:

@@ -105,8 +105,10 @@ def test_wrappers_run_plain_versions_on_cpu_and_check_inputs():
 def test_cuda_afu_kernels_match_plain_versions():
     """Both AFU kernels against their plain versions on the card, f32 and
     bf16 inputs, rows held in shared memory and rows streamed from device
-    memory (the LM head's 152 064 entries): max abs diff 1e-3 on the f32
-    outputs (sums in another order)."""
+    memory (the LM head's 152 064 entries). The same f32 formulas, summed
+    in another order: softmax within 1e-5 x |plain| per element (its
+    entries fall to ~1e-12 over long rows), LayerNorm within 1e-5 x max(1,
+    max |plain|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from repro_torch.kernels.afu import afu
@@ -123,10 +125,11 @@ def test_cuda_afu_kernels_match_plain_versions():
             got = afu.softmax_lut(x, table)
             assert afu.LAUNCHES["softmax_lut"] == n0 + 1
             want = softmax_lut_reference(x, table)
-            assert (got - want).abs().max().item() <= 1e-3
+            assert ((got - want).abs() / want).max().item() <= 1e-5
             res = torch.randn(R, C, generator=g, device=dev).to(dt)
             sc = torch.randn(C, generator=g, device=dev)
             bi = torch.randn(C, generator=g, device=dev)
             got = afu.layernorm_residual(x, res, sc, bi)
             want = layernorm_residual_reference(x, res, sc, bi)
-            assert (got - want).abs().max().item() <= 1e-3
+            assert (got - want).abs().max().item() <= 1e-5 * max(
+                1.0, want.abs().max().item())

@@ -65,3 +65,17 @@ def test_kernel_table_sidecar_only_with_out(capsys, tmp_path, monkeypatch):
     from repro_torch.launch import kernel_table
     with pytest.raises(SystemExit):
         kernel_table.main(["nonesuch", "--device", "cpu"])
+
+
+def test_kernel_table_returns_kernel_and_plain_outputs():
+    """``run`` returns each kernel row's output beside its plain version's
+    on the same inputs; on the CPU the wrappers run plain versions, so the
+    two agree up to summation order."""
+    from repro_torch.launch import kernel_table
+    results = kernel_table.run(kernel_table.TABLES, torch.device("cpu"))
+    outs = {n: o for t in results.values() for n, o in t.outputs.items()}
+    assert sorted(outs) == sorted(ROWS[:4])
+    for name, (got, plain) in outs.items():
+        assert got.shape == plain.shape and got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)

@@ -501,10 +501,25 @@ def _quantized_pool(k, v, seed):
 @pytest.mark.parametrize("ring_short", [False, True])
 @pytest.mark.parametrize("ps", [8, 16])
 def test_mixed_lut_and_int8_match_reference(ps, ring_short, window, lut):
-    """The mixed step with the LUT exp (fp pool; per page, then the row
-    chunk as one block) or over int8 pool codes with f32 scales (exact
-    exp; then also its oracle with scales through the ops), on live
-    columns; a wrapped short ring and a window."""
+    """The mixed step with the LUT exp over an fp pool, or over int8 pool
+    codes with f32 scales with the exact exp."""
+    _check_mixed(ps, ring_short, window, lut=lut, quant=not lut)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("ring_short", [False, True])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_mixed_int8_lut_matches_reference(ps, ring_short, window):
+    """The mixed step with the LUT exp over int8 pool codes."""
+    _check_mixed(ps, ring_short, window, lut=True, quant=True)
+
+
+def _check_mixed(ps, ring_short, window, *, lut, quant):
+    """The mixed kernel's wrapper and op against the reference's Pallas
+    kernel in interpret mode, with the LUT exp (per page, then the row
+    chunk as one block) or without, over an fp pool or int8 pool codes with
+    f32 scales, on live columns; a wrapped short ring and a window. Exact
+    exp: also the op's oracle against the reference's."""
     import jax.numpy as jnp
     from repro.kernels.tda.ops import fused_mixed_attention as jfused
     from repro.kernels.tda.tda import tda_mixed_attention as jkernel
@@ -514,7 +529,7 @@ def test_mixed_lut_and_int8_match_reference(ps, ring_short, window, lut):
     q, k, v, kr, vr, bounds, bt, ring = _mixed_case(ps + Hq + 2, Hq, Hkv, ps,
                                                     ring_short)
     ks = vs = None
-    if not lut:
+    if quant:
         k, v, ks, vs = _quantized_pool(k, v, ps + 1)
     jt, tt = _lut_tables() if lut else (None, None)
     J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
@@ -552,9 +567,10 @@ def test_mixed_lut_and_int8_match_reference(ps, ring_short, window, lut):
 def test_cuda_lut_and_int8_mixed_kernels(dtype):
     """The LUT mode of all three kernels (decode over fp and int8 lanes)
     and the mixed kernel over int8 pools (exact and LUT) against their
-    plain versions on the card: max abs diff 1e-3 on attended rows and
-    live columns, exact zeros elsewhere; each launch counted under its
-    variant."""
+    plain versions on the card: max abs diff on attended rows and live
+    columns 1e-5 with the LUT exp (the same f32 formulas, summed in another
+    order), 1e-3 with the exact exp (as the exact kernels' test), exact
+    zeros elsewhere; each launch counted under its variant."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from repro_torch.kernels.afu.ref import exp_lut_table
@@ -571,8 +587,8 @@ def test_cuda_lut_and_int8_mixed_kernels(dtype):
         x = tp.t(a, dev)
         return x.to(dt) if x.dtype == torch.float32 else x
 
-    def close(got, want, live):
-        assert (got - want)[live].abs().max().item() <= 1e-3
+    def close(got, want, live, atol=1e-5):
+        assert (got - want)[live].abs().max().item() <= atol
         assert not got[~live].any()
 
     for Hq, Hkv in HEADS:
@@ -632,7 +648,8 @@ def test_cuda_lut_and_int8_mixed_kernels(dtype):
                             tq, k, v, tkr, tvr, tb, tt, ks_, vs_, ring=ring,
                             window=window)
                         close(got, mixed_attention_reference(
-                            *lanes, ring=ring, window=window, **sc), live)
+                            *lanes, ring=ring, window=window, **sc), live,
+                            atol=1e-3)
 
 
 def test_lut_table_and_variant_counts_checked_before_launch():
@@ -655,7 +672,13 @@ def test_lut_table_and_variant_counts_checked_before_launch():
         name + suffix for name in tda.LAUNCHES
         for suffix in ("", ".int8", ".lut", ".int8.lut")}
     tda._count("tda_mixed_attention", 1, 0)
+    tda._count("tda_mixed_attention", 0, table.data_ptr())
     assert tda.VARIANT_LAUNCHES["tda_mixed_attention.int8"] == 1
+    assert tda.VARIANT_LAUNCHES["tda_mixed_attention.lut"] == 1
+    assert tda.LAUNCHES["tda_mixed_attention"] == 2  # the variants' sum
+    assert dict(tda.LAUNCHES) == {"tda_decode_attention": 0,
+                                  "tda_paged_decode_attention": 0,
+                                  "tda_mixed_attention": 2}
     tda.reset_launch_counts()
     assert not any(tda.LAUNCHES.values()) \
         and not any(tda.VARIANT_LAUNCHES.values())
