@@ -6,7 +6,10 @@
 Phases (one line each, with its seconds; any failure exits nonzero):
 
 1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``
-              (one nvcc per source, all started together).
+              (one nvcc per source, all started together); report ptxas's
+              registers, shared memory and spills, and fail unless the SASS
+              (``cuobjdump -sass``) of DMM holds wgmma (HGMMA) and that of
+              the mixed kernel mma.sync (HMMA) instructions.
 2. kernels  — each kernel against its plain PyTorch version on the card.
               TDA (phase ``kernels``): the ``kernels/tda/ref.py`` oracle
               (over gathered lanes for the paged kernels; with the LUT exp,
@@ -18,7 +21,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               with f32 scales for all three kernels) and the full-width
               shapes of phase 4 (bf16, and int8 K/V with bf16 queries; exact
               and LUT exp, contiguous LUT blocks at the reference's block_k
-              128); max abs diff on the f32 outputs of attended decode rows
+              128), and the tile edges of the tensor-core mixed body
+              (``kernels_tile_edges``: G 1, 2, 5, 8; D 16, 20, 72, 128;
+              pages of 8, 16, 128; S G no multiple of 64; n_new 0, 1, S;
+              windows, short rings; bf16 and int8, exact and LUT); max abs
+              diff on the f32 outputs of attended decode rows
               and live mixed columns <= 1e-3 with the exact exp and <= 1e-5
               with the LUT exp, exact zeros from the kernel everywhere else.
               Negative controls at full width, which must miss the LUT plain
@@ -33,7 +40,9 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               (40, 64), (8, 5120), (2048, 5120) and a ragged edge, within
               1e-5 x max(1, max |plain|); f32 and bf16 inputs. DMM and SMM
               (phase ``linear_kernels``): the CPU tests' edge cases (f32 and
-              bf16 x) and every linear family of qwen2.5-32b at full width
+              bf16 x), the tensor-core DMM body's tile edges (bf16 x; M 33,
+              64, 130, 2048; N 200, 640, 3200; odd K, K no multiple of 64,
+              split K) and every linear family of qwen2.5-32b at full width
               at M = 8 (a decode step) and M = 2048 (a mixed step); max abs
               diff <= 1e-3 x max(1, max |plain|) (f32 sums in another order
               over K up to 27648). Times each kernel (L2 flushed before every
@@ -43,8 +52,10 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               dequantization untimed; exact exp beside the LUT rows —,
               ``torch.softmax`` (exact exp: the same traffic, not the same
               function), add + ``F.layer_norm``, or ``torch.matmul`` against
-              the densified matrix; a yardstick the port never calls) and
-              its bound.
+              the densified matrix in f32 (TF32 off; DMM also times the
+              bf16 product on the bf16-rounded matrix, ``library_bf16_ms``,
+              a single-pass, lower-precision product); a yardstick the port
+              never calls) and its bound.
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -240,6 +251,40 @@ def small_mixed_cases(np):
                            dict(ring=ring, window=window))
 
 
+# Tile edges of the tensor-core mixed kernel (bf16 q, 64 packed query rows
+# a block), as tests/test_torch_tda.py::MIXED_TILE_EDGES: (G, D, page_size)
+# with S = 20 columns (S G no multiple of 64); D 16, 72 (int8 rows in
+# 8-byte copies), 128 and 20 (element copies); pages of 8, 16 and 128.
+MIXED_TILE_EDGES = [(1, 16, 8), (2, 72, 16), (5, 128, 128), (8, 16, 128),
+                    (8, 72, 8), (5, 16, 16), (1, 128, 16), (2, 20, 16)]
+
+
+def mixed_tile_cases(np):
+    """Rows (ci, n_new): dead, a fresh full chunk, a decode row, an inert
+    row, a full chunk over a resident lane, a lane past its ring (wraps
+    when the ring is short) and a mid-lane chunk; windows None and 7."""
+    for i, (G, D, ps) in enumerate(MIXED_TILE_EDGES):
+        for ring_short in (False, True):
+            rng = np.random.default_rng(20 + i)
+            n = 2 if ps == 128 else 3
+            S, B, Hkv = 20, 7, 2
+            W = n * ps
+            ring = W - ps + 3 if ring_short else W
+            P = B * n + 3
+            bt = rng.permutation(P)[:B * n].reshape(B, n).astype(np.int32)
+            k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+            v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+            rows = np.array([(0, 0), (0, S), (W // 2, 1), (W // 3, 0),
+                             (W - S, S), (ring + 5, 3), (ps + 2, S // 2 + 3)],
+                            np.int32)
+            q = rng.standard_normal((B, S, G * Hkv, D)).astype(np.float32)
+            kr = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            vr = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+            for window in (None, 7):
+                yield ((q, k, v, kr, vr, rows, bt),
+                       dict(ring=ring, window=window))
+
+
 def full_cases(np, cfg, num_slots, cache_len, page_size, chunk):
     """Phase 4's attention shapes: 8 slots over a pool of 8 lanes of
     ceil(cache_len / page_size) pages, G = 5, d_head 128."""
@@ -272,6 +317,12 @@ def full_cases(np, cfg, num_slots, cache_len, page_size, chunk):
 # (r = 1024, nnz = 2), value widths 4/5/7.
 DMM_SMALL = [(32, 64, 48), (64, 128, 96), (100, 60, 36), (32, 33, 16),
              (16, 256, 128), (128, 128, 128), (8, 64, 40)]
+# Tile edges of the tensor-core DMM body (bf16 x, M > 32; 128 x 128 outputs,
+# K steps of 64), as tests/test_torch_dmm_smm.py::DMM_TILE_EDGES: ragged M
+# and N (200: element copies), odd K, K no multiple of 64, split K.
+DMM_TILE_EDGES = [(33, 127, 200), (64, 4000, 640), (130, 513, 3200),
+                  (2048, 5120, 640), (2048, 2088, 200), (130, 1000, 200),
+                  (2048, 1000, 3200)]
 SMM_SMALL = [(32, 64, 48, 8, 6), (64, 128, 100, 16, 6), (16, 32, 32, 2, 6),
              (48, 96, 64, 24, 6), (8, 1024, 40, 2, 6), (32, 64, 48, 8, 4),
              (32, 64, 48, 8, 5), (32, 64, 48, 8, 7)]
@@ -288,8 +339,9 @@ def wd_streams(torch, wd, nnz, bits=6):
 
 
 def small_linear_cases(torch, np, dev):
-    """("dmm"/"smm", args) for the plain-vs-kernel check; DMM args once
-    with f32 and once with bf16 x."""
+    """("dmm"/"dmm_tile_edge"/"smm", args) for the plain-vs-kernel check;
+    DMM args once with f32 and once with bf16 x, the tile edges with bf16
+    x."""
     from repro_torch.core import compression as comp
     from repro_torch.core.factorized import pack_nibbles
 
@@ -303,6 +355,14 @@ def small_linear_cases(torch, np, dev):
         x = T(rng.normal(size=(M, K)).astype(np.float32))
         for xx in (x, x.to(torch.bfloat16)):
             yield "dmm", (xx, pack_nibbles(cws.codes), cws.lut)
+    for M, K, N in DMM_TILE_EDGES:
+        rng = np.random.default_rng(M + K + N)
+        codes = T(rng.integers(0, 16, size=(K, N)).astype(np.uint8))
+        lut = T((np.sort(rng.standard_normal(16)) / np.sqrt(K)).astype(
+            np.float32))
+        x = T(rng.standard_normal((M, K)).astype(np.float32))
+        yield "dmm_tile_edge", (x.to(torch.bfloat16), pack_nibbles(codes),
+                                lut)
     for M, r, N, nnz, bits in SMM_SMALL:
         rng = np.random.default_rng(M + r + bits)
         wd = T(rng.normal(size=(r, N)).astype(np.float32))
@@ -336,16 +396,38 @@ def linear_shapes(cfg):
 # phases
 # ---------------------------------------------------------------------------
 
+# Tensor-core instructions each library's SASS must hold: the DMM body for
+# bf16 x at M > 32 issues wgmma (HGMMA), the mixed kernel's bf16 body
+# mma.sync (HMMA).
+TENSOR_CORE_SASS = {"dmm": "HGMMA", "tda_mixed": "HMMA"}
+
+
 def phase_build():
+    """Build every kernel library, report ptxas's registers, shared memory
+    and spills, and count the tensor-core instructions in the SASS of the
+    libraries that must have them (``cuobjdump -sass``)."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     log = build.build_all()
     for name in build.SOURCES:
         build.load(name)
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = {}
+    for name, op in TENSOR_CORE_SASS.items():
+        dump = subprocess.run([str(cuobjdump), "-sass",
+                               str(build._lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        sass[name] = {op: sum(
+            any(tok.startswith(op) for tok in ln.split()[1:3])
+            for ln in dump.splitlines() if ln.strip().startswith("/*"))}
+        if not sass[name][op]:
+            fail(f"{name}: no {op} instruction in its SASS")
     line("build", seconds=round(time.perf_counter() - t0, 3),
-         kernels=sorted(build.SOURCES),
+         kernels=sorted(build.SOURCES), tensor_core_sass=sass,
          ptxas={n: [ln.strip() for ln in v["ptxas"].splitlines()
-                    if "registers" in ln] for n, v in log.items()})
+                    if "registers" in ln or "spill" in ln]
+                for n, v in log.items()})
 
 
 def phase_kernels(torch, np, full_cfg, engine_kw):
@@ -487,6 +569,31 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                 n_cases += 1
     torch.cuda.synchronize()
     line("kernels_small", cases=n_cases, max_abs_err=err)
+
+    # Tile edges of the tensor-core mixed body (bf16 q), every variant.
+    edge_err, n_edge = {}, 0
+    for case, kw in mixed_tile_cases(np):
+        q, k, v, kr, vr, bnd, bt = [T(a, torch.bfloat16) for a in case]
+        live = torch.arange(q.shape[1], device=dev)[None] < bnd[:, 1:]
+        kq, ks = kv_quantize(T(case[1]))
+        vq, vs = kv_quantize(T(case[2]))
+        for name, pool, lut in (
+                ("tda_mixed_attention", (k, v, None, None), False),
+                ("tda_mixed_attention.lut", (k, v, None, None), True),
+                ("tda_mixed_attention.int8", (kq, vq, ks, vs), False),
+                ("tda_mixed_attention.int8.lut", (kq, vq, ks, vs), True)):
+            got = tda.tda_mixed_attention(q, *pool[:2], kr, vr, bnd, bt,
+                                          *pool[2:], table if lut else None,
+                                          **kw)
+            plain = plain_mixed(q, *pool[:2], kr, vr, bnd, bt, *pool[2:],
+                                lut, **kw)
+            edge_err[name] = max(edge_err.get(name, 0.0),
+                                 diff(got, plain, live))
+            check(name, got, plain, live)
+            n_edge += 1
+    torch.cuda.synchronize()
+    line("kernels_tile_edges", cases=n_edge, max_abs_err=edge_err,
+         limits={"exact": TOL, "lut": LUT_TOL})
 
     # Full-width shapes of phase 4, bf16 as the main path runs them.
     bf = torch.bfloat16
@@ -874,6 +981,16 @@ def phase_kernel_table(torch):
     return launches
 
 
+# The linear rows' yardsticks (``library_ms``): the same function as one
+# PyTorch call on the densified matrix. DMM also times the bf16 product on
+# the bf16-rounded matrix (``library_bf16_ms``).
+LINEAR_LIBRARY = {
+    "dmm": "torch.matmul, f32 x on the f32 densified W (TF32 off); "
+           "library_bf16_ms: bf16 x on the bf16-rounded W, a single-pass, "
+           "lower-precision product",
+    "smm": "torch.matmul on the f32 densified W_D (TF32 off)"}
+
+
 def phase_linear_kernels(torch, np, ccfg):
     """DMM and SMM against their plain versions: the CPU tests' edge cases,
     then every family's full-width shapes at M = 8 and 2048, timed."""
@@ -886,6 +1003,7 @@ def phase_linear_kernels(torch, np, ccfg):
     t0 = time.perf_counter()
     err = {"dmm_matmul": 0.0, "smm_matmul": 0.0}
     ops = {"dmm": ("dmm_matmul", lut_matmul),
+           "dmm_tile_edge": ("dmm_matmul", lut_matmul),
            "smm": ("smm_matmul", lambda *a, **kw: compressed_matmul(
                *a[:6], value_bits=a[6], **kw))}
 
@@ -897,16 +1015,21 @@ def phase_linear_kernels(torch, np, ccfg):
         e = (got - plain).abs().max().item() if got.numel() else 0.0
         lim = TOL * max(1.0, plain.abs().max().item() if got.numel() else 0)
         err[name] = max(err[name], e)
+        if kind == "dmm_tile_edge":
+            M, K = args[0].shape
+            edges["%dx%dx%d" % (M, K, args[1].shape[1])] = {
+                "max_abs_err": e, "limit": lim}
         if not e <= lim:
             fail(f"{name} vs plain: max abs diff {e} (limit {lim}) at "
                  f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
         return got
 
-    n_cases = 0
+    n_cases, edges = 0, {}
     for kind, args in small_linear_cases(torch, np, dev):
         check(kind, args)
         n_cases += 1
-    line("linear_kernels_small", cases=n_cases, max_abs_err=dict(err))
+    line("linear_kernels_small", cases=n_cases, max_abs_err=dict(err),
+         dmm_tile_edges=edges)
 
     g = torch.Generator(device=dev).manual_seed(3)
     shapes, rows = [], {}
@@ -915,7 +1038,8 @@ def phase_linear_kernels(torch, np, ccfg):
                               device=dev, dtype=torch.uint8)
         lut = torch.sort(torch.randn(16, generator=g, device=dev)).values \
             / d_in ** 0.5
-        ws_bf16 = lut[unpack_nibbles(codes).long()][:d_in].to(torch.bfloat16)
+        ws_f32 = lut[unpack_nibbles(codes).long()][:d_in]
+        ws_bf16 = ws_f32.to(torch.bfloat16)
         st = wd_streams(torch, torch.randn(r, d_out, generator=g,
                                            device=dev), nnz)
         wd_dense = densify(*st[:5], r, st[5])
@@ -924,6 +1048,7 @@ def phase_linear_kernels(torch, np, ccfg):
         for M in (8, 2048):
             x = torch.randn(M, d_in, generator=g, device=dev).to(
                 torch.bfloat16)
+            x32 = x.float()  # the f32 yardstick's input, made untimed
             y = torch.randn(M, r, generator=g, device=dev)
             check("dmm", (x, codes, lut))
             check("smm", (y,) + st)
@@ -938,6 +1063,8 @@ def phase_linear_kernels(torch, np, ccfg):
                 "plain_ms": time_ms(torch, lambda: lut_matmul(
                     x, codes, lut, use_kernel=False), 5),
                 "library_ms": time_ms(torch, lambda: torch.matmul(
+                    x32, ws_f32), 10),
+                "library_bf16_ms": time_ms(torch, lambda: torch.matmul(
                     x, ws_bf16), 10),
                 "bound_ms": dmm_b, "bound_by": dmm_by}
             rec[f"smm_M{M}"] = {
@@ -952,7 +1079,7 @@ def phase_linear_kernels(torch, np, ccfg):
         for kern, fam in (("dmm", "ffn_down"), ("smm", "ffn_up")):
             if fam in fams:
                 rows[kern] = rec
-        del codes, ws_bf16, wd_dense, st
+        del codes, ws_f32, ws_bf16, wd_dense, st, x32
     torch.cuda.synchronize()
     line("linear_kernels_full", seconds=round(time.perf_counter() - t0, 3),
          max_abs_err=dict(err), shapes=shapes)
@@ -964,11 +1091,13 @@ def phase_linear_kernels(torch, np, ccfg):
             ("smm", "smm_matmul", "smm.cu",
              "src/repro/kernels/smm/smm.py:63")):
         rec = rows[kern]
+        kk = keys + (("library_bf16_ms",) if kern == "dmm" else ())
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
                "replaces": repl, "max_abs_err": err[name],
-               **{k: rec[f"{kern}_M2048"][k] for k in keys},
-               "M8": {k: rec[f"{kern}_M8"][k] for k in keys},
+               **{k: rec[f"{kern}_M2048"][k] for k in kk},
+               "M8": {k: rec[f"{kern}_M8"][k] for k in kk},
+               "library": LINEAR_LIBRARY[kern],
                "shape": {k: rec[k] for k in ("families", "d_in", "d_out", "r",
                                              "nnz")} | {"M": 2048}}
         out.append(row)
@@ -1361,7 +1490,7 @@ def main():
             "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
-        "M8", "other_shapes") if k in r} for r in rows]}))
+        "library_bf16_ms", "M8", "other_shapes") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

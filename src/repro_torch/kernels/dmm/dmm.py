@@ -52,12 +52,12 @@ def dmm_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
         return out
     from repro_torch.kernels.build import load
     lib = load("dmm")
-    splits = lib.dmm_splits(M, K, N)
+    code = _DTYPE_CODE[x.dtype]
+    splits = lib.dmm_splits(M, K, N, code)
     ws = torch.empty((splits, M, N) if splits > 1 else (0,),
                      dtype=torch.float32, device=x.device)
     err = lib.dmm(x.data_ptr(), codes_packed.data_ptr(), lut.data_ptr(),
-                  out.data_ptr(), ws.data_ptr(), M, K, N, splits,
-                  _DTYPE_CODE[x.dtype],
+                  out.data_ptr(), ws.data_ptr(), M, K, N, splits, code,
                   torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

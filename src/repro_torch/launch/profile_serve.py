@@ -46,8 +46,8 @@ _KINDS = {"mixed": "_run_mixed", "decode": "_run_decode",
 _CATEGORIES = (
     ("tda_paged_decode", ("pagedaddr",)),
     ("tda_decode", ("laneaddr",)),
-    ("tda_mixed", ("mixed_kernel",)),
-    ("dmm", ("dmm_kernel", "sum_splits")),
+    ("tda_mixed", ("mixed_kernel", "mixed_tc_kernel")),
+    ("dmm", ("dmm_kernel", "dmm_tc_kernel", "sum_splits")),
     ("smm", ("smm_kernel",)),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("gather_scatter_copy", ("index", "gather", "scatter", "copy", "memcpy",

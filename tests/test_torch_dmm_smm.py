@@ -239,6 +239,43 @@ def test_cuda_kernels_match_plain_versions(xdtype):
         assert (got - ref).abs().max().item() <= limit, name
 
 
+# Tile edges of the tensor-core DMM body (bf16 x, M > 32; 128 x 128
+# outputs, K steps of 64): ragged M (33, 130), N (200: no multiple of 16,
+# element copies), odd K, K no multiple of 64, split K (N = 640 at M =
+# 2048), one full 2048 x 3200 output.
+DMM_TILE_EDGES = [(33, 127, 200), (64, 4000, 640), (130, 513, 3200),
+                  (2048, 5120, 640), (2048, 2088, 200), (130, 1000, 200),
+                  (2048, 1000, 3200)]
+
+
+@pytest.mark.gpu
+def test_cuda_dmm_tensor_core_tile_edges():
+    """The tensor-core DMM body at DMM_TILE_EDGES against its plain version
+    on the card: max abs diff <= 1e-3 x max(1, max |plain|), one launch
+    counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.core.factorized import pack_nibbles
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.dmm.ops import lut_matmul
+    dev = torch.device("cuda")
+    for M, K, N in DMM_TILE_EDGES:
+        rng = np.random.default_rng(M + K + N)
+        codes = tp.t(rng.integers(0, 16, size=(K, N)).astype(np.uint8), dev)
+        lut = tp.t((np.sort(rng.standard_normal(16)) / np.sqrt(K)).astype(
+            np.float32), dev)
+        x = tp.t(rng.standard_normal((M, K)).astype(np.float32), dev,
+                 torch.bfloat16)
+        packed = pack_nibbles(codes)
+        n0 = dmm.LAUNCHES["dmm_matmul"]
+        got = lut_matmul(x, packed, lut)
+        assert dmm.LAUNCHES["dmm_matmul"] == n0 + 1
+        ref = lut_matmul(x, packed, lut, use_kernel=False)
+        torch.cuda.synchronize()
+        limit = 1e-3 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= limit, (M, K, N)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("compressed_ws", [True, False])
 def test_cuda_compressed_linear_launches_kernels(compressed_ws):

@@ -652,6 +652,83 @@ def test_cuda_lut_and_int8_mixed_kernels(dtype):
                             atol=1e-3)
 
 
+# Tile edges of the tensor-core mixed kernel (bf16 q; 64 packed query rows
+# a block): (G, D, page_size). S = 20 columns, so S G (20, 40, 100, 160) is
+# no multiple of 64; D 16, 72 (int8 rows copy in 8-byte pieces), 128 and 20
+# (element copies); pages of 8, 16 and 128.
+MIXED_TILE_EDGES = [(1, 16, 8), (2, 72, 16), (5, 128, 128), (8, 16, 128),
+                    (8, 72, 8), (5, 16, 16), (1, 128, 16), (2, 20, 16)]
+
+
+def _mixed_tile_case(G, Dh, ps, ring_short, seed):
+    """Rows (ci, n_new): dead, a fresh full chunk, a decode row, an inert
+    row, a full chunk over a resident lane, a lane past its ring (wraps
+    when the ring is short) and a mid-lane chunk."""
+    rng = np.random.default_rng(seed)
+    n = 2 if ps == 128 else 3
+    S, B, Hkv = 20, 7, 2
+    W = n * ps
+    ring = W - ps + 3 if ring_short else W
+    k, v, bt, _ = tp.paged_pool(rng, B=B, Hkv=Hkv, D=Dh, ps=ps, n=n,
+                                free_tail=False)
+    bounds = np.array([(0, 0), (0, S), (W // 2, 1), (W // 3, 0),
+                       (W - S, S), (ring + 5, 3), (ps + 2, S // 2 + 3)],
+                      np.int32)
+    q = rng.standard_normal((B, S, G * Hkv, Dh)).astype(np.float32)
+    kr = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    vr = rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32)
+    return q, k, v, kr, vr, bounds, bt, ring
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_kernel_tile_edges():
+    """The tensor-core mixed kernel at its tile edges (MIXED_TILE_EDGES,
+    short rings, windows; n_new 0, 1 and S; bf16 and int8 pools, exact and
+    LUT exp) against its plain versions on the card: max abs diff on live
+    columns 1e-3 with the exact exp, 1e-5 with the LUT exp, exact zeros
+    elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
+    from repro_torch.kernels.tda.ref import (mixed_attention_lut,
+                                             mixed_attention_reference)
+    from repro_torch.models.layers import kv_quantize
+    dev = torch.device("cuda")
+    table = exp_lut_table(dev)
+    bf = torch.bfloat16
+    for i, (G, Dh, ps) in enumerate(MIXED_TILE_EDGES):
+        for ring_short in (False, True):
+            q, k, v, kr, vr, bounds, bt, ring = _mixed_tile_case(
+                G, Dh, ps, ring_short, 20 + i)
+            tq, tk, tv, tkr, tvr = (tp.t(a, dev, bf) for a in (q, k, v, kr,
+                                                               vr))
+            tb, tt = tp.t(bounds, dev), tp.t(bt, dev)
+            kq, ks = kv_quantize(tp.t(k, dev))
+            vq, vs = kv_quantize(tp.t(v, dev))
+            live = torch.arange(q.shape[1], device=dev)[None] < tb[:, 1:]
+            for window in (None, 7):
+                for pool in ((tk, tv, None, None), (kq, vq, ks, vs)):
+                    lanes = (tq, gather(pool[0], tt), gather(pool[1], tt),
+                             tkr, tvr, tb[:, 0], tb[:, 1])
+                    sc = {"k_scale": _opt(pool[2], lambda a: gather(a, tt)),
+                          "v_scale": _opt(pool[3], lambda a: gather(a, tt))}
+                    for lut in (False, True):
+                        got = tda.tda_mixed_attention(
+                            tq, *pool[:2], tkr, tvr, tb, tt, *pool[2:],
+                            table if lut else None, ring=ring, window=window)
+                        want = (mixed_attention_lut(
+                            *lanes, page_size=ps, ring=ring, window=window,
+                            table=table, **sc) if lut else
+                            mixed_attention_reference(
+                                *lanes, ring=ring, window=window, **sc))
+                        err = (got - want)[live].abs().max().item()
+                        assert err <= (1e-5 if lut else 1e-3), \
+                            (G, Dh, ps, ring_short, window, lut, err)
+                        assert not got[~live].any()
+
+
 def test_lut_table_and_variant_counts_checked_before_launch():
     """A LUT table must be a contiguous (64,) f32 tensor on q's device and
     its blocks at most 256 positions; launch counts keep one key per
