@@ -18,7 +18,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               width (f32 and bf16; contiguous lanes of ragged widths 37, 48,
               130 with LUT blocks of 16 and 128 positions; pages of 8 and 16;
               hi <= lo rows, windows, FREE block-table entries; int8 codes
-              with f32 scales for all three kernels) and the full-width
+              with f32 scales for all three kernels), the decode kernels'
+              split edges (``SPLIT_EDGES``: G 1, 2, 5, 8; D 20, 64, 128; one
+              slot over lanes of up to 64 splits, 64 slots over lanes of
+              one or two; hi and lo on split and page edges, windows across
+              a split; pages of 128 and 16; f32 and bf16) and the full-width
               shapes of phase 4 (bf16, and int8 K/V with bf16 queries; exact
               and LUT exp, contiguous LUT blocks at the reference's block_k
               128), and the tile edges of the tensor-core mixed body
@@ -55,7 +59,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               the densified matrix in f32 (TF32 off; DMM also times the
               bf16 product on the bf16-rounded matrix, ``library_bf16_ms``,
               a single-pass, lower-precision product); a yardstick the port
-              never calls) and its bound.
+              never calls) and its bound; the eight decode rows and their
+              SDPA yardsticks also by their kernels' device time alone
+              (``device_ms``, ``library_device_ms``: ``torch.profiler``
+              intervals, without the host dispatch that the events of
+              ``ms`` include).
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -162,6 +170,43 @@ def time_ms(torch, fn, reps=20):
     return times[len(times) // 2]
 
 
+def device_ms(torch, fn, reps=20):
+    """Median device time of the kernels one call launches: the kernels'
+    intervals in a ``torch.profiler`` trace, summed per call, with a cold
+    L2 as in :func:`time_ms` (the 64 MB buffer is inverted before each
+    call; its kernel, the only ``bitwise_not`` in the trace, separates the
+    calls). Unlike :func:`time_ms` it leaves out the host's dispatch, which
+    dominates calls of tens of microseconds. A trace that comes back without
+    the calls' kernels (the profiler's device tracing now and then returns
+    none) is taken again, up to three times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        calls = []
+        for a, b, name in kernels:
+            if "bitwise_not" in name.lower():
+                calls.append(0.0)
+            elif calls:
+                calls[-1] += (b - a) / 1e3
+        if len(calls) == reps and all(calls):
+            calls.sort()
+            return calls[len(calls) // 2]
+    fail(f"device_ms: {len(calls)} calls with kernels in the trace, "
+         f"expected {reps}, in three traces")
+
+
 def rel_err(got, plain):
     """max |got - plain| / |plain| per element (LUT softmax: every entry
     is positive, down to table[0] / row sum)."""
@@ -189,8 +234,30 @@ def pool_case(np, rng, B, Hkv, D, ps, n, P, needed):
     return k, v, bt
 
 
+# Split edges of the decode kernels (split-K over the key axis), as
+# tests/test_torch_tda.py::SPLIT_EDGES: (G, D, B), with one slot over a
+# long lane (many splits) and 64 slots over short lanes (one or few); D 20
+# stages bf16 and int8 rows by element copies.
+SPLIT_EDGES = [(1, 64, 1), (2, 128, 64), (5, 128, 1), (8, 64, 64),
+               (5, 128, 8), (2, 20, 8)]
+
+
+def split_edge_rows(np, rng, W, L, B):
+    """[lo, hi) rows at a lane of W positions cut into splits of L: many
+    splits, hi <= lo, one token, hi and lo on split edges, a window across
+    a split edge, the whole lane, the last position; then random rows."""
+    rows = [(5, W - 7), (L + 2, L), (0, 1), (0, L), (L, 2 * L),
+            (L - 3, 2 * L + 5), (0, W), (W - 1, W), (L - 1, L + 1), (0, 0)]
+    rows = [(min(a, W), min(b, W)) for a, b in rows]
+    while len(rows) < B:
+        lo = int(rng.integers(0, W))
+        rows.append((lo, int(rng.integers(lo, W + 1))))
+    return np.array(rows[:B], np.int32)
+
+
 def small_decode_cases(np):
-    """hi <= lo rows, FREE-sentinel entries, a window; G = 2 and 5."""
+    """hi <= lo rows, FREE-sentinel entries, a window; G = 2 and 5; then
+    the split edges (SPLIT_EDGES)."""
     for Hq, Hkv in ((4, 2), (10, 2)):
         for ps in (8, 16):
             for window in (None, 5):
@@ -205,12 +272,25 @@ def small_decode_cases(np):
                 bounds[4] = [ps + 2, ps]  # hi <= lo
                 q = rng.standard_normal((B, Hq, 16)).astype(np.float32)
                 yield q, k, v, bounds, bt
+    # split edges: 128-token pages (half a page a split) and 16-token
+    # pages (four pages a split); one slot over a long lane, 64 slots over
+    # short ones
+    from repro_torch.kernels.tda.tda import decode_split_plan
+    for i, (G, D, B) in enumerate(SPLIT_EDGES):
+        rng = np.random.default_rng(60 + i)
+        for ps, n in ((128, 32 if B == 1 else 2), (16, 64 if B == 1 else 4)):
+            W = n * ps
+            bounds = split_edge_rows(np, rng, W, decode_split_plan(W, ps), B)
+            k, v, bt = pool_case(np, rng, B, 2, D, ps, n, B * n + 3,
+                                 [-(-int(x) // ps) for x in bounds[:, 1]])
+            q = rng.standard_normal((B, 2 * G, D)).astype(np.float32)
+            yield q, k, v, bounds, bt
 
 
 def small_contig_cases(np):
     """Contiguous lanes of ragged widths (no multiple of 32 or 128): an
     empty lane, one token, a partial and a full lane, a hi <= lo row, a
-    window; G = 2 and 5."""
+    window; G = 2 and 5; then the split edges (SPLIT_EDGES)."""
     for Hq, Hkv in ((4, 2), (10, 2)):
         for S in (37, 48, 130):
             for window in (None, 5):
@@ -225,6 +305,17 @@ def small_contig_cases(np):
                 k = rng.standard_normal((B, S, Hkv, 16)).astype(np.float32)
                 v = rng.standard_normal((B, S, Hkv, 16)).astype(np.float32)
                 yield q, k, v, bounds
+    # split edges: one slot over a long lane (63 splits), 64 slots over
+    # lanes of one or two splits
+    from repro_torch.kernels.tda.tda import decode_split_plan
+    for i, (G, D, B) in enumerate(SPLIT_EDGES):
+        rng = np.random.default_rng(70 + i)
+        for S in ((4000, 544) if B == 1 else (64, 100)):
+            bounds = split_edge_rows(np, rng, S, decode_split_plan(S), B)
+            q = rng.standard_normal((B, 2 * G, D)).astype(np.float32)
+            k = rng.standard_normal((B, S, 2, D)).astype(np.float32)
+            v = rng.standard_normal((B, S, 2, D)).astype(np.float32)
+            yield q, k, v, bounds
 
 
 def small_mixed_cases(np):
@@ -612,9 +703,10 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
         return n
 
     def add_row(name, src, repl, fn, plain, library, lib_label, nbytes,
-                flops, shape, launches, plain_reps=20):
-        """Time a checked kernel and its yardsticks; rows no serve runs
-        take the launches of their full-width check."""
+                flops, shape, launches, plain_reps=20, device=False):
+        """Time a checked kernel and its yardsticks (``device``: also the
+        kernel's and the library call's device time alone); rows no serve
+        runs take the launches of their full-width check."""
         bms, by = bound(nbytes, flops, 2)
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -626,6 +718,9 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
             "plain_ms": time_ms(torch, plain, plain_reps),
             "library_ms": time_ms(torch, library), "library": lib_label,
             "bound_ms": bms, "bound_by": by, "shape": shape})
+        if device:
+            row.update(device_ms=device_ms(torch, fn),
+                       library_device_ms=device_ms(torch, library))
         rows.append(row)
 
     # --- decode: every slot attends [0, length); all rows live. Paged
@@ -722,7 +817,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                 4 * tokens * Hq * D,
                 {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
                  "lane": paged if is_paged else int(cache_len),
-                 "tokens_attended": tokens, "dtype": dtype}, launches)
+                 "tokens_attended": tokens, "dtype": dtype}, launches,
+                device=True)
     del kl, vl, kq, vq, kpq, vpq, sdpa_in, contig
 
     # --- mixed step: the bf16 pool, then int8 codes of the same values
@@ -801,8 +897,9 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     line("kernels_full", controls=controls, limits={"exact": TOL,
                                                     "lut": LUT_TOL},
          **{r["name"]: {k: r[k] for k in (
-             "ms", "plain_ms", "library_ms", "library", "bound_ms",
-             "bound_by", "max_abs_err", "shape")} for r in rows})
+             "ms", "device_ms", "plain_ms", "library_ms",
+             "library_device_ms", "library", "bound_ms", "bound_by",
+             "max_abs_err", "shape") if k in r} for r in rows})
     return rows
 
 
@@ -1490,7 +1587,8 @@ def main():
             "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
-        "library_bf16_ms", "M8", "other_shapes") if k in r} for r in rows]}))
+        "device_ms", "library_device_ms", "library_bf16_ms", "M8",
+        "other_shapes") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,9 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: (pointers..., int shape args..., dtype
 # code, [quant flag,] [scale,] stream); every one returns an int.
 _ARGTYPES = {
-    "tda_decode": {"tda_decode": [_P] * 8 + [_I] * 6 + [_I, _I, _F, _P]},
+    "tda_decode": {"tda_decode": [_P] * 10 + [_I] * 7 + [_I, _I, _F, _P]},
     "tda_paged_decode": {
-        "tda_paged_decode": [_P] * 9 + [_I] * 7 + [_I, _I, _F, _P]},
+        "tda_paged_decode": [_P] * 11 + [_I] * 8 + [_I, _I, _F, _P]},
     "tda_mixed": {"tda_mixed": [_P] * 11 + [_I] * 10 + [_I, _I, _F, _P]},
     "dmm": {"dmm": [_P] * 5 + [_I] * 4 + [_I, _P],
             "dmm_splits": [_I] * 4},

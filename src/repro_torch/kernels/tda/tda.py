@@ -15,6 +15,13 @@ exponentials of the online softmax, rescaled per reference block
 (``block_k`` positions for contiguous lanes, one page for paged ones, the
 row chunk as one more block in the mixed step).
 
+The two decode kernels split each lane's key axis across blocks
+(flash-decoding) as ``decode_split_plan`` says, and merge the splits'
+partials in the same launch; the wrappers hand them a workspace
+(``torch.empty``) and per-(slot, kv head) counters, zeroed once per device
+and reset by the kernel itself after each merge. With a LUT table the plan
+has one split per lane: the LUT result depends on the block order.
+
 ``VARIANT_LAUNCHES`` counts kernel launches by variant (``name``,
 ``name.int8``, ``name.lut``, ``name.int8.lut``) and ``LAUNCHES`` reads
 them per kernel (the sum of its variants); plain-version calls are not
@@ -37,8 +44,8 @@ from repro_torch.kernels.tda.ref import (
 )
 
 __all__ = ["tda_decode_attention", "tda_paged_decode_attention",
-           "tda_mixed_attention", "LAUNCHES", "VARIANT_LAUNCHES",
-           "reset_launch_counts"]
+           "tda_mixed_attention", "decode_split_plan", "LAUNCHES",
+           "VARIANT_LAUNCHES", "reset_launch_counts"]
 
 _KERNELS = ("tda_decode_attention", "tda_paged_decode_attention",
             "tda_mixed_attention")
@@ -69,7 +76,55 @@ LAUNCHES = _KernelLaunches()
 MAX_GROUP = 8     # query rows per kv head the decode kernels hold
 MAX_HEAD_DIM = 128
 MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
+SPLIT_BASE = 64   # positions of a decode split, page-aligned, at least
+MAX_SPLITS = 128  # splits of one lane, at most (the kernel's kMaxSplits)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_COUNTERS: dict = {}  # device -> int32 counters the decode kernels reset
+
+
+def decode_split_plan(width: int, page_size: Optional[int] = None,
+                      lut: bool = False) -> int:
+    """Positions per split of the decode kernels' key axis over a lane of
+    ``width`` positions: split ``i`` covers ``[i L, (i + 1) L)``, so
+    ``ceil(width / L)`` splits cover each position once. ``SPLIT_BASE``
+    positions, doubled while there would be more than ``MAX_SPLITS``; on
+    paged lanes a divisor or a multiple of ``page_size`` (half a 128-token
+    page; whole pages when pages are small), so a split reads one
+    block-table entry per page. With a LUT table, one split (``L >=
+    width``): the LUT exp's result depends on the reference's block order,
+    which a merge of splits would not keep."""
+    width = max(int(width), 1)
+    if lut:
+        return width
+    L = SPLIT_BASE
+    if page_size is not None:
+        L = int(page_size)
+        while L > SPLIT_BASE and L % 2 == 0:
+            L //= 2
+        L *= -(-SPLIT_BASE // L)
+    while -(-width // L) > MAX_SPLITS:
+        L *= 2
+    return L
+
+
+def _split_buffers(q, Hkv: int, width: int, split: int):
+    """The split kernels' workspace (partials of every split: acc, then m
+    and l) and counters, as pointers, and the workspace tensor; none with
+    one split. The counters are shared by every launch on the device: the
+    kernels run on one stream, in order, and leave them at 0."""
+    B, Hq, D = q.shape
+    nsplit = -(-max(width, 1) // split)
+    if nsplit == 1:
+        return 0, 0, None
+    ws = torch.empty(nsplit * B * Hq * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    cnt = _COUNTERS.get(q.device)
+    if cnt is None or cnt.numel() < B * Hkv:
+        # zeroed once; each launch's merging blocks set theirs back to 0
+        cnt = torch.zeros(max(B * Hkv, 1024), dtype=torch.int32,
+                          device=q.device)
+        _COUNTERS[q.device] = cnt
+    return ws.data_ptr(), cnt.data_ptr(), ws
 
 
 def reset_launch_counts() -> None:
@@ -203,13 +258,17 @@ def tda_decode_attention(q, k, v, bounds, k_scale=None, v_scale=None,
                          f"{tuple(bounds.shape)}")
     _heads(name, Hq, Hkv, D, MAX_GROUP)
     tp = _table(name, lut_table, q, bk)
+    split = decode_split_plan(S, lut=bool(tp))
+    wsp, cntp, ws = _split_buffers(q, Hkv, S, split)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_decode").tda_decode
     _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
-                       bounds.data_ptr(), tp, out.data_ptr(), B, Hq, Hkv, D,
-                       S, bk, code, quant, 1.0 / math.sqrt(D),
+                       bounds.data_ptr(), tp, wsp, cntp, out.data_ptr(), B,
+                       Hq, Hkv, D, S, bk, split, code, quant,
+                       1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
+    del ws  # held through the launch; frees stream-ordered after it
     _count(name, quant, tp)
     return out
 
@@ -242,14 +301,18 @@ def tda_paged_decode_attention(q, k, v, bounds, block_table, k_scale=None,
                          f"{tuple(bounds.shape)} bt{tuple(block_table.shape)}")
     _heads(name, Hq, Hkv, D, MAX_GROUP)
     tp = _table(name, lut_table, q, ps)
+    nblk = block_table.shape[1]
+    split = decode_split_plan(nblk * ps, ps, lut=bool(tp))
+    wsp, cntp, ws = _split_buffers(q, Hkv, nblk * ps, split)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load
     fn = load("tda_paged_decode").tda_paged_decode
     _raise_on(name, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
-                       bounds.data_ptr(), block_table.data_ptr(), tp,
-                       out.data_ptr(), B, Hq, Hkv, D, P, ps,
-                       block_table.shape[1], code, quant, 1.0 / math.sqrt(D),
+                       bounds.data_ptr(), block_table.data_ptr(), tp, wsp,
+                       cntp, out.data_ptr(), B, Hq, Hkv, D, P, ps, nblk,
+                       split, code, quant, 1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
+    del ws  # held through the launch; frees stream-ordered after it
     _count(name, quant, tp)
     return out
 

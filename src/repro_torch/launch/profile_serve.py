@@ -11,9 +11,11 @@ serves :func:`workload` once to warm up, once plainly and once under the
 profiler, and prints one JSON object: for each step kind (mixed, decode,
 and the prefill sweeps of the phase-serialized engine) the step count,
 the mean host wall per step with and without the profiler, the mean
-device-busy time per step (union of kernel intervals)
-and its split by kernel category, and the device's idle share against the
-unprofiled host step time (the profiler itself slows the host). Kernels
+device-busy time per step (union of kernel intervals), its split by kernel
+category, the kernel launches per step (in all and by category; the decode
+kernels merge their splits inside their one launch), and the device's idle
+share against the unprofiled host step time (the profiler itself slows
+the host). Kernels
 are assigned to the step whose host range contains their start: every
 step ends in a host sync, so its kernels finish inside its range. With
 ``--compressed`` it profiles :func:`compressed_config` instead, served
@@ -177,7 +179,7 @@ def main(argv=None):
     per: Dict[str, dict] = {}
     for kind in _KINDS:
         per[kind] = {"steps": 0, "host_ms": 0.0, "by_category_ms": {},
-                     "intervals": []}
+                     "launches": {}, "intervals": []}
     for kind, a, b in steps:
         per[kind]["steps"] += 1
         per[kind]["host_ms"] += (b - a) / 1e3
@@ -189,6 +191,7 @@ def main(argv=None):
         cat = _category(name)
         p["by_category_ms"][cat] = p["by_category_ms"].get(cat, 0.0) \
             + (b - a) / 1e3
+        p["launches"][cat] = p["launches"].get(cat, 0) + 1
         p["intervals"].append((a, b))
     out = {"model": cfg.name, "n_layers": cfg.n_layers,
            "weight_format": model.cfg.weight_format,
@@ -212,7 +215,11 @@ def main(argv=None):
                      / max(plain_ms[kind], 1e-9),
                      "by_category_ms_per_step": {
                          k: v / n for k, v in sorted(
-                             p["by_category_ms"].items())}}
+                             p["by_category_ms"].items())},
+                     "launches_per_step": sum(p["launches"].values()) / n,
+                     "launches_by_category_per_step": {
+                         k: v / n for k, v in sorted(
+                             p["launches"].items())}}
     top = {}
     for name, a, b in kernels:
         top[name[:96]] = top.get(name[:96], 0.0) + (b - a) / 1e3

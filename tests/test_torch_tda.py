@@ -370,6 +370,100 @@ def test_cuda_decode_kernels_int8_and_contiguous(dtype):
             assert not got[~live].any()
 
 
+# Split edges of the decode kernels (split-K over the key axis): (G, D, B)
+# with one slot over a long lane (many splits) and 64 slots over short
+# lanes (one or few splits); G 1, 2, 5, 8; D 64 and 128, and 20 (rows of
+# no multiple of 16 bytes in bf16 and int8: element copies).
+SPLIT_EDGES = [(1, 64, 1), (2, 128, 64), (5, 128, 1), (8, 64, 64),
+               (5, 128, 8), (2, 20, 8)]
+
+
+def _split_edge_bounds(rng, W, L, B):
+    """[lo, hi) rows at a lane of W positions cut into splits of L: many
+    splits, hi <= lo, one token, hi and lo on split edges, a window across
+    a split edge, the whole lane, the last position; then random rows."""
+    rows = [(5, W - 7), (L + 2, L), (0, 1), (0, L), (L, 2 * L),
+            (L - 3, 2 * L + 5), (0, W), (W - 1, W), (L - 1, L + 1), (0, 0)]
+    rows = [(min(a, W), min(b, W)) for a, b in rows]
+    while len(rows) < B:
+        lo = int(rng.integers(0, W))
+        rows.append((lo, int(rng.integers(lo, W + 1))))
+    return np.array(rows[:B], np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_split_edges(dtype):
+    """Both decode kernels at their split edges (SPLIT_EDGES; 128- and
+    16-token pages; contiguous lanes of ragged widths), fp and int8, exact
+    and LUT exp, against their plain versions on the card: max abs diff
+    1e-3 exact, 1e-5 LUT, on attended rows; exact zeros elsewhere. A
+    second launch on the same workspace and counters gives the same bits
+    (the counters reset themselves; the merge runs in split order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
+    from repro_torch.kernels.tda.ref import (decode_attention_lut,
+                                             decode_attention_reference)
+    from repro_torch.models.layers import kv_quantize
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    table = exp_lut_table(dev)
+
+    def plain(q, k, v, tb, ks, vs, lut_block):
+        if lut_block:
+            return decode_attention_lut(q, k, v, tb, table, lut_block, ks, vs)
+        hi, lo = tb[:, 1:].long(), tb[:, :1].long()
+        return decode_attention_reference(q, k, v, hi, k_scale=ks,
+                                          v_scale=vs, window=hi - lo)
+
+    def close(run, want, live, atol):
+        got = run()
+        assert (got - want)[live].abs().max().item() <= atol
+        assert not got[~live].any()
+        assert torch.equal(run(), got)
+
+    Hkv = 2
+    for i, (G, Dh, B) in enumerate(SPLIT_EDGES):
+        rng = np.random.default_rng(60 + i)
+        q = tp.t(rng.standard_normal((B, G * Hkv, Dh)).astype(np.float32),
+                 dev, dt)
+        for ps, n in ((128, 32 if B == 1 else 2), (16, 64 if B == 1 else 4)):
+            W = n * ps
+            tb = tp.t(_split_edge_bounds(rng, W, tda.decode_split_plan(W, ps),
+                                         B), dev)
+            live = tb[:, 1] > tb[:, 0]
+            kf, vf, bt, _ = tp.paged_pool(rng, B=B, Hkv=Hkv, D=Dh, ps=ps, n=n,
+                                          free_tail=False)
+            tt = tp.t(bt, dev)
+            k, v = tp.t(kf, dev, dt), tp.t(vf, dev, dt)
+            (kq, ks), (vq, vs) = kv_quantize(k.float()), kv_quantize(v.float())
+            for pool in ((k, v, None, None), (kq, vq, ks, vs)):
+                lanes = [None if x is None else gather(x, tt) for x in pool]
+                for tab in (None, table):
+                    close(lambda: tda.tda_paged_decode_attention(
+                        q, *pool[:2], tb, tt, *pool[2:], tab),
+                        plain(q, *lanes[:2], tb, *lanes[2:],
+                              0 if tab is None else ps),
+                        live, 1e-3 if tab is None else 1e-5)
+        for S in ((4000, 544) if B == 1 else (100, 130)):
+            tb = tp.t(_split_edge_bounds(rng, S, tda.decode_split_plan(S), B),
+                      dev)
+            live = tb[:, 1] > tb[:, 0]
+            shape = (B, S, Hkv, Dh)
+            k = tp.t(rng.standard_normal(shape).astype(np.float32), dev, dt)
+            v = tp.t(rng.standard_normal(shape).astype(np.float32), dev, dt)
+            (kq, ks), (vq, vs) = kv_quantize(k.float()), kv_quantize(v.float())
+            for lanes in ((k, v, None, None), (kq, vq, ks, vs)):
+                for tab, bk in ((None, 0), (table, 128)):
+                    close(lambda: tda.tda_decode_attention(
+                        q, *lanes[:2], tb, *lanes[2:], tab, block_k=128),
+                        plain(q, *lanes[:2], tb, *lanes[2:], min(bk, S)),
+                        live, 1e-3 if tab is None else 1e-5)
+
+
 # ---- LUT exp and int8 mixed ------------------------------------------------
 # The reference has no plain LUT oracle (its ``use_kernel=False`` ops ignore
 # the table), so the port's blockwise LUT plain versions are held against
