@@ -8,8 +8,9 @@ Phases (one line each, with its seconds; any failure exits nonzero):
 1. build    — compile the hand-written CUDA kernels from ``kernels/csrc``
               (one nvcc per source, all started together); report ptxas's
               registers, shared memory and spills, and fail unless the SASS
-              (``cuobjdump -sass``) of DMM holds wgmma (HGMMA) and that of
-              the mixed kernel mma.sync (HMMA) instructions.
+              (``cuobjdump -sass``) of DMM holds wgmma (HGMMA, M > 32) and
+              mma.sync (HMMA, M <= 32), that of SMM wgmma (M > 32) and that
+              of the mixed kernel mma.sync instructions.
 2. kernels  — each kernel against its plain PyTorch version on the card.
               TDA (phase ``kernels``): the ``kernels/tda/ref.py`` oracle
               (over gathered lanes for the paged kernels; with the LUT exp,
@@ -46,21 +47,31 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               (phase ``linear_kernels``): the CPU tests' edge cases (f32 and
               bf16 x), the tensor-core DMM body's tile edges (bf16 x; M 33,
               64, 130, 2048; N 200, 640, 3200; odd K, K no multiple of 64,
-              split K) and every linear family of qwen2.5-32b at full width
-              at M = 8 (a decode step) and M = 2048 (a mixed step); max abs
-              diff <= 1e-3 x max(1, max |plain|) (f32 sums in another order
-              over K up to 27648). Times each kernel (L2 flushed before every
+              split K), the small-M DMM body's edges (``DMM_SMALL_EDGES``:
+              M 1, 7, 8, 16, 31, 32; odd K, K 27648; N 48, 200, 640, 3200),
+              the edges of SMM's small-M and tensor-core bodies
+              (``SMM_TILE_EDGES``: M 1, 7, 8, 31, 32, 33, 130, 2048; N
+              1000, 1024, 5120, 27648; r 640, 650, 3200; nnz 1, 2, 80, 400;
+              uint8 deltas with repeated indices, int16 deltas with negative
+              ones) — each edge launched twice, which must give the same
+              bits, its launches counted by body — and every linear family
+              of qwen2.5-32b at full width at M = 8 (a decode step) and
+              M = 2048 (a mixed step); max abs diff <= 1e-3 x max(1, max
+              |plain|) (f32 sums in another order over K up to 27648; the
+              tensor-core bodies' bf16 parts stay within 2^-16 of each
+              term). Times each kernel (L2 flushed before every
               launch), its plain version, one PyTorch call computing the same
               function (``library_ms``: SDPA over the (gathered) lanes — for
               int8 lanes over lanes dequantized to bf16 beforehand, the
               dequantization untimed; exact exp beside the LUT rows —,
               ``torch.softmax`` (exact exp: the same traffic, not the same
               function), add + ``F.layer_norm``, or ``torch.matmul`` against
-              the densified matrix in f32 (TF32 off; DMM also times the
-              bf16 product on the bf16-rounded matrix, ``library_bf16_ms``,
-              a single-pass, lower-precision product); a yardstick the port
-              never calls) and its bound; the eight decode rows and their
-              SDPA yardsticks also by their kernels' device time alone
+              the densified matrix in f32 (TF32 off; DMM and SMM also time
+              the bf16 product on the bf16-rounded matrix,
+              ``library_bf16_ms``, a single-pass, lower-precision product);
+              a yardstick the port never calls) and its bound; the eight
+              decode rows, the DMM and SMM rows at both M, and their
+              yardsticks also by their kernels' device time alone
               (``device_ms``, ``library_device_ms``: ``torch.profiler``
               intervals, without the host dispatch that the events of
               ``ms`` include).
@@ -97,8 +108,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               W_D projected and the whole tree compressed on the card, then
               the same 16 requests through ``Engine.run`` on the streams.
               Every request must end ``ok``, DMM and SMM must each launch 7
-              x 8 times per step (every linear of every layer), and the TDA
-              counts keep phase 4's invariants.
+              x 8 times per step (every linear of every layer): decode steps
+              through their small-M bodies, mixed steps through their
+              tensor-core bodies, none through the CUDA-core fallbacks
+              (``BODY_LAUNCHES``), and the TDA counts keep phase 4's
+              invariants.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
@@ -417,6 +431,39 @@ DMM_TILE_EDGES = [(33, 127, 200), (64, 4000, 640), (130, 513, 3200),
 SMM_SMALL = [(32, 64, 48, 8, 6), (64, 128, 100, 16, 6), (16, 32, 32, 2, 6),
              (48, 96, 64, 24, 6), (8, 1024, 40, 2, 6), (32, 64, 48, 8, 4),
              (32, 64, 48, 8, 5), (32, 64, 48, 8, 7)]
+# Edges of SMM's two redesigned bodies, as tests/test_torch_dmm_smm.py::
+# SMM_TILE_EDGES: (M, r, N, nnz, kind). M 1-32 runs the small-M gather
+# body, M > 32 the tensor-core body (uint8) or the first version's (int16);
+# N 1000 ragged, r 650 no multiple of the 64-row K tile, nnz 1, 2, 80,
+# 400; "dup": uint8 deltas with zeros, "neg": int16 deltas, some negative.
+SMM_TILE_EDGES = [(1, 640, 1024, 80, "sorted"), (7, 3200, 5120, 400, "sorted"),
+                  (8, 3200, 27648, 400, "sorted"), (31, 650, 1000, 2, "sorted"),
+                  (32, 3200, 1024, 1, "sorted"), (8, 640, 1024, 80, "dup"),
+                  (8, 640, 1000, 80, "neg"), (33, 640, 5120, 80, "sorted"),
+                  (130, 3200, 1000, 400, "sorted"), (130, 640, 1024, 80, "dup"),
+                  (130, 640, 1024, 80, "neg"),
+                  (2048, 650, 1024, 2, "sorted"),
+                  (2048, 3200, 5120, 400, "sorted")]
+# Edges of DMM's small-M body (bf16 x, M <= 32), as tests/test_torch_dmm_
+# smm.py::DMM_SMALL_EDGES: (M, K, N); odd K, K 27648, N 640, 3200, ragged.
+DMM_SMALL_EDGES = [(1, 27648, 3200), (7, 5121, 640), (8, 27648, 640),
+                   (31, 333, 3200), (32, 27648, 3200), (8, 4000, 200),
+                   (16, 127, 48)]
+
+
+def smm_edge_streams(np, rng, r, N, nnz, kind):
+    """(first, deltas, vq) numpy streams, as tests/test_torch_dmm_smm.py::
+    smm_edge_streams: uint8 deltas ("dup": a third of them 0) from a first
+    index of -2 up, running past r; "neg": int16 deltas, a tenth negative."""
+    first = rng.integers(-2, max(1, r // 4), size=N).astype(np.int32)
+    hi = max(1, min(255, 2 * r // max(nnz, 1)))
+    d = rng.integers(0, hi + 1, size=(max(nnz - 1, 0), N))
+    if kind == "dup":
+        d[rng.random(d.shape) < 1 / 3] = 0
+    if kind == "neg":
+        d[rng.random(d.shape) < 0.1] -= 20
+    vq = rng.integers(0, 64, size=(nnz, N)).astype(np.uint8)
+    return first, d.astype(np.int16 if kind == "neg" else np.uint8), vq
 
 
 def wd_streams(torch, wd, nnz, bits=6):
@@ -430,9 +477,9 @@ def wd_streams(torch, wd, nnz, bits=6):
 
 
 def small_linear_cases(torch, np, dev):
-    """("dmm"/"dmm_tile_edge"/"smm", args) for the plain-vs-kernel check;
-    DMM args once with f32 and once with bf16 x, the tile edges with bf16
-    x."""
+    """(kind, args) for the plain-vs-kernel check: "dmm" (args once with
+    f32 and once with bf16 x), "dmm_tile_edge" and "dmm_small_edge" (bf16
+    x), "smm" and "smm_edge"."""
     from repro_torch.core import compression as comp
     from repro_torch.core.factorized import pack_nibbles
 
@@ -454,6 +501,19 @@ def small_linear_cases(torch, np, dev):
         x = T(rng.standard_normal((M, K)).astype(np.float32))
         yield "dmm_tile_edge", (x.to(torch.bfloat16), pack_nibbles(codes),
                                 lut)
+    for M, K, N in DMM_SMALL_EDGES:
+        rng = np.random.default_rng(M + K + N)
+        codes = T(rng.integers(0, 16, size=(K, N)).astype(np.uint8))
+        lut = T((np.sort(rng.standard_normal(16)) / np.sqrt(K)).astype(
+            np.float32))
+        x = T(rng.standard_normal((M, K)).astype(np.float32))
+        yield "dmm_small_edge", (x.to(torch.bfloat16), pack_nibbles(codes),
+                                 lut)
+    for M, r, N, nnz, kind in SMM_TILE_EDGES:
+        rng = np.random.default_rng(M + r + N + nnz)
+        st = [T(a) for a in smm_edge_streams(np, rng, r, N, nnz, kind)]
+        y = T(rng.standard_normal((M, r)).astype(np.float32))
+        yield "smm_edge", (y, *st, 1.3, -0.6, 6)
     for M, r, N, nnz, bits in SMM_SMALL:
         rng = np.random.default_rng(M + r + bits)
         wd = T(rng.normal(size=(r, N)).astype(np.float32))
@@ -488,9 +548,11 @@ def linear_shapes(cfg):
 # ---------------------------------------------------------------------------
 
 # Tensor-core instructions each library's SASS must hold: the DMM body for
-# bf16 x at M > 32 issues wgmma (HGMMA), the mixed kernel's bf16 body
-# mma.sync (HMMA).
-TENSOR_CORE_SASS = {"dmm": "HGMMA", "tda_mixed": "HMMA"}
+# bf16 x at M > 32 issues wgmma (HGMMA) and its small-M body mma.sync
+# (HMMA), SMM's body for M > 32 wgmma, the mixed kernel's bf16 body
+# mma.sync.
+TENSOR_CORE_SASS = {"dmm": ("HGMMA", "HMMA"), "smm": ("HGMMA",),
+                    "tda_mixed": ("HMMA",)}
 
 
 def phase_build():
@@ -504,16 +566,18 @@ def phase_build():
         build.load(name)
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = {}
-    for name, op in TENSOR_CORE_SASS.items():
+    for name, ops in TENSOR_CORE_SASS.items():
         dump = subprocess.run([str(cuobjdump), "-sass",
                                str(build._lib_path(name))],
                               capture_output=True, text=True,
                               timeout=120).stdout
         sass[name] = {op: sum(
             any(tok.startswith(op) for tok in ln.split()[1:3])
-            for ln in dump.splitlines() if ln.strip().startswith("/*"))}
-        if not sass[name][op]:
-            fail(f"{name}: no {op} instruction in its SASS")
+            for ln in dump.splitlines() if ln.strip().startswith("/*"))
+            for op in ops}
+        for op in ops:
+            if not sass[name][op]:
+                fail(f"{name}: no {op} instruction in its SASS")
     line("build", seconds=round(time.perf_counter() - t0, 3),
          kernels=sorted(build.SOURCES), tensor_core_sass=sass,
          ptxas={n: [ln.strip() for ln in v["ptxas"].splitlines()
@@ -1079,54 +1143,76 @@ def phase_kernel_table(torch):
 
 
 # The linear rows' yardsticks (``library_ms``): the same function as one
-# PyTorch call on the densified matrix. DMM also times the bf16 product on
-# the bf16-rounded matrix (``library_bf16_ms``).
+# PyTorch call on the densified matrix in f32; ``library_bf16_ms`` the bf16
+# product on the bf16-rounded matrix (SMM: of bf16-rounded y), a
+# single-pass, lower-precision product.
 LINEAR_LIBRARY = {
     "dmm": "torch.matmul, f32 x on the f32 densified W (TF32 off); "
            "library_bf16_ms: bf16 x on the bf16-rounded W, a single-pass, "
            "lower-precision product",
-    "smm": "torch.matmul on the f32 densified W_D (TF32 off)"}
+    "smm": "torch.matmul on the f32 densified W_D (TF32 off); "
+           "library_bf16_ms: bf16 y on the bf16-rounded W_D, a single-pass, "
+           "lower-precision product"}
 
 
 def phase_linear_kernels(torch, np, ccfg):
-    """DMM and SMM against their plain versions: the CPU tests' edge cases,
-    then every family's full-width shapes at M = 8 and 2048, timed."""
+    """DMM and SMM against their plain versions: the CPU tests' edge cases
+    and the redesigned bodies' edges (each edge launched twice, which must
+    give the same bits, and counted against the body its shapes select),
+    then every family's full-width shapes at M = 8 and 2048, timed by
+    events (``ms``) and by the kernels' device time alone (``device_ms``)."""
     from repro_torch.core.factorized import pack_nibbles
+    from repro_torch.kernels.dmm import dmm
     from repro_torch.kernels.dmm.ops import lut_matmul
     from repro_torch.kernels.dmm.ref import unpack_nibbles
+    from repro_torch.kernels.smm import smm
     from repro_torch.kernels.smm.ops import compressed_matmul
     from repro_torch.kernels.smm.ref import densify
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     err = {"dmm_matmul": 0.0, "smm_matmul": 0.0}
+    smm_op = ("smm_matmul", lambda *a, **kw: compressed_matmul(
+        *a[:6], value_bits=a[6], **kw))
     ops = {"dmm": ("dmm_matmul", lut_matmul),
            "dmm_tile_edge": ("dmm_matmul", lut_matmul),
-           "smm": ("smm_matmul", lambda *a, **kw: compressed_matmul(
-               *a[:6], value_bits=a[6], **kw))}
+           "dmm_small_edge": ("dmm_matmul", lut_matmul),
+           "smm": smm_op, "smm_edge": smm_op}
+    bodies = {"dmm_matmul": dmm.BODY_LAUNCHES, "smm_matmul": smm.BODY_LAUNCHES}
 
     def check(kind, args):
         name, op = ops[kind]
+        before = dict(bodies[name])
         got = op(*args)
+        if kind.endswith("edge"):
+            again = op(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{name}: a second launch on the same inputs gave other "
+                     f"bits at {[tuple(a.shape) for a in args[:2]]}")
+        ran = [k for k in before if bodies[name][k] != before[k]]
         plain = op(*args, use_kernel=False)
         torch.cuda.synchronize()
         e = (got - plain).abs().max().item() if got.numel() else 0.0
         lim = TOL * max(1.0, plain.abs().max().item() if got.numel() else 0)
         err[name] = max(err[name], e)
-        if kind == "dmm_tile_edge":
-            M, K = args[0].shape
-            edges["%dx%dx%d" % (M, K, args[1].shape[1])] = {
-                "max_abs_err": e, "limit": lim}
+        if kind.endswith("edge"):
+            key = "x".join(str(d) for d in (*args[0].shape, args[1].shape[-1]))
+            if kind == "smm_edge":
+                key += f"/nnz{args[3].shape[0]}/{args[2].dtype}".replace(
+                    "torch.", "")
+            edges.setdefault(kind, {})[key] = {
+                "max_abs_err": e, "limit": lim, "body": ran}
         if not e <= lim:
             fail(f"{name} vs plain: max abs diff {e} (limit {lim}) at "
                  f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
-        return got
+        return {"max_abs_err": e, "limit": lim, "body": ran}
 
     n_cases, edges = 0, {}
     for kind, args in small_linear_cases(torch, np, dev):
         check(kind, args)
         n_cases += 1
     line("linear_kernels_small", cases=n_cases, max_abs_err=dict(err),
-         dmm_tile_edges=edges)
+         edges=edges)
 
     g = torch.Generator(device=dev).manual_seed(3)
     shapes, rows = [], {}
@@ -1139,7 +1225,12 @@ def phase_linear_kernels(torch, np, ccfg):
         ws_bf16 = ws_f32.to(torch.bfloat16)
         st = wd_streams(torch, torch.randn(r, d_out, generator=g,
                                            device=dev), nnz)
+        # the layer's scalars as the serve passes them: 0-d device tensors
+        st = st[:3] + tuple(torch.as_tensor(v, dtype=dt, device=dev).reshape(
+            ()) for v, dt in zip(st[3:], (torch.float32, torch.float32,
+                                          torch.int32)))
         wd_dense = densify(*st[:5], r, st[5])
+        wd_bf16 = wd_dense.to(torch.bfloat16)
         rec = {"families": fams, "d_in": d_in, "d_out": d_out, "r": r,
                "nnz": nnz, "delta_dtype": str(st[1].dtype).split(".")[1]}
         for M in (8, 2048):
@@ -1147,40 +1238,45 @@ def phase_linear_kernels(torch, np, ccfg):
                 torch.bfloat16)
             x32 = x.float()  # the f32 yardstick's input, made untimed
             y = torch.randn(M, r, generator=g, device=dev)
-            check("dmm", (x, codes, lut))
-            check("smm", (y,) + st)
+            y16 = y.to(torch.bfloat16)
+            checked = {"dmm": check("dmm", (x, codes, lut)),
+                       "smm": check("smm", (y,) + st)}
             dmm_b, dmm_by = bound(x.numel() * 2 + codes.numel() + 64
                                   + M * r * 4, 2 * M * d_in * r, 2)
             smm_b, smm_by = bound(
                 y.numel() * 4 + d_out * 4
                 + st[1].numel() * st[1].element_size() + st[2].numel()
                 + M * d_out * 4, 2 * M * nnz * d_out, 4)
-            rec[f"dmm_M{M}"] = {
-                "ms": time_ms(torch, lambda: lut_matmul(x, codes, lut), 10),
-                "plain_ms": time_ms(torch, lambda: lut_matmul(
-                    x, codes, lut, use_kernel=False), 5),
-                "library_ms": time_ms(torch, lambda: torch.matmul(
-                    x32, ws_f32), 10),
-                "library_bf16_ms": time_ms(torch, lambda: torch.matmul(
-                    x, ws_bf16), 10),
-                "bound_ms": dmm_b, "bound_by": dmm_by}
-            rec[f"smm_M{M}"] = {
-                "ms": time_ms(torch, lambda: compressed_matmul(
-                    y, *st[:5], value_bits=st[5]), 10),
-                "plain_ms": time_ms(torch, lambda: compressed_matmul(
-                    y, *st[:5], value_bits=st[5], use_kernel=False), 5),
-                "library_ms": time_ms(torch, lambda: torch.matmul(
-                    y, wd_dense), 10),
-                "bound_ms": smm_b, "bound_by": smm_by}
+            calls = {
+                "dmm": (lambda: lut_matmul(x, codes, lut),
+                        lambda: lut_matmul(x, codes, lut, use_kernel=False),
+                        lambda: torch.matmul(x32, ws_f32),
+                        lambda: torch.matmul(x, ws_bf16), dmm_b, dmm_by),
+                "smm": (lambda: compressed_matmul(
+                            y, *st[:5], value_bits=st[5]),
+                        lambda: compressed_matmul(
+                            y, *st[:5], value_bits=st[5], use_kernel=False),
+                        lambda: torch.matmul(y, wd_dense),
+                        lambda: torch.matmul(y16, wd_bf16), smm_b, smm_by)}
+            for kern, (fn, plain, lib, lib16, b, by) in calls.items():
+                rec[f"{kern}_M{M}"] = {
+                    "ms": time_ms(torch, fn, 10),
+                    "device_ms": device_ms(torch, fn, 10),
+                    "plain_ms": time_ms(torch, plain, 5),
+                    "library_ms": time_ms(torch, lib, 10),
+                    "library_device_ms": device_ms(torch, lib, 10),
+                    "library_bf16_ms": time_ms(torch, lib16, 10),
+                    "bound_ms": b, "bound_by": by, **checked[kern]}
         shapes.append(rec)
         for kern, fam in (("dmm", "ffn_down"), ("smm", "ffn_up")):
             if fam in fams:
                 rows[kern] = rec
-        del codes, ws_f32, ws_bf16, wd_dense, st, x32
+        del codes, ws_f32, ws_bf16, wd_dense, wd_bf16, st, x32, y16
     torch.cuda.synchronize()
     line("linear_kernels_full", seconds=round(time.perf_counter() - t0, 3),
          max_abs_err=dict(err), shapes=shapes)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "library_bf16_ms", "bound_ms", "bound_by")
     out = []
     for kern, name, src, repl in (
             ("dmm", "dmm_matmul", "dmm.cu",
@@ -1188,12 +1284,11 @@ def phase_linear_kernels(torch, np, ccfg):
             ("smm", "smm_matmul", "smm.cu",
              "src/repro/kernels/smm/smm.py:63")):
         rec = rows[kern]
-        kk = keys + (("library_bf16_ms",) if kern == "dmm" else ())
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
                "replaces": repl, "max_abs_err": err[name],
-               **{k: rec[f"{kern}_M2048"][k] for k in kk},
-               "M8": {k: rec[f"{kern}_M8"][k] for k in kk},
+               **{k: rec[f"{kern}_M2048"][k] for k in keys},
+               "M8": {k: rec[f"{kern}_M8"][k] for k in keys},
                "library": LINEAR_LIBRARY[kern],
                "shape": {k: rec[k] for k in ("families", "d_in", "d_out", "r",
                                              "nnz")} | {"M": 2048}}
@@ -1363,7 +1458,8 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
     done = eng.run(arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**tda.LAUNCHES, **dmm.LAUNCHES, **smm.LAUNCHES}
+    launches = {**tda.LAUNCHES, **dmm.LAUNCHES, **smm.LAUNCHES,
+                **dmm.BODY_LAUNCHES, **smm.BODY_LAUNCHES}
     st = eng.decode_stats
     if sorted(r.rid for r in done) != list(range(16)):
         fail("not every request came back")
@@ -1504,6 +1600,15 @@ def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
     if not launches["dmm_matmul"] == launches["smm_matmul"] == n_lin:
         fail(f"dmm/smm launches {launches} != 7 linears x "
              f"{ccfg.n_layers} layers x {summary['steps']} steps")
+    # Decode steps (M = num_slots <= 32) run the small-M bodies, mixed steps
+    # (M = num_slots x chunk) the tensor-core bodies, and nothing else.
+    n_mixed = 7 * ccfg.n_layers * summary["mixed_steps"]
+    want = {f"{k}.{b}": n for k in ("dmm_matmul", "smm_matmul")
+            for b, n in (("small", n_lin - n_mixed), ("tc", n_mixed),
+                         ("fma", 0))}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"dmm/smm launches by body "
+             f"{ {k: launches[k] for k in want} }, want {want}")
     line("compressed_serve", seconds=round(time.perf_counter() - t0, 3),
          init_s=init_s, project_s=project_s, compress_s=compress_s,
          weight_stream_bits=stats["weight_stream_bits"],
@@ -1568,7 +1673,9 @@ def main():
     for r in rows:
         if r["name"] in ("dmm_matmul", "smm_matmul"):
             r.update(launches=claunches[r["name"]],
-                     launches_from="compressed_serve")
+                     launches_from="compressed_serve",
+                     body_launches={k: v for k, v in claunches.items()
+                                    if k.startswith(r["name"] + ".")})
         elif r["name"] == "softmax_lut":
             r.update(launches=table_launches["softmax_lut"],
                      launches_from="kernel_table")
@@ -1588,7 +1695,7 @@ def main():
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
         "device_ms", "library_device_ms", "library_bf16_ms", "M8",
-        "other_shapes") if k in r} for r in rows]}))
+        "body_launches", "other_shapes") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

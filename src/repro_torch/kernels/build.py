@@ -41,9 +41,9 @@ _ARGTYPES = {
     "tda_paged_decode": {
         "tda_paged_decode": [_P] * 11 + [_I] * 8 + [_I, _I, _F, _P]},
     "tda_mixed": {"tda_mixed": [_P] * 11 + [_I] * 10 + [_I, _I, _F, _P]},
-    "dmm": {"dmm": [_P] * 5 + [_I] * 4 + [_I, _P],
-            "dmm_splits": [_I] * 4},
-    "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P]},
+    "dmm": {"dmm": [_P] * 6 + [_I] * 4 + [_I, _P],
+            "dmm_splits": [_I] * 4, "dmm_body": [_I] * 2},
+    "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P], "smm_body": [_I] * 5},
     "afu": {"softmax_lut": [_P] * 3 + [_I] * 2 + [_I, _P],
             "layernorm_residual": [_P] * 5 + [_I] * 2 + [_I, _F, _P]},
 }

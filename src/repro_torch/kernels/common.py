@@ -5,6 +5,8 @@ instead of falling back to the CPU, which only an explicit
 ``device="cpu"`` selects (the tests do). ``resolve_decode_attn("auto")``
 picks the hand-written TDA kernels on a CUDA device and the plain dense
 path on the CPU, as the reference picks its Pallas kernels on a TPU.
+``merge_counters`` holds the int32 counters with which the kernels that
+merge their splits in the launch elect the last block.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "resolve_decode_attn"]
+__all__ = ["resolve_device", "resolve_decode_attn", "merge_counters"]
+
+_COUNTERS: dict = {}  # device -> int32 counters, 0 between launches
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -38,3 +42,14 @@ def resolve_decode_attn(mode: str, device: torch.device) -> str:
     if mode not in ("dense", "tda"):
         raise ValueError(f"unknown decode_attn mode {mode!r}")
     return mode
+
+
+def merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device``, zeroed once and shared
+    by every launch there: the kernels run on one stream, in order, and
+    each block that merges resets its counter to 0."""
+    cnt = _COUNTERS.get(device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = cnt
+    return cnt

@@ -38,23 +38,43 @@
 //     check's limit at K in the thousands, while bf16 x bf16 products are
 //     exact in f32 and hi + lo carries the LUT to 2^-16 of its value. Two
 //     passes make the least tensor-core time 2 x 2 M K N / 989 TFLOP/s.
-//   * bf16 x, M <= 32 (a decode step) and every f32 x: `dmm_kernel`, the
-//     first version's f32 CUDA-core body, bound there by the code bytes:
-//     8 x 128 output tiles (one row of 4 outputs per thread) for small M,
-//     128 x 64 tiles (8 x 4 outputs per thread) for large M, 256 threads,
-//     the dequantized tile staged as f32 in shared memory.
-// Both: K may be split across blocks (grid z): when the output tiles alone
-// cannot fill 2 x 132 SMs (small M, or a narrow N such as the k/v
-// projections' N = 640), and, for the tensor-core body (one block per SM),
-// when whole-K tiles would leave most of the last wave idle (`tc_splits`).
-// Each split writes its partial tile to a workspace and `sum_splits_kernel`
-// sums the splits in a fixed order, so the result does not depend on
-// scheduling. Edges: rows past M, columns past N, code rows past ceil(K/2)
-// and x columns at or past the split's end are zero-filled in the tile (so
-// an odd K's pad code row meets zero activations, as the reference's zero
-// column of x does); the output is cropped on store. The 16-byte copies
-// need K % 8 == 0 (x rows) and N % 16 == 0 (code rows); other shapes stage
-// the same tiles with element loads.
+//   * bf16 x, M <= 32 (a decode step): `dmm_small_kernel`, bound by the
+//     code bytes: 44 MB at ffn_down (K 27648, N 3200), 13.4 us. Each lane
+//     loads 16 code bytes at once (16 columns x 2 K rows) and turns each
+//     byte (a K pair) into its W_hi and W_lo fragment registers by one
+//     8-byte load from a 256-entry table of (hi, lo) pairs, kept in 16
+//     copies so that a half warp's loads meet no bank twice; mma.sync
+//     m16n8k16 multiplies them by the bf16 x chunk, staged once per block
+//     in shared memory (rows of 8, mma.sync's n: M <= 8, 16 or 32 in 1, 2
+//     or 4 row tiles). A code byte costs a load and two instructions, not
+//     2 M multiply-adds, and no f32 tile is staged. A block of 8 warps owns
+//     128 columns and a K chunk; K is split so that the blocks fill the
+//     SMs once (`small_plan`), the warps' partials are summed in shared
+//     memory in warp order, and the splits in the same launch, in split
+//     order, by the last block of the column tile to finish (a counter it
+//     resets to 0): the result does not depend on scheduling and no second
+//     launch runs. What holds it above the byte bound: the chain of global
+//     round trips a launch cannot overlap (the table and x chunk, the
+//     codes, the partials and the counter, the last block's merge), about
+//     10 us, and the table loads (one shared-memory wavefront per 16 code
+//     bytes).
+//   * every f32 x (no serve runs it): `dmm_kernel`, the first version's
+//     f32 CUDA-core body: 8 x 128 output tiles (one row of 4 outputs per
+//     thread) for small M, 128 x 64 tiles (8 x 4 outputs per thread) for
+//     large M, 256 threads, the dequantized tile staged as f32 in shared
+//     memory.
+// The tensor-core and f32 bodies may split K across blocks (grid z): when
+// the output tiles alone cannot fill 2 x 132 SMs (small M, or a narrow N
+// such as the k/v projections' N = 640), and, for the tensor-core body
+// (one block per SM), when whole-K tiles would leave most of the last wave
+// idle (`tc_splits`). Each split writes its partial tile to a workspace
+// and `sum_splits_kernel` sums the splits in a fixed order, so the result
+// does not depend on scheduling. Edges: rows past M, columns past N, code
+// rows past ceil(K/2) and x columns at or past the split's end are
+// zero-filled (so an odd K's pad code row meets zero activations, as the
+// reference's zero column of x does); the output is cropped on store. The
+// 16-byte copies and loads need K % 8 == 0 (x rows, tensor-core body) and
+// N % 16 == 0 (code rows); other shapes load the same tiles by elements.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,13 +85,9 @@ constexpr int kThreads = 256;
 constexpr int kSMs = 132;
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // ---------------------------------------------------------------------------
-// CUDA-core body (f32 x; bf16 x at M <= 32)
+// CUDA-core body (f32 x)
 // ---------------------------------------------------------------------------
 
 // Tile: BM x BN outputs per block, BK of K per step; each thread owns a
@@ -117,7 +133,7 @@ dmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
     for (int i = tid; i < BM * BK; i += kThreads) {
       const int m = i / BK, kk = i % BK;
       const int gm = m0 + m, gk = k0 + kk;
-      xs[kk][m] = (gm < M && gk < ke) ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
+      xs[kk][m] = (gm < M && gk < ke) ? x[(size_t)gm * K + gk] : 0.f;
     }
     for (int i = tid; i < (BK / 2) * BN; i += kThreads) {
       const int kr = i / BN, c = i % BN;
@@ -465,6 +481,273 @@ dmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Small-M body (bf16 x, M <= 32): 16-byte code loads, mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kSmThreads = 256;                   // 8 warps
+constexpr int kSmWarps = kSmThreads / 32;
+constexpr int kSmBN = 128;                        // columns per block
+constexpr int kSmStep = 16;                       // K per warp step
+constexpr int kSmBlockK = kSmWarps * kSmStep;     // K per block step: 128
+constexpr int kSmXBytes = 48 * 1024;              // x chunk staged, at most
+constexpr int kSmTable = 256 * 16 * 8;            // the byte table: 32 KB
+
+// Row tiles of 8 (mma.sync's n) that cover M <= 32 rows.
+inline int small_mt(int M) { return M <= 8 ? 1 : M <= 16 ? 2 : 4; }
+
+size_t small_smem(int M, int chunk) {
+  const int mpad = 8 * small_mt(M);
+  const size_t xs = (size_t)mpad * (chunk + 8) * 2;
+  const size_t red = (size_t)kSmWarps * mpad * kSmBN * 4;
+  return kSmTable + (xs > red ? xs : red);
+}
+
+// The small body's K split: as many blocks as fit the SMs at once over the
+// column tiles (two per SM when the table, the x chunk and the warps'
+// partials fit half of shared memory), a K chunk (a multiple of 128) whose
+// x rows fit kSmXBytes, at least two block steps per split. Returns
+// {splits, chunk}.
+struct SmallPlan {
+  int splits, chunk;
+};
+SmallPlan small_plan(int M, int K, int N) {
+  const int mpad = 8 * small_mt(M);
+  const int tiles = (N + kSmBN - 1) / kSmBN;
+  const int kmax = max(kSmBlockK, (kSmXBytes / (2 * mpad) - 8) / kSmBlockK *
+                                      kSmBlockK);
+  const int per_sm = small_smem(M, kmax) <= 110 * 1024 ? 2 : 1;
+  int splits = max(per_sm * kSMs / tiles, (K + kmax - 1) / kmax);
+  // at least two block steps a split: a block's set-up (the table, the x
+  // chunk, the merge) outweighs one
+  splits = max(1, min(splits, (K + 2 * kSmBlockK - 1) / (2 * kSmBlockK)));
+  const int chunk =
+      ((K + splits - 1) / splits + kSmBlockK - 1) / kSmBlockK * kSmBlockK;
+  return {(K + chunk - 1) / chunk, chunk};
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Slot of output (m, n) of a warp's partial in the block's reduction
+// buffer: n's bits 0-3 XORed with n's bits 5-6 and m's bits 1-2, so that
+// the stores of a warp (lanes g, q at n = 16 g + .., m = 2 q + ..) and the
+// loads of the sum (consecutive n) meet no bank twice.
+__device__ __forceinline__ int red_slot(int m, int n) {
+  return m * kSmBN + (n ^ ((n >> 5) & 3) ^ (((m >> 1) & 3) << 2));
+}
+
+// MT row tiles of 8; kVec: N % 16 == 0 and 16-byte aligned codes.
+// A block owns columns n0 .. n0 + 127 and the K chunk of blockIdx.y. The
+// product is computed transposed, y^T = W^T x^T, on mma.sync m16n8k16: W^T
+// is the A operand, built in registers from the codes, x^T the B operand.
+// Lane (g, q) of a warp loads the 16 code bytes of columns n0 + 16 g ..
+// + 15 at packed rows q and q + 4 of the warp's step (16-byte loads; the
+// 8 lanes of a packed row read its 128 bytes); byte 2t of a row gives A
+// row g of mma tile t, byte 2t + 1 row g + 8, so tile t's 16 rows are
+// columns n0 + 16 g + 2t (+ 1), and a packed row is one k pair (high nibble
+// first), as the fragment wants. Each byte becomes its W_hi and W_lo pairs
+// by one 8-byte load from the byte table; two products (W_hi, then W_lo)
+// go into one f32 accumulator. The 8 warps take the chunk's 16-deep steps in
+// turn, the codes of the next two steps in flight while one is computed; their
+// partials are summed in warp order in shared memory, then the splits in
+// split order by the last block of the column tile to finish (a
+// __threadfence and an atomicAdd on the tile's counter, which that block
+// resets to 0 for the next launch).
+template <int MT, bool kVec>
+__global__ void __launch_bounds__(kSmThreads)
+dmm_small_kernel(const __nv_bfloat16* __restrict__ x,
+                 const uint8_t* __restrict__ codes,
+                 const float* __restrict__ lut, float* __restrict__ out,
+                 float* __restrict__ part, int* __restrict__ counters, int M,
+                 int K, int N, int chunk, int splits, int x_vec) {
+  constexpr int MP = 8 * MT;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  // code byte b (k pair: high nibble, low nibble) -> the fragment registers
+  // (W_hi(hi) | W_hi(lo) << 16, W_lo(hi) | W_lo(lo) << 16), 16 copies
+  // (entry b of copy l % 16 at b * 16 + l % 16): one 8-byte load a byte,
+  // and a half warp's loads by any bytes meet no bank twice
+  uint2* const table = reinterpret_cast<uint2*>(dyn);
+  __shared__ uint2 entry[256];
+  __shared__ int last_s;
+  // x chunk as bf16 pairs (k, k + 1), rows of chunk / 2 + 4 words: the
+  // B-fragment loads (lanes g, q at word g xw + q) meet no bank twice
+  uint32_t* const xs = reinterpret_cast<uint32_t*>(dyn + kSmTable);
+  float* const red = reinterpret_cast<float*>(dyn + kSmTable);  // after K
+  const int xw = chunk / 2 + 4;
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int n0 = blockIdx.x * kSmBN;
+  const int kb = blockIdx.y * chunk, ke = min(K, kb + chunk);
+  const int Kp = (K + 1) / 2;
+
+  // Warp w takes steps w, w + 8, ...: the codes of its first two are
+  // requested before the table and the x chunk are built, then each
+  // step's codes two steps ahead.
+  const int nst = (ke - kb + kSmStep - 1) / kSmStep;
+  auto load = [&](int st, uint4& c0, uint4& c1) {
+    const int kp = (kb + st * kSmStep) / 2 + q, gn = n0 + 16 * g;
+    auto row = [&](int r) -> uint4 {
+      if (r >= Kp) return make_uint4(0, 0, 0, 0);
+      const uint8_t* src = codes + (size_t)r * N + gn;
+      if constexpr (kVec) {
+        return gn < N ? __ldg(reinterpret_cast<const uint4*>(src))
+                      : make_uint4(0, 0, 0, 0);
+      } else {
+        uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          if (gn + e < N) v[e >> 2] |= (uint32_t)src[e] << (8 * (e & 3));
+        return make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    };
+    c0 = row(kp);
+    c1 = row(kp + 4);
+  };
+
+  uint4 a0 = make_uint4(0, 0, 0, 0), a1 = a0, b0 = a0, b1 = a0, c0 = a0,
+        c1 = a0;
+  if (w < nst) load(w, a0, a1);
+  if (w + kSmWarps < nst) load(w + kSmWarps, b0, b1);
+
+  {
+    const float vh = lut[tid >> 4], vl = lut[tid & 15];  // 256 threads
+    const uint16_t hh = bf16_bits(vh), hl = bf16_bits(vl);
+    const uint16_t lh = bf16_bits(vh - __bfloat162float(__ushort_as_bfloat16(hh)));
+    const uint16_t ll = bf16_bits(vl - __bfloat162float(__ushort_as_bfloat16(hl)));
+    entry[tid] = make_uint2((uint32_t)hh | (uint32_t)hl << 16,
+                            (uint32_t)lh | (uint32_t)ll << 16);
+  }
+  __syncthreads();
+  for (int i = tid; i < 256 * 16; i += kSmThreads) table[i] = entry[i >> 4];
+  if (x_vec) {  // 8 x values a load
+    const int pieces = chunk / 8;
+#pragma unroll 4
+    for (int i = tid; i < MP * pieces; i += kSmThreads) {
+      const int m = i / pieces, j = i - m * pieces;
+      const int k = kb + 8 * j;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (m < M && k < ke)  // ke - k is a multiple of 8 when K is
+        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + k));
+      *reinterpret_cast<uint4*>(xs + m * xw + 4 * j) = v;
+    }
+  } else {
+    for (int i = tid; i < MP * (chunk / 2); i += kSmThreads) {
+      const int m = i / (chunk / 2), j = i - m * (chunk / 2);
+      const int k = kb + 2 * j;
+      uint32_t v = 0;
+      if (m < M && k < ke) {
+        const __nv_bfloat16* src = x + (size_t)m * K + k;
+        v = __bfloat16_as_ushort(src[0]);
+        if (k + 1 < ke) v |= (uint32_t)__bfloat16_as_ushort(src[1]) << 16;
+      }
+      xs[m * xw + j] = v;
+    }
+  }
+  __syncthreads();
+
+  float d[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[mt][t][j] = 0.f;
+  const uint2* tab = table + (lane & 15);
+  auto compute = [&](int st, const uint4& c0, const uint4& c1) {
+    const int j0 = st * (kSmStep / 2) + q;  // word of k pair 16 st + 2 q
+    uint32_t b[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t* xr = xs + (8 * mt + g) * xw;
+      b[mt][0] = xr[j0];
+      b[mt][1] = xr[j0 + 4];
+    }
+    const uint32_t r0[4] = {c0.x, c0.y, c0.z, c0.w};
+    const uint32_t r1[4] = {c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      // bytes 2t, 2t + 1 of the two rows: (row g, row g + 8) x (k pair q,
+      // k pair q + 4)
+      const uint32_t h0 = r0[t >> 1] >> (16 * (t & 1));
+      const uint32_t h1 = r1[t >> 1] >> (16 * (t & 1));
+      const uint32_t bytes[4] = {h0 & 0xFF, (h0 >> 8) & 0xFF, h1 & 0xFF,
+                                 (h1 >> 8) & 0xFF};
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const uint2 e = tab[16 * bytes[rr]];
+        ahi[rr] = e.x;
+        alo[rr] = e.y;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(d[mt][t], ahi, b[mt][0], b[mt][1]);
+        mma16816(d[mt][t], alo, b[mt][0], b[mt][1]);
+      }
+    }
+  };
+
+  for (int st = w; st < nst; st += kSmWarps) {
+    if (st + 2 * kSmWarps < nst) load(st + 2 * kSmWarps, c0, c1);
+    compute(st, a0, a1);
+    a0 = b0, a1 = b1, b0 = c0, b1 = c1;
+  }
+
+  // d[mt][t][j]: column n0 + 16 g + 2 t + (j >> 1), row 8 mt + 2 q + (j & 1)
+  __syncthreads();  // every warp done with xs, which red overwrites
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[w * MP * kSmBN + red_slot(8 * mt + 2 * q + (j & 1),
+                                      16 * g + 2 * t + (j >> 1))] = d[mt][t][j];
+  __syncthreads();
+  for (int o = tid; o < MP * kSmBN; o += kSmThreads) {
+    const int m = o / kSmBN, n = o - m * kSmBN;
+    if (m >= M || n0 + n >= N) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kSmWarps; ++ww) v += red[ww * MP * kSmBN + red_slot(m, n)];
+    if (splits == 1) out[(size_t)m * N + n0 + n] = v;
+    else part[((size_t)blockIdx.y * M + m) * N + n0 + n] = v;
+  }
+  if (splits == 1) return;
+  // The last split of this column tile to finish sums them all, in order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int o = tid; o < MP * kSmBN; o += kSmThreads) {
+    const int m = o / kSmBN, n = o - m * kSmBN;
+    if (m >= M || n0 + n >= N) continue;
+    const float* src = part + (size_t)m * N + n0 + n;
+    const size_t zs = (size_t)M * N;
+    float v = 0.f;
+    for (int z0 = 0; z0 < splits; z0 += 8) {  // 8 loads in flight, summed in order
+      float t[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        t[u] = z0 + u < splits ? __ldcg(src + (z0 + u) * zs) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v += t[u];
+    }
+    out[(size_t)m * N + n0 + n] = v;
+  }
+  if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
+}
+
 // out[i] = sum over s of part[s][i], in order of s.
 __global__ void __launch_bounds__(kThreads)
 sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -571,13 +854,72 @@ int launch_tc(const void* x, const void* codes, const void* lut, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Raises the small body's dynamic shared-memory limit to `smem` once per
+// device and instantiation, not on every launch.
+template <int MT, bool kVec>
+cudaError_t ensure_small_smem(size_t smem) {
+  static size_t granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && smem <= granted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(dmm_small_kernel<MT, kVec>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
+  return e;
+}
+
+template <int MT, bool kVec>
+int launch_small_mt(const void* x, const void* codes, const void* lut,
+                    void* out, void* part, void* counters, int M, int K,
+                    int N, int splits, cudaStream_t s) {
+  const SmallPlan p = small_plan(M, K, N);
+  if (p.splits != splits || (splits > 1 && (!part || !counters)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = small_smem(M, p.chunk);
+  const cudaError_t e = ensure_small_smem<MT, kVec>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + kSmBN - 1) / kSmBN, splits);
+  dmm_small_kernel<MT, kVec><<<grid, kSmThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(lut), static_cast<float*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), M, K, N, p.chunk,
+      splits, K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_small(const void* x, const void* codes, const void* lut, void* out,
+                 void* part, void* counters, int M, int K, int N, int splits,
+                 cudaStream_t s) {
+  switch (small_mt(M)) {
+    case 1:
+      return launch_small_mt<1, kVec>(x, codes, lut, out, part, counters, M,
+                                      K, N, splits, s);
+    case 2:
+      return launch_small_mt<2, kVec>(x, codes, lut, out, part, counters, M,
+                                      K, N, splits, s);
+    default:
+      return launch_small_mt<4, kVec>(x, codes, lut, out, part, counters, M,
+                                      K, N, splits, s);
+  }
+}
+
 }  // namespace
+
+// Which body dmm() runs for M rows of x of type dtype (as in dmm()): 0
+// the small-M body, 1 the tensor-core body, 2 the f32 CUDA-core body.
+extern "C" int dmm_body(int M, int dtype) {
+  return dtype == 1 ? (use_small(M) ? 0 : 1) : 2;
+}
 
 // Number of K splits dmm() uses for this shape and x type (dtype as in
 // dmm()); the wrapper allocates a (splits, M, N) f32 workspace when it is
 // above 1.
 extern "C" int dmm_splits(int M, int K, int N, int dtype) {
-  if (use_tc(M, dtype)) return tc_splits(M, K, N);
+  if (dtype == 1)
+    return use_small(M) ? small_plan(M, K, N).splits : tc_splits(M, K, N);
   return use_small(M)
       ? splits_for(Small::kBM, Small::kBN, Small::kBK, M, K, N)
       : splits_for(Large::kBM, Large::kBN, Large::kBK, M, K, N);
@@ -585,10 +927,12 @@ extern "C" int dmm_splits(int M, int K, int N, int dtype) {
 
 // x (M, K) f32 (dtype 0) or bf16 (dtype 1); codes (ceil(K/2), N) uint8;
 // lut (16,) f32; out (M, N) f32; part the workspace (unused when splits is
-// 1). Launches on `stream`; returns cudaGetLastError().
+// 1); counters: ceil(N / 128) ints, 0 between launches, which the small-M
+// body (bf16 x, M <= 32) leaves at 0 (unused by the other bodies). Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int dmm(const void* x, const void* codes, const void* lut,
-                   void* out, void* part, int M, int K, int N, int splits,
-                   int dtype, void* stream) {
+                   void* out, void* part, void* counters, int M, int K, int N,
+                   int splits, int dtype, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -598,9 +942,13 @@ extern "C" int dmm(const void* x, const void* codes, const void* lut,
         ? launch_fma<Small, float>(x, codes, lut, out, part, M, K, N, splits, s)
         : launch_fma<Large, float>(x, codes, lut, out, part, M, K, N, splits, s);
   if (dtype == 1) {
+    const bool vec = N % 16 == 0 &&
+                     (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
     if (small)
-      return launch_fma<Small, __nv_bfloat16>(x, codes, lut, out, part, M, K,
-                                              N, splits, s);
+      return vec ? launch_small<true>(x, codes, lut, out, part, counters, M,
+                                      K, N, splits, s)
+                 : launch_small<false>(x, codes, lut, out, part, counters, M,
+                                       K, N, splits, s);
     return K % 8 == 0 && N % 16 == 0
         ? launch_tc<true>(x, codes, lut, out, part, M, K, N, splits, s)
         : launch_tc<false>(x, codes, lut, out, part, M, K, N, splits, s);

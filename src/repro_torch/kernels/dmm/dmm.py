@@ -5,22 +5,29 @@ Takes the reference Pallas kernel's arguments (``repro.kernels.dmm.dmm``).
 On CUDA tensors it launches the kernel on the current stream, or raises:
 there is no fallback. On CPU tensors it runs the plain version
 (``ref.dmm_reference``), which is also what the kernel is held against on
-the card. ``LAUNCHES`` counts kernel launches only.
+the card. ``LAUNCHES`` counts kernel launches only, and ``BODY_LAUNCHES``
+the same launches by the body that ran (``dmm_matmul.small``: bf16 ``x``,
+M <= 32; ``.tc``: bf16 ``x``, M > 32; ``.fma``: f32 ``x``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import merge_counters
 from repro_torch.kernels.dmm.ref import dmm_reference
 
-__all__ = ["dmm_matmul", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["dmm_matmul", "LAUNCHES", "BODY_LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES = {"dmm_matmul": 0}
+_BODIES = ("small", "tc", "fma")  # dmm_body() codes 0, 1, 2
+BODY_LAUNCHES = {f"dmm_matmul.{b}": 0 for b in _BODIES}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["dmm_matmul"] = 0
+    for k in BODY_LAUNCHES:
+        BODY_LAUNCHES[k] = 0
 
 
 def dmm_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
@@ -56,10 +63,12 @@ def dmm_matmul(x: torch.Tensor, codes_packed: torch.Tensor,
     splits = lib.dmm_splits(M, K, N, code)
     ws = torch.empty((splits, M, N) if splits > 1 else (0,),
                      dtype=torch.float32, device=x.device)
+    cnt = merge_counters(x.device, -(-N // 128))
     err = lib.dmm(x.data_ptr(), codes_packed.data_ptr(), lut.data_ptr(),
-                  out.data_ptr(), ws.data_ptr(), M, K, N, splits, code,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), M, K, N,
+                  splits, code, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}.{_BODIES[lib.dmm_body(M, code)]}"] += 1
     return out

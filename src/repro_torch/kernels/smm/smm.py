@@ -8,7 +8,11 @@ slice of the stacked ``(L,)`` leaves passes without a host sync. On CUDA
 tensors it launches the kernel on the current stream, or raises: there is
 no fallback. On CPU tensors it runs the plain version
 (``ref.smm_reference``), which is also what the kernel is held against on
-the card. ``LAUNCHES`` counts kernel launches only.
+the card. ``LAUNCHES`` counts kernel launches only, and ``BODY_LAUNCHES``
+the same launches by the body that ran (``smm_matmul.small``: M <= 32;
+``.tc``: the tensor-core body, uint8 deltas at M > 32; ``.fma``: the
+CUDA-core body for the rest), as the kernel chooses it from the shapes
+and the deltas' type (``smm_body``).
 """
 from __future__ import annotations
 
@@ -16,14 +20,18 @@ import torch
 
 from repro_torch.kernels.smm.ref import smm_reference
 
-__all__ = ["smm_matmul", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["smm_matmul", "LAUNCHES", "BODY_LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES = {"smm_matmul": 0}
+_BODIES = ("small", "tc", "fma")  # smm_body() codes 0, 1, 2
+BODY_LAUNCHES = {f"smm_matmul.{b}": 0 for b in _BODIES}
 _DELTA_CODE = {torch.uint8: 0, torch.int16: 1}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["smm_matmul"] = 0
+    for k in BODY_LAUNCHES:
+        BODY_LAUNCHES[k] = 0
 
 
 def smm_matmul(y: torch.Tensor, first: torch.Tensor, deltas: torch.Tensor,
@@ -60,14 +68,21 @@ def smm_matmul(y: torch.Tensor, first: torch.Tensor, deltas: torch.Tensor,
     if M == 0 or N == 0:
         return out
     from repro_torch.kernels.build import load
-    err = load("smm").smm(
+    lib = load("smm")
+    code = _DELTA_CODE[deltas.dtype]
+    body = _BODIES[lib.smm_body(M, r, nnz, N, code)]
+    err = lib.smm(
         y.data_ptr(), first.data_ptr(), deltas.data_ptr(), vq.data_ptr(),
         scale.data_ptr(), offset.data_ptr(), value_bits.data_ptr(),
-        out.data_ptr(), M, r, nnz, N, _DELTA_CODE[deltas.dtype],
+        out.data_ptr(), M, r, nnz, N, code,
         torch.cuda.current_stream(y.device).cuda_stream)
     if err:
+        what = ("a column tile's streams are staged in shared memory, which "
+                "bounds nnz" if body == "tc" else "rows of y are staged in "
+                "shared memory, which bounds r")
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err} "
-                           f"(M={M}, r={r}, nnz={nnz}, N={N}; rows of y are "
-                           f"staged in shared memory, which bounds r)")
+                           f"(M={M}, r={r}, nnz={nnz}, N={N}, {body} body; "
+                           f"{what})")
     LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}.{body}"] += 1
     return out

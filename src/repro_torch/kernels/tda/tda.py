@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.afu.ref import LUT_SIZE
+from repro_torch.kernels.common import merge_counters
 from repro_torch.kernels.tda.ref import (
     decode_attention_lut,
     decode_attention_reference,
@@ -79,7 +80,6 @@ MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
 SPLIT_BASE = 64   # positions of a decode split, page-aligned, at least
 MAX_SPLITS = 128  # splits of one lane, at most (the kernel's kMaxSplits)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_COUNTERS: dict = {}  # device -> int32 counters the decode kernels reset
 
 
 def decode_split_plan(width: int, page_size: Optional[int] = None,
@@ -118,12 +118,7 @@ def _split_buffers(q, Hkv: int, width: int, split: int):
         return 0, 0, None
     ws = torch.empty(nsplit * B * Hq * (D + 2), dtype=torch.float32,
                      device=q.device)
-    cnt = _COUNTERS.get(q.device)
-    if cnt is None or cnt.numel() < B * Hkv:
-        # zeroed once; each launch's merging blocks set theirs back to 0
-        cnt = torch.zeros(max(B * Hkv, 1024), dtype=torch.int32,
-                          device=q.device)
-        _COUNTERS[q.device] = cnt
+    cnt = merge_counters(q.device, B * Hkv)
     return ws.data_ptr(), cnt.data_ptr(), ws
 
 

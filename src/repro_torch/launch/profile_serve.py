@@ -49,8 +49,9 @@ _CATEGORIES = (
     ("tda_paged_decode", ("pagedaddr",)),
     ("tda_decode", ("laneaddr",)),
     ("tda_mixed", ("mixed_kernel", "mixed_tc_kernel")),
-    ("dmm", ("dmm_kernel", "dmm_tc_kernel", "sum_splits")),
-    ("smm", ("smm_kernel",)),
+    ("dmm", ("dmm_kernel", "dmm_tc_kernel", "dmm_small_kernel",
+             "sum_splits")),
+    ("smm", ("smm_kernel", "smm_small_kernel", "smm_tc_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
     ("gather_scatter_copy", ("index", "gather", "scatter", "copy", "memcpy",
                              "memset", "cat")),

@@ -22,9 +22,11 @@ tp.tf32_off()
 
 ATOL = RTOL = 1e-5
 DMM_CASES = [(32, 64, 48), (64, 128, 96), (100, 60, 36), (32, 33, 16),
-             (16, 256, 128), (128, 128, 128), (8, 64, 40)]
+             (16, 256, 128), (128, 128, 128), (8, 64, 40), (1, 129, 20),
+             (33, 97, 24)]
 SMM_CASES = [(32, 64, 48, 8), (64, 128, 100, 16), (16, 32, 32, 2),
-             (48, 96, 64, 24), (8, 1024, 40, 2)]
+             (48, 96, 64, 24), (8, 1024, 40, 2), (1, 64, 24, 8),
+             (33, 130, 20, 3), (40, 100, 36, 30)]
 
 
 def _ws(K, N, seed):
@@ -274,6 +276,107 @@ def test_cuda_dmm_tensor_core_tile_edges():
         torch.cuda.synchronize()
         limit = 1e-3 * max(1.0, ref.abs().max().item())
         assert (got - ref).abs().max().item() <= limit, (M, K, N)
+
+
+# Edges of SMM's two redesigned bodies (as chip_smoke.py::SMM_TILE_EDGES):
+# (M, r, N, nnz, kind). M 1-32 runs the small-M gather body (any delta
+# type), M > 32 the tensor-core body for uint8 deltas and the first
+# version's body for int16; N 1000 (ragged: element loads), r 650 (no
+# multiple of the 64-row K tile), nnz 1 (no deltas), 2, 80 and 400, the
+# full widths (N 27648 at M 8; r 3200, N 5120 at M 2048); "dup": uint8
+# deltas with zeros (repeated indices), "neg": int16 deltas, some negative.
+SMM_TILE_EDGES = [(1, 640, 1024, 80, "sorted"), (7, 3200, 5120, 400, "sorted"),
+                  (8, 3200, 27648, 400, "sorted"), (31, 650, 1000, 2, "sorted"),
+                  (32, 3200, 1024, 1, "sorted"), (8, 640, 1024, 80, "dup"),
+                  (8, 640, 1000, 80, "neg"), (33, 640, 5120, 80, "sorted"),
+                  (130, 3200, 1000, 400, "sorted"), (130, 640, 1024, 80, "dup"),
+                  (130, 640, 1024, 80, "neg"),
+                  (2048, 650, 1024, 2, "sorted"),
+                  (2048, 3200, 5120, 400, "sorted")]
+# Edges of DMM's small-M body (bf16 x, M <= 32): (M, K, N); odd K, K of
+# ffn_down (27648), N of the k/v (640) and other (3200) families, ragged N.
+DMM_SMALL_EDGES = [(1, 27648, 3200), (7, 5121, 640), (8, 27648, 640),
+                   (31, 333, 3200), (32, 27648, 3200), (8, 4000, 200),
+                   (16, 127, 48)]
+
+
+def smm_edge_streams(rng, r, N, nnz, kind):
+    """(first, deltas, vq) numpy streams: "sorted" and "dup" uint8 deltas
+    (never negative; "dup" a third of them 0), indices from a first index
+    of -2 up and running past r; "neg" int16 deltas, a tenth of them
+    negative."""
+    first = rng.integers(-2, max(1, r // 4), size=N).astype(np.int32)
+    hi = max(1, min(255, 2 * r // max(nnz, 1)))
+    d = rng.integers(0, hi + 1, size=(max(nnz - 1, 0), N))
+    if kind == "dup":
+        d[rng.random(d.shape) < 1 / 3] = 0
+    if kind == "neg":
+        d[rng.random(d.shape) < 0.1] -= 20
+    vq = rng.integers(0, 64, size=(nnz, N)).astype(np.uint8)
+    return first, d.astype(np.int16 if kind == "neg" else np.uint8), vq
+
+
+def _smm_body(M, kind):
+    return "small" if M <= 32 else "fma" if kind == "neg" else "tc"
+
+
+@pytest.mark.gpu
+def test_cuda_smm_body_edges():
+    """SMM's bodies at SMM_TILE_EDGES against the plain version on the
+    card: max abs diff <= 1e-3 x max(1, max |plain|), the launch counted
+    against the body the shapes select, and a second launch on the same
+    inputs bit-identical (the result does not depend on scheduling)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.smm import smm
+    from repro_torch.kernels.smm.ops import compressed_matmul
+    dev = torch.device("cuda")
+    for M, r, N, nnz, kind in SMM_TILE_EDGES:
+        rng = np.random.default_rng(M + r + N + nnz)
+        st = [tp.t(a, dev) for a in smm_edge_streams(rng, r, N, nnz, kind)]
+        y = tp.t(rng.standard_normal((M, r)).astype(np.float32), dev)
+        args = (y, *st, 1.3, -0.6)
+        key = f"smm_matmul.{_smm_body(M, kind)}"
+        n0 = smm.BODY_LAUNCHES[key]
+        got = compressed_matmul(*args)
+        again = compressed_matmul(*args)
+        assert smm.BODY_LAUNCHES[key] == n0 + 2, (M, r, N, nnz, kind)
+        ref = compressed_matmul(*args, use_kernel=False)
+        torch.cuda.synchronize()
+        limit = 1e-3 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= limit, (M, r, N, nnz, kind)
+        assert torch.equal(got, again), (M, r, N, nnz, kind)
+
+
+@pytest.mark.gpu
+def test_cuda_dmm_small_body_edges():
+    """DMM's small-M body (bf16 x) at DMM_SMALL_EDGES against its plain
+    version on the card: max abs diff <= 1e-3 x max(1, max |plain|), one
+    launch of the small body per call, and a second launch bit-identical
+    (the K splits merge in a fixed order and the counters reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.core.factorized import pack_nibbles
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.dmm.ops import lut_matmul
+    dev = torch.device("cuda")
+    for M, K, N in DMM_SMALL_EDGES:
+        rng = np.random.default_rng(M + K + N)
+        codes = tp.t(rng.integers(0, 16, size=(K, N)).astype(np.uint8), dev)
+        lut = tp.t((np.sort(rng.standard_normal(16)) / np.sqrt(K)).astype(
+            np.float32), dev)
+        x = tp.t(rng.standard_normal((M, K)).astype(np.float32), dev,
+                 torch.bfloat16)
+        packed = pack_nibbles(codes)
+        n0 = dmm.BODY_LAUNCHES["dmm_matmul.small"]
+        got = lut_matmul(x, packed, lut)
+        again = lut_matmul(x, packed, lut)
+        assert dmm.BODY_LAUNCHES["dmm_matmul.small"] == n0 + 2
+        ref = lut_matmul(x, packed, lut, use_kernel=False)
+        torch.cuda.synchronize()
+        limit = 1e-3 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= limit, (M, K, N)
+        assert torch.equal(got, again), (M, K, N)
 
 
 @pytest.mark.gpu
