@@ -29,7 +29,14 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               128), and the tile edges of the tensor-core mixed body
               (``kernels_tile_edges``: G 1, 2, 5, 8; D 16, 20, 72, 128;
               pages of 8, 16, 128; S G no multiple of 64; n_new 0, 1, S;
-              windows, short rings; bf16 and int8, exact and LUT); max abs
+              windows, short rings; bf16 and int8, exact and LUT), and
+              block tables as prefix sharing leaves them
+              (``kernels_aliased_pages``: three slots mapping the same
+              physical prefix pages, one with a copy-on-write private tail
+              page, decode bounds past, inside and on the shared pages, the
+              mixed step's first chunks starting at the shared length; paged
+              decode fp and int8, mixed fp; f32 and bf16 at d_head 16 and
+              8-token pages, bf16 at full width); max abs
               diff on the f32 outputs of attended decode rows
               and live mixed columns <= 1e-3 with the exact exp and <= 1e-5
               with the LUT exp, exact zeros from the kernel everywhere else.
@@ -69,12 +76,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               the densified matrix in f32 (TF32 off; DMM and SMM also time
               the bf16 product on the bf16-rounded matrix,
               ``library_bf16_ms``, a single-pass, lower-precision product);
-              a yardstick the port never calls) and its bound; the eight
-              decode rows, the DMM and SMM rows at both M, and their
-              yardsticks also by their kernels' device time alone
-              (``device_ms``, ``library_device_ms``: ``torch.profiler``
-              intervals, without the host dispatch that the events of
-              ``ms`` include).
+              a yardstick the port never calls) and its bound; every row
+              (the TDA, DMM, SMM and AFU kernels) and its yardstick also by
+              the kernels' device time alone (``device_ms``,
+              ``library_device_ms``: ``torch.profiler`` intervals, without
+              the host dispatch that the events of ``ms`` include).
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -91,7 +97,13 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               tokens as each other and as the plain path; and the compressed
               smoke Engine on the DMM/SMM kernels gives the tokens of the
               same Engine over the explicitly decompressed factors (plain
-              ``(x @ ws) @ wd``).
+              ``(x @ ws) @ wd``). Prefix sharing: system-prompt traffic
+              (8 requests behind one 17-token prefix, 8-token pages) with
+              ``prefix_share=True`` gives the tokens of ``False`` on the
+              mixed engine (prefill budgets None and 4) and the serialized
+              paged engine, with hits; preemption: a pool of 7 pages that
+              preempts gives the tokens of an uncut pool (mixed and
+              serialized paged).
 4. serve    — the main path at full width: qwen2.5-32b (d_model 5120, 40/8
               heads, d_head 128, d_ff 27648, vocab 152064; depth cut to 8
               of 64 layers), random weights from torch.Generator seed 0,
@@ -103,6 +115,20 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               ``max_new_tokens`` valid tokens, and each TDA kernel must
               launch exactly once per layer per step of its kind (zero times
               in engines that do not run it).
+   shared_serve — system-prompt traffic at full width on the same
+              params (``profile_serve.shared_workload``: 16 requests, one
+              256-token system prompt — two full 128-token pages — plus a
+              suffix uniform in [16, 240]; 8 up front, 8 at ticks 4, 7, ...,
+              25; token ids below the smoke vocabulary, 256) in three runs
+              of the mixed engine: the default ``EngineConfig`` (sharing
+              on), sharing over a pool cut to ``SHARED_POOL_FRAC`` (it
+              preempts), and sharing off. Each must end 16/16 ``ok`` with
+              the pool's invariants and the launch counts above; both
+              sharing runs must hit, the cut run preempt, and every run's
+              host counters (``HOST_COUNTERS``) must equal the port's on the
+              CPU for the same workload on the 2-layer float32 smoke config.
+              Reports tok/s, TTFT, K/V token writes against the cold run and
+              the requests whose bf16 tokens equal the cold run's.
 5. compressed — the same model factorized (T-REX defaults: rank 0.625,
               nnz 0.125 of the rank), its f32 weights drawn on the card,
               W_D projected and the whole tree compressed on the card, then
@@ -388,6 +414,38 @@ def mixed_tile_cases(np):
             for window in (None, 7):
                 yield ((q, k, v, kr, vr, rows, bt),
                        dict(ring=ring, window=window))
+
+
+def aliased_cases(np, Hq, Hkv, D, ps, S):
+    """Block tables as prefix sharing leaves them: slots 0, 1 and 2 map the
+    same two physical prefix pages; slot 2's second page is a
+    copy-on-write private copy (the shared page's first half, its own
+    tokens after it); slot 3 maps the shared pages alone (a duplicate
+    prompt over its prefix). Decode bounds end past, inside and on the
+    shared pages; the mixed rows start their first chunk at the shared
+    length (``ci = n_shared > 0``): a full chunk, a short chunk, a chunk
+    from the middle of the copied page, and a decode row."""
+    rng = np.random.default_rng(90 + ps)
+    n, P = 4, 12
+    k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    shared, cow = [7, 2], 9
+    half = ps // 2
+    k[cow, :half], v[cow, :half] = k[2, :half], v[2, :half]
+    bt = np.full((4, n), P, np.int32)
+    bt[0, :3] = shared + [5]
+    bt[1, :3] = shared + [0]
+    bt[2, :3] = [7, cow, 11]
+    bt[3, :2] = shared
+    his = [2 * ps + 3, 2 * ps + 5, ps + half + 2, 2 * ps - 1]
+    bounds = np.stack([np.zeros(4, np.int32), np.array(his, np.int32)], 1)
+    q1 = rng.standard_normal((4, Hq, D)).astype(np.float32)
+    rows = np.array([(2 * ps, S), (2 * ps, 5), (ps + half, S),
+                     (2 * ps - 1, 1)], np.int32)
+    q = rng.standard_normal((4, S, Hq, D)).astype(np.float32)
+    kr = rng.standard_normal((4, S, Hkv, D)).astype(np.float32)
+    vr = rng.standard_normal((4, S, Hkv, D)).astype(np.float32)
+    return (q1, k, v, bounds, bt), (q, k, v, kr, vr, rows, bt)
 
 
 def full_cases(np, cfg, num_slots, cache_len, page_size, chunk):
@@ -750,6 +808,46 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     line("kernels_tile_edges", cases=n_edge, max_abs_err=edge_err,
          limits={"exact": TOL, "lut": LUT_TOL})
 
+    # Aliased pages (prefix sharing): slots mapping the same physical
+    # pages, a copy-on-write private tail, chunks starting at n_shared.
+    alias_err, n_alias = {}, 0
+    Hq, Hkv, D = full_cfg.n_heads, full_cfg.kv_heads, full_cfg.head_dim
+    for (hq, hkv, d, ps, S), dts in (((4, 2, 16, 8, 8),
+                                      (torch.float32, torch.bfloat16)),
+                                     ((Hq, Hkv, D, 128, engine_kw["max_len"]),
+                                      (torch.bfloat16,))):
+        dec, mix = aliased_cases(np, hq, hkv, d, ps, S)
+        for dt in dts:
+            q1, k, v, bounds, bt = [T(a, dt) for a in dec]
+            live = bounds[:, 1] > bounds[:, 0]
+            kq, ks = kv_quantize(T(dec[1]))
+            vq, vs = kv_quantize(T(dec[2]))
+            for name, pool in (("tda_paged_decode_attention", (k, v)),
+                               ("tda_paged_decode_attention.int8",
+                                (kq, vq, ks, vs))):
+                sc = pool[2:] or (None, None)
+                got = tda.tda_paged_decode_attention(q1, *pool[:2], bounds,
+                                                     bt, *sc)
+                plain = plain_decode(q1, *pool[:2], bounds, bt, *sc)
+                alias_err[name] = max(alias_err.get(name, 0.0),
+                                      diff(got, plain, live))
+                check(name, got, plain, live)
+                n_alias += 1
+            q, k, v, kr, vr, bnd, bt = [T(a, dt) for a in mix]
+            mlive = torch.arange(q.shape[1], device=dev)[None] < bnd[:, 1:]
+            ring = bt.shape[1] * ps
+            got = tda.tda_mixed_attention(q, k, v, kr, vr, bnd, bt,
+                                          ring=ring)
+            plain = plain_mixed(q, k, v, kr, vr, bnd, bt, ring=ring)
+            alias_err["tda_mixed_attention"] = max(
+                alias_err.get("tda_mixed_attention", 0.0),
+                diff(got, plain, mlive))
+            check("tda_mixed_attention", got, plain, mlive)
+            n_alias += 1
+    torch.cuda.synchronize()
+    line("kernels_aliased_pages", cases=n_alias, max_abs_err=alias_err,
+         limit=TOL)
+
     # Full-width shapes of phase 4, bf16 as the main path runs them.
     bf = torch.bfloat16
     cache_len = engine_kw["max_len"] * 2 + engine_kw["max_new_tokens"]
@@ -953,7 +1051,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                  "bound_bytes": nbytes, "live_query_key_pairs_per_head": keys,
                  "dtype": ("int8 pool + f32 scales, bf16 q and chunk"
                            if quant else "bfloat16")
-                 + (", LUT exp" if lut else "")}, launches, plain_reps=5)
+                 + (", LUT exp" if lut else "")}, launches, plain_reps=5,
+                device=True)
         del kl, vl, keys_all, vals_all
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
@@ -1052,11 +1151,15 @@ def phase_afu(torch):
                 a[0].float() + a[1].float(), (a[0].shape[1],), a[2], a[3],
                 1e-6))
         bms, by = bound(nbytes, ops, 4)
-        times[f"{kind} {R}x{C}"] = {
+        key = f"{kind} {R}x{C}"
+        times[key] = {
             "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, 5),
             "library_ms": time_ms(torch, lib), "bound_ms": bms,
             "bound_by": by,
             "dtype": "float32" if kind == "softmax" else "bfloat16"}
+        if key in ("softmax 256x512", "ln %dx%d" % LN_ROW):  # the rows
+            times[key].update(device_ms=device_ms(torch, fn),
+                              library_device_ms=device_ms(torch, lib))
     line("afu", seconds=round(time.perf_counter() - t0, 3),
          max_abs_err=err, err_vs_limit=rel,
          limits={"softmax_rtol": SOFTMAX_RTOL, "layernorm": LN_TOL},
@@ -1072,7 +1175,9 @@ def phase_afu(torch):
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/afu.cu",
                     "replaces": repl, "max_abs_err": err[name],
-                    **{k: times[key][k] for k in keys}, "library": lib,
+                    **{k: times[key][k] for k in keys + (
+                        "device_ms", "library_device_ms")},
+                    "library": lib,
                     "shape": key.split()[1],
                     "other_shapes": {k: {kk: v[kk] for kk in keys}
                                      for k, v in times.items()
@@ -1414,8 +1519,68 @@ def phase_tokens(torch):
         if got != want:
             fail(f"compressed tokens differ, DMM/SMM kernels vs decompressed "
                  f"factors (budget {budget}): {got} vs {want}")
+
+    # Prefix sharing and preemption on the kernels: system-prompt traffic
+    # (8 requests behind one 17-token prefix, 3 slots, 8-token pages) with
+    # sharing on gives the tokens of sharing off and hits; a pool cut to 7
+    # pages that preempts gives the tokens of an uncut pool.
+    def serve_smoke(prompts, budgets, ticks, **kw):
+        eng = Engine(model, params, config=EngineConfig(
+            max_len=16, max_prompt_len=40, page_size=8, **kw))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=b)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        done = eng.run(arrivals=list(zip(ticks, reqs)))
+        if sorted(r.rid for r in done) != list(range(len(reqs))) or \
+                any(r.status != "ok" for r in done):
+            fail(f"a sharing/preemption smoke run failed requests ({kw})")
+        eng.slots.pool.check_invariants()
+        return {r.rid: list(r.output) for r in done}, eng.decode_stats
+
+    srng = np.random.default_rng(6)
+    pre = srng.integers(0, cfg.vocab_size, size=17).astype(np.int32)
+    sys_prompts = [np.concatenate([pre, srng.integers(
+        0, cfg.vocab_size, size=n)]).astype(np.int32)
+        for n in (3, 9, 1, 14, 6, 2, 11, 5)]
+    sys_args = (sys_prompts, [4 + i % 3 for i in range(8)],
+                [1, 1, 1, 1, 2, 4, 6, 9])
+    sharing = {}
+    for label, kw in (("mixed", dict(mixed=True)),
+                      ("mixed_budget_4", dict(mixed=True, prefill_budget=4)),
+                      ("serialized_paged", dict(mixed=False))):
+        tda.reset_launch_counts()
+        on, st_on = serve_smoke(*sys_args, num_slots=3, max_new_tokens=6,
+                                **kw)
+        used = [k for k in ("tda_paged_decode_attention",
+                            "tda_mixed_attention") if tda.LAUNCHES[k]]
+        if used != (["tda_paged_decode_attention", "tda_mixed_attention"]
+                    if kw["mixed"] else ["tda_paged_decode_attention"]):
+            fail(f"sharing run {label} launched {tda.LAUNCHES}")
+        off, _ = serve_smoke(*sys_args, num_slots=3, max_new_tokens=6,
+                             prefix_share=False, **kw)
+        if on != off or not st_on["prefix_hit_ratio"] > 0:
+            fail(f"sharing {label}: tokens differ from sharing off ({on} vs "
+                 f"{off}) or no hit ({st_on['prefix_hit_ratio']})")
+        sharing[label] = {"prefix_hit_ratio": st_on["prefix_hit_ratio"],
+                          "pages_shared": st_on["pages_shared"]}
+    prng = np.random.default_rng(5)
+    tight = [prng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+             for n in (30, 30, 30, 12)]
+    preempt = {}
+    for label, kw in (("mixed", dict(mixed=True)),
+                      ("serialized_paged", dict(mixed=False))):
+        runs_ = [serve_smoke(tight, [8] * 4, [1] * 4, num_slots=3,
+                             max_new_tokens=8, pool_frac=frac, **kw)
+                 for frac in (0.34, 1.0)]
+        n_pre = runs_[0][1]["preemptions"]
+        if runs_[0][0] != runs_[1][0] or not n_pre > 0 \
+                or runs_[1][1]["preemptions"]:
+            fail(f"preemption {label}: {n_pre} preemptions, tokens "
+                 f"{runs_[0][0]} vs uncut {runs_[1][0]}")
+        preempt[label] = n_pre
     line("tokens", seconds=round(time.perf_counter() - t0, 3),
          float32_smoke_identical=True, prefill_budgets=checked, tokens=n_tok,
+         sharing_identical_to_cold=sharing,
+         preemption_identical_to_uncut_pool={"preemptions": preempt},
          serialized_identical={
              "contiguous_and_paged_vs_mixed_and_plain": True,
              "int8_contiguous_vs_paged_vs_plain": True},
@@ -1424,15 +1589,17 @@ def phase_tokens(torch):
          compressed_tokens=sum(len(v) for v in got.values()))
 
 
-def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
-    """Serve ``profile_serve.workload`` through ``Engine.run`` after one
-    warm-up request, with every launch counter set to 0 just before the
-    run and read just after. Checks every request ends ``ok`` with
-    ``max_new_tokens`` valid tokens and each TDA kernel launches once per
-    layer per step of its kind: the mixed engine's paged decode and mixed
-    kernels, the serialized engine's contiguous or paged decode kernel
-    (every one of its steps is a decode step), and no other. Returns
-    (summary dict, launches)."""
+def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
+    """Serve ``traffic(max_new_tokens)`` (default: ``profile_serve.
+    workload``) through ``Engine.run`` after one warm-up request, with
+    every launch counter set to 0 just before the run and read just after
+    (``prefix_share=False`` unless ``cfg_kw`` says otherwise). Checks every
+    request ends ``ok`` with ``max_new_tokens`` valid tokens, the page
+    pool's invariants, and that each TDA kernel launches once per layer per
+    step of its kind: the mixed engine's paged decode and mixed kernels,
+    the serialized engine's contiguous or paged decode kernel (every one
+    of its steps is a decode step), and no other. Returns (summary dict,
+    launches, {rid: output tokens})."""
     from repro_torch.kernels.dmm import dmm
     from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
@@ -1440,12 +1607,14 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
     from repro_torch.serve import Engine, EngineConfig
     cfg = model.cfg
     t0 = time.perf_counter()
-    eng = Engine(model, params, config=EngineConfig(prefix_share=False,
-                                                    **cfg_kw, **engine_kw))
+    eng = Engine(model, params, config=EngineConfig(
+        **{"prefix_share": False, **cfg_kw}, **engine_kw))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    warm, up_front, arrivals, lengths = workload(
-        cfg.vocab_size, engine_kw["max_new_tokens"])
+    if traffic is None:
+        def traffic(n):
+            return workload(cfg.vocab_size, n)
+    warm, up_front, arrivals, lengths = traffic(engine_kw["max_new_tokens"])
     eng.submit(warm)  # library initialisation, first launches
     eng.run()
     for r in up_front:
@@ -1454,6 +1623,7 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
     torch.cuda.synchronize()
     for mod in (tda, dmm, smm):
         mod.reset_launch_counts()
+    copied0 = eng.slots.pages_copied
     t0 = time.perf_counter()
     done = eng.run(arrivals=arrivals)
     torch.cuda.synchronize()
@@ -1471,6 +1641,8 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
            or not all(0 <= t < cfg.vocab_size for t in r.output)
            for r in done):
         fail("a request's output has the wrong length or an invalid token")
+    if eng.paged:
+        eng.slots.pool.check_invariants()
     L = cfg.n_layers
     n_dec = st["steps"] - st["mixed_steps"]
     want = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
@@ -1510,12 +1682,22 @@ def serve_run(torch, np, model, params, engine_kw, **cfg_kw):
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         slot_utilization=st["slot_utilization"],
         kv_memory_ratio=st["kv_memory_ratio"],
+        kv_pages_total=st["kv_pages_total"],
+        prefix_share=eng.prefix_share,
+        prefix_hit_ratio=st["prefix_hit_ratio"],
+        pages_shared=st["pages_shared"], preemptions=st["preemptions"],
+        # K/V token writes into the pool: the prompt tokens computed (the
+        # mixed engine's chunk tokens; shared prefixes are not), one per
+        # decoded token, and a page per copy-on-write copy
+        kv_token_writes=(st["prefill_chunk_tokens"] + st["decoded_tokens"]
+                         + (eng.page_size or 0)
+                         * (eng.slots.pages_copied - copied0)),
         kv_blocks_visited=st["kv_blocks_visited"],
         kv_bytes_per_token=st["kv_bytes_per_token"],
         weight_bytes_per_step=st["weight_bytes_per_step"],
         bytes_per_token=st["bytes_per_token"], launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return summary, launches
+    return summary, launches, {r.rid: list(r.output) for r in done}
 
 
 def phase_serve(torch, np, full_cfg, engine_kw):
@@ -1528,7 +1710,7 @@ def phase_serve(torch, np, full_cfg, engine_kw):
     model = Model(full_cfg)
     params = model.init(seed=0)
     init_s = time.perf_counter() - t0
-    summary, launches = serve_run(torch, np, model, params, engine_kw)
+    summary, launches, _ = serve_run(torch, np, model, params, engine_kw)
     line("serve", seconds=round(time.perf_counter() - t0, 3),
          init_s=init_s, **summary)
     runs = {"mixed": launches}
@@ -1542,7 +1724,8 @@ def phase_serve(torch, np, full_cfg, engine_kw):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        ser, runs[label] = serve_run(torch, np, m, params, engine_kw, **kw)
+        ser, runs[label], _ = serve_run(torch, np, m, params, engine_kw,
+                                        **kw)
         if ser["engine"] != "serialized":
             fail(f"{label}: the {ser['engine']} engine served it")
         kv_bytes[label] = (ser["kv_bytes_per_token"],
@@ -1563,8 +1746,93 @@ def phase_serve(torch, np, full_cfg, engine_kw):
                  f"{(D + 4) / (2 * D)}")
     line("serve_serialized_kv_bytes", ratio_vs_contiguous_bf16=ratios,
          expected=(D + 4) / (2 * D))
-    del params
-    return summary, runs
+    return summary, runs, model, params
+
+
+# The shared_serve phase's three runs (``profile_serve.shared_workload``):
+# the default EngineConfig, sharing over a pool cut to SHARED_POOL_FRAC of
+# the lanes (16 of 40 pages: it preempts), and sharing off.
+SHARED_POOL_FRAC = 0.4
+SHARED_RUNS = {"default": {}, "cut_pool": {"pool_frac": SHARED_POOL_FRAC},
+               "cold": {"prefix_share": False}}
+HOST_COUNTERS = ("prefix_hit_ratio", "pages_shared", "preemptions", "steps",
+                 "mixed_steps")
+
+
+def phase_shared_serve(torch, np, model, params, engine_kw):
+    """System-prompt traffic at full width on the serve phase's dense
+    params (``profile_serve.shared_workload``: 16 requests behind one
+    256-token system prompt, token ids below the smoke vocabulary), in the
+    three SHARED_RUNS through the mixed engine. Each run must end 16/16
+    ``ok`` with the pool's invariants and the launch counts of
+    ``serve_run``; both sharing runs must hit (``prefix_hit_ratio`` and
+    ``pages_shared`` > 0), the cut pool must preempt, and the host
+    counters (HOST_COUNTERS) of every run must equal those of the same
+    workload served by the port on the CPU with the 2-layer float32 smoke
+    config: they follow lengths and prompt tokens only. Reports tok/s,
+    TTFT, K/V token writes against the cold run, and how many requests'
+    bf16 tokens equal the cold run's (not a gate: bf16 near-ties)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import shared_workload
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig
+    t0 = time.perf_counter()
+    n_new = engine_kw["max_new_tokens"]
+    vocab = 256  # the smoke vocabulary: the CPU run serves the same prompts
+
+    def traffic(n):
+        return shared_workload(vocab, n)
+
+    scfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
+    if scfg.vocab_size != vocab:
+        fail(f"smoke vocabulary {scfg.vocab_size} != {vocab}")
+    smodel = Model(scfg, device="cpu")
+    sparams = smodel.init(seed=0)
+    cpu = {}
+    for label, kw in SHARED_RUNS.items():
+        eng = Engine(smodel, sparams, config=EngineConfig(
+            page_size=128, **kw, **engine_kw))
+        warm, up_front, arrivals, _ = traffic(n_new)
+        eng.submit(warm)
+        eng.run()
+        for r in up_front:
+            eng.submit(r)
+        done = eng.run(arrivals=arrivals)
+        if len(done) != 16 or any(r.status != "ok" for r in done):
+            fail(f"shared_serve {label} on the CPU: not 16/16 ok")
+        eng.slots.pool.check_invariants()
+        cpu[label] = {k: eng.decode_stats[k] for k in HOST_COUNTERS}
+    cpu_s = time.perf_counter() - t0
+    out, outputs = {}, {}
+    for label, kw in SHARED_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        summ, _, outputs[label] = serve_run(
+            torch, np, model, params, engine_kw, traffic=traffic,
+            page_size=128, **{"prefix_share": True, **kw})
+        got = {k: summ[k] for k in HOST_COUNTERS}
+        if got != cpu[label]:
+            fail(f"shared_serve {label}: host counters {got} != the CPU "
+                 f"smoke run's {cpu[label]}")
+        if label != "cold" and not (summ["prefix_hit_ratio"] > 0
+                                    and summ["pages_shared"] > 0):
+            fail(f"shared_serve {label}: no prefix hit ({got})")
+        if label == "cut_pool" and not summ["preemptions"] > 0:
+            fail(f"shared_serve {label}: the cut pool did not preempt")
+        out[label] = summ
+    for label, summ in out.items():
+        same = sum(outputs[label][rid] == outputs["cold"][rid]
+                   for rid in outputs["cold"])
+        line("shared_serve", label=label, engine_config=SHARED_RUNS[label],
+             bf16_tokens_equal_cold=f"{same}/16",
+             kv_token_writes_vs_cold=summ["kv_token_writes"]
+             / out["cold"]["kv_token_writes"],
+             host_counters_equal_cpu_smoke=True,
+             **{k: v for k, v in summ.items() if k != "launches"})
+    line("shared_serve_summary", seconds=round(time.perf_counter() - t0, 3),
+         cpu_smoke_s=cpu_s, cpu_smoke_counters=cpu,
+         pool_frac_cut=SHARED_POOL_FRAC)
 
 
 def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
@@ -1592,7 +1860,7 @@ def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
     compress_s = time.perf_counter() - t1
     del params  # the f32 factors; cparams shares only embeddings and head
     gc.collect()
-    summary, launches = serve_run(
+    summary, launches, _ = serve_run(
         torch, np, mc, cparams, engine_kw,
         weight_stream_bits=stats["weight_stream_bits"])
     del cparams
@@ -1653,8 +1921,11 @@ def main():
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
     table_launches = timed("kernel_table", phase_kernel_table, torch)
     timed("tokens", phase_tokens, torch)
-    dense, runs = timed("serve", phase_serve, torch, np, full_cfg,
-                        engine_kw)
+    dense, runs, model, params = timed("serve", phase_serve, torch, np,
+                                       full_cfg, engine_kw)
+    timed("shared_serve", phase_shared_serve, torch, np, model, params,
+          engine_kw)
+    del model, params
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
     # Each kernel's launches come from the run that drives it, named in the

@@ -2,7 +2,7 @@
 ``chip_smoke.py``'s serve phase under ``torch.profiler``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
-      [--serialized] [--contiguous] [--kv-quant]
+      [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -22,8 +22,10 @@ step ends in a host sync, so its kernels finish inside its range. With
 from the compressed streams (weights projected and compressed on the card
 first). ``--serialized``, ``--contiguous`` and ``--kv-quant`` select the
 phase-serialized engine, contiguous lanes and int8 K/V lanes (the last two
-imply the serialized engine), as ``launch/serve.py`` does. Needs a CUDA
-device.
+imply the serialized engine), as ``launch/serve.py`` does. ``--shared``
+profiles :func:`shared_workload` (system-prompt traffic) through the
+default ``EngineConfig`` (prefix sharing on), ``--pool-frac`` cutting the
+page pool as ``chip_smoke.py``'s shared phase does. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,12 +38,14 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ENGINE_KW", "serve_config", "compressed_config", "workload",
-           "main"]
+__all__ = ["ENGINE_KW", "SYSTEM_PROMPT", "serve_config", "compressed_config",
+           "workload", "shared_workload", "main"]
 
-# The full-width serve's engine settings (besides ``prefix_share=False``):
-# paged lanes of 128-token pages and mixed steps of chunk width 256.
+# The full-width serve's engine settings: paged lanes of 128-token pages
+# and mixed steps of chunk width 256 (``workload`` serves them with
+# ``prefix_share=False``, ``shared_workload`` with the default sharing).
 ENGINE_KW = dict(max_len=256, max_new_tokens=32, num_slots=8)
+SYSTEM_PROMPT = 256  # tokens: two full 128-token pages
 
 _KINDS = {"mixed": "_run_mixed", "decode": "_run_decode",
           "prefill": "_prefill_admission"}
@@ -89,6 +93,27 @@ def workload(vocab: int, max_new: int, seed: int = 0):
     return warm, reqs[:8], arrivals, lengths
 
 
+def shared_workload(vocab: int, max_new: int, seed: int = 0):
+    """System-prompt traffic: a warm-up request, then 16 greedy requests,
+    each one :data:`SYSTEM_PROMPT`-token system prompt (the same for all)
+    followed by its own suffix of a length uniform in [16, 240] — 8
+    submitted up front, 8 arriving at ticks 4, 7, ..., 25, as in
+    :func:`workload`. Token ids are drawn below ``vocab`` (pass the smoke
+    vocabulary, 256, to serve the same prompts on the CPU smoke config).
+    Returns ``(warmup, up_front, arrivals, prompt_lengths)``."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    warm = Request(rid=-1, prompt=rng.integers(0, vocab, size=40)
+                   .astype(np.int32), max_new_tokens=4)
+    system = rng.integers(0, vocab, size=SYSTEM_PROMPT).astype(np.int32)
+    suffixes = rng.integers(16, 241, size=16)
+    reqs = [Request(rid=i, prompt=np.concatenate(
+        [system, rng.integers(0, vocab, size=int(n)).astype(np.int32)]),
+        max_new_tokens=max_new) for i, n in enumerate(suffixes)]
+    arrivals = [(4 + 3 * i, r) for i, r in enumerate(reqs[8:])]
+    return warm, reqs[:8], arrivals, suffixes + SYSTEM_PROMPT
+
+
 def _category(name: str) -> str:
     low = name.lower()
     for cat, keys in _CATEGORIES:
@@ -119,6 +144,8 @@ def main(argv=None):
     ap.add_argument("--serialized", action="store_true")
     ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--shared", action="store_true")
+    ap.add_argument("--pool-frac", type=float, default=1.0)
     args = ap.parse_args(argv)
     cfg = compressed_config() if args.compressed else serve_config()
     if args.kv_quant:
@@ -132,22 +159,31 @@ def main(argv=None):
             project_wd_leaves(params, cfg.factorization))
         wsb = stats["weight_stream_bits"]
     eng = Engine(model, params, config=EngineConfig(
-        prefix_share=False, weight_stream_bits=wsb,
-        paged=not args.contiguous,
+        prefix_share=args.shared, pool_frac=args.pool_frac,
+        weight_stream_bits=wsb, paged=not args.contiguous,
         mixed=False if args.serialized else None, **kw))
     del params
-    warm, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+
+    def traffic():
+        if args.shared:  # token ids of the smoke vocabulary, as chip_smoke
+            return shared_workload(256, kw["max_new_tokens"])
+        return workload(cfg.vocab_size, kw["max_new_tokens"])
+
+    warm, up_front, arrivals, _ = traffic()
     eng.submit(warm)
     eng.run()
     # One run without the profiler: its host step times are the baseline
-    # (the profiler's own host overhead inflates the profiled ones).
-    _, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+    # (the profiler's own host overhead inflates the profiled ones). With
+    # sharing, each run starts from a cold prefix cache.
+    _, up_front, arrivals, _ = traffic()
     for r in up_front:
         eng.submit(r)
     eng.run(arrivals=arrivals)
     plain_ms = {k: float(np.mean(v)) if v else 0.0
                 for k, v in eng.decode_stats["step_ms"].items()}
-    _, up_front, arrivals, _ = workload(cfg.vocab_size, kw["max_new_tokens"])
+    if args.shared:
+        eng.slots.pool.drop_prefix_cache()
+    _, up_front, arrivals, _ = traffic()
 
     for kind, attr in _KINDS.items():
         fn = getattr(eng, attr)
@@ -199,6 +235,10 @@ def main(argv=None):
            "engine": "mixed" if eng.mixed else "serialized",
            "lanes": "paged" if eng.paged else "contiguous",
            "kv_quant": cfg.kv_quant,
+           "shared": args.shared, "pool_frac": args.pool_frac,
+           "prefix_hit_ratio": eng.decode_stats["prefix_hit_ratio"],
+           "pages_shared": eng.decode_stats["pages_shared"],
+           "preemptions": eng.decode_stats["preemptions"],
            "device": torch.cuda.get_device_name(0),
            "requests": len(done), "wall_s": wall,
            "kernel_events": len(kernels)}

@@ -64,7 +64,7 @@ def main(argv=None):
     params = model.init(seed=0)
     eng = Engine(model, params, config=EngineConfig(
         max_len=args.max_len, max_new_tokens=args.max_new,
-        prefix_share=False, paged=not args.contiguous,
+        paged=not args.contiguous,
         mixed=False if args.serialized else None))
     rng = np.random.default_rng(0)
     for rid, n in enumerate(request_lengths(args.requests, args.max_len)):
@@ -83,7 +83,8 @@ def main(argv=None):
           f"{len(eng.stats)} admission rounds) | "
           f"{'mixed' if eng.mixed else 'serialized'} engine, "
           f"{'paged' if eng.paged else 'contiguous'} "
-          f"{'int8' if cfg.kv_quant else 'fp'} lanes")
+          f"{'int8' if cfg.kv_quant else 'fp'} lanes | prefix hit ratio "
+          f"{ds['prefix_hit_ratio']:.2f}, {ds['preemptions']} preemptions")
 
 
 if __name__ == "__main__":

@@ -218,13 +218,21 @@ def attention_block(
     slot_mask: Optional[torch.Tensor] = None,  # (B,) bool writable rows
     n_new: Optional[torch.Tensor] = None,      # (B,): mixed step
     seg_ids: Optional[torch.Tensor] = None,    # (B, S): prefill packing
+    prefix_kv: Optional[Dict] = None,  # suffix prefill: {"k"/"v": (B, Np,
+    # Hkv, D) post-RoPE shared prefix, "len": (B,) valid prefix length}
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
     * **prefill** (no ``cache_index``): :func:`flash_attention` over the
       unquantized K/V with segment ids, then, when ``cache`` is given, the
       K/V (int8 codes and scales with ``kv_quant``) written at lane
-      positions ``[0, S)`` of contiguous caches ``(L, B, S_max, Hkv, D)``;
+      positions ``[0, S)`` of contiguous caches ``(L, B, S_max, Hkv, D)``.
+      With ``prefix_kv`` (a suffix prefill over a shared prefix) the keys
+      are [prefix ∥ suffix]: the suffix queries, at absolute
+      ``positions``, sit at the end of the key axis and see the whole
+      valid prefix (``len``; rotated when it was written, so it takes no
+      RoPE here) and their causal suffix; the cache receives the suffix
+      only;
     * **contiguous decode** (``cache_index``, no ``pages``, S == 1): the
       token is written at ``(b, cache_index[b])`` for the rows in
       ``slot_mask``, then attended;
@@ -254,8 +262,20 @@ def attention_block(
     quant = cache is not None and "k_scale" in cache
     impl = resolve_decode_attn(cfg.decode_attn, x.device)
     if cache_index is None:
-        o = flash_attention(q, k, v, causal=cfg.causal, seg_q=seg_ids,
-                            seg_kv=seg_ids, chunk=cfg.attn_chunk)
+        if prefix_kv is None:
+            o = flash_attention(q, k, v, causal=cfg.causal, seg_q=seg_ids,
+                                seg_kv=seg_ids, chunk=cfg.attn_chunk)
+        else:
+            pk, pv = prefix_kv["k"].to(dt), prefix_kv["v"].to(dt)
+            sq = seg_ids if seg_ids is not None else torch.ones(
+                (B, S), dtype=torch.int32, device=x.device)
+            plen = torch.as_tensor(prefix_kv["len"], device=x.device)
+            pseg = (torch.arange(pk.shape[1], device=x.device)[None, :]
+                    < plen.reshape(-1, 1)).to(sq.dtype).expand(B, -1)
+            o = flash_attention(q, torch.cat([pk, k], 1),
+                                torch.cat([pv, v], 1), causal=cfg.causal,
+                                seg_q=sq, seg_kv=torch.cat([pseg, sq], 1),
+                                chunk=cfg.attn_chunk)
         if cache is not None:
             for name, t in _kv_leaves(k, v, quant).items():
                 cache[name][layer_idx, :, :S] = t.to(cache[name].dtype)

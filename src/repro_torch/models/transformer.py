@@ -210,18 +210,22 @@ class Model:
             else ("k", "v"))}
 
     def _stack(self, params, x, *, positions, caches, cache_index=None,
-               slot_mask=None, pages=None, n_new=None, seg_ids=None):
+               slot_mask=None, pages=None, n_new=None, seg_ids=None,
+               prefix_kv=None):
         cfg = self.cfg
         lay = params["layers"]
         dicts = params.get("dicts")
         for i in range(cfg.n_layers):
             lp = _tree_map(lambda t: t[i], lay)
             h = L.apply_norm(lp["norm1"], x)
+            pre = None if prefix_kv is None else {
+                "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
+                "len": prefix_kv["len"]}
             x = x + L.attention_block(
                 lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
                 cache=caches, layer_idx=i, cache_index=cache_index,
                 pages=pages, slot_mask=slot_mask, n_new=n_new,
-                seg_ids=seg_ids)
+                seg_ids=seg_ids, prefix_kv=pre)
             h2 = L.apply_norm(lp["norm2"], x)
             x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
         return L.apply_norm(params["final_norm"], x)
@@ -230,13 +234,17 @@ class Model:
         return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg)
 
     def hidden(self, params: Dict, batch: Dict, *,
-               caches: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+               caches: Optional[Dict] = None,
+               prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
         """Full-sequence forward up to the final norm: ``(h (B, S, d),
         caches)``. batch ``{"inputs": (B, S)}`` with optional
         ``"positions"`` (default ``0..S-1``) and ``"seg_ids"`` (packed
         rows; 0 is padding). With ``caches`` (contiguous, :meth:`init_cache`
         with at least S positions) every layer writes its K/V at positions
-        ``[0, S)``, in place."""
+        ``[0, S)``, in place. ``prefix_kv`` (suffix prefill): the post-RoPE
+        K/V of a shared prompt prefix, ``{"k", "v": (L, B, Np, Hkv, D),
+        "len": (B,)}``, which every layer prepends to its keys; the batch
+        then holds only the suffix, at absolute ``positions``."""
         tokens = batch["inputs"]
         B, S = tokens.shape
         positions = batch.get("positions")
@@ -245,14 +253,17 @@ class Model:
                 .expand(B, S)
         x = L.embed_tokens(params["embed"], tokens, self.cfg)
         h = self._stack(params, x, positions=positions.long(),
-                        caches=caches, seg_ids=batch.get("seg_ids"))
+                        caches=caches, seg_ids=batch.get("seg_ids"),
+                        prefix_kv=prefix_kv)
         return h, caches
 
     def apply(self, params: Dict, batch: Dict, *,
-              caches: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+              caches: Optional[Dict] = None,
+              prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
         """:meth:`hidden` with all-position logits ``(B, S, V)`` f32. (The
         reference also returns an aux loss, which only MoE stacks make.)"""
-        h, caches = self.hidden(params, batch, caches=caches)
+        h, caches = self.hidden(params, batch, caches=caches,
+                                prefix_kv=prefix_kv)
         return self.logits(params, h), caches
 
     def prefill(self, params: Dict, batch: Dict, *,

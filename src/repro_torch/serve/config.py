@@ -6,11 +6,13 @@ The port serves greedy decoding of attention-only stacks through the
 mixed-step engine (paged, unquantized lanes) or the phase-serialized one
 (contiguous or paged lanes, fp or int8 ``kv_quant``); ``mixed=None``
 picks the mixed step where the stack can take it, as the reference does.
-Settings outside the port so far raise
+Prefix sharing (``prefix_share``, on by default) and preemption
+(``pool_frac < 1``, ``max_preemptions_per_request``) are served as the
+reference serves them, so ``EngineConfig()`` is valid. Settings outside
+the port so far raise
 :class:`~repro_torch.core.errors.UnsupportedConfigError` naming the later
 slice (ROADMAP Queue 1) that brings them — never silently ignored, since
-each of them changes admission or tokens. The reference's default
-``prefix_share=True`` is one of them: pass ``prefix_share=False``.
+each of them changes admission or tokens.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.errors import UnsupportedConfigError
 
 RECURRENT_KINDS = frozenset({"ssd", "rglru"})
 
-_LATER = "comes with a later slice of the port (ROADMAP Queue 1 item 7)"
+_LATER = "comes with a later slice of the port (ROADMAP Queue 1 item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,15 +89,11 @@ class EngineConfig:
                 "the phase-serialized engine.")
         if self.temperature > 0 or self.top_k is not None:
             raise UnsupportedConfigError(
-                f"seeded sampling (temperature > 0 / top_k) {_LATER}; "
-                "this slice decodes greedily")
-        if self.prefix_share:
-            raise UnsupportedConfigError(
-                f"page-level prefix sharing {_LATER}; pass "
-                "prefix_share=False (it changes admission, so it is not "
-                "ignored)")
+                "seeded sampling (temperature > 0 / top_k) "
+                f"{_LATER.format('7c')}; this slice decodes greedily")
         if self.audit:
-            raise UnsupportedConfigError(f"per-step invariant audits {_LATER}")
+            raise UnsupportedConfigError(
+                f"per-step invariant audits {_LATER.format('7d')}")
         if self.prefill_budget is not None and self.prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1 token/step, got "

@@ -22,13 +22,33 @@ Two engines share the slot table, the run loop and the accounting:
 Finished requests (budget or ``eos_id``) release their slot (and pages),
 and freed slots are refilled from the queue mid-decode.
 
+**Preemption.** Paged lanes grow a page at a time. When the pool runs
+dry, the youngest active request is preempted and requeued at the queue
+head as a continuation (prompt + tokens so far, ``_origin`` pointing at
+the submitted request), whose resumed greedy decode is token-identical
+to an uninterrupted run; a mixed-step chunk whose slot is itself the
+youngest is deferred a step instead. ``max_preemptions`` (per request,
+or the engine's ``max_preemptions_per_request``) fails a request stuck
+in an admit-preempt cycle.
+
+**Prefix sharing** (paged lanes, ``prefix_share``, on by default): a
+prompt whose page-aligned leading tokens are in the pool's prefix index
+(a system prompt, a duplicate, a continuation resuming over its own
+published pages) maps those pages into its lane and computes and writes
+only the rest: the mixed engine streams only the suffix, the serialized
+engine runs one suffix prefill that attends the prefix gathered out of
+the pool (``Model.hidden(prefix_kv=...)``). Copy-on-write keeps sharing
+invisible: a write that would land in a shared page copies it first.
+``decode_stats`` reports ``prefix_hit_ratio`` (prompt tokens served from
+shared pages over prompt tokens admitted) and ``pages_shared``.
+
 What the reference does that the port refuses so far
-(``EngineConfig.validate`` and here): preemption when the pool runs dry,
-prefix sharing, sampling, faults, audits, meshes and fleets. Deadlines
+(``EngineConfig.validate`` and here): sampling (ROADMAP Queue 1 item 7c),
+faults and audits (7d), fleets (7e) and meshes (11). Deadlines
 (``ttl_steps``), load shedding (``max_pending``), never-admissible
-rejection, the non-finite-logits guard and the no-progress watchdog are
-kept, as are ``run(arrivals=...)``, the ``decode_stats`` counters and one
-``stats`` entry per prefill sweep.
+rejection, ``cancel``, the non-finite-logits guard and the no-progress
+watchdog are kept, as are ``run(arrivals=...)``, the ``decode_stats``
+counters and one ``stats`` entry per prefill sweep.
 
 **Estimated HBM traffic** (``weight_bytes_per_token``,
 ``kv_bytes_per_token``, ``bytes_per_token``), as the reference reports it:
@@ -49,10 +69,12 @@ import torch
 
 from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import params_stream_bits
+from repro_torch.core.packing import chunk_prompt
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ref import block_stats
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.kv_slots import SlotKVCache
+from repro_torch.serve.pages import PrefixHit
 from repro_torch.serve.sampling import greedy_tokens
 from repro_torch.serve.scheduler import (TERMINAL_STATUSES, Admission,
                                          Request, Scheduler)
@@ -78,6 +100,7 @@ class _RunState:
     emitted: np.ndarray   # tokens emitted so far per slot
     budget: np.ndarray    # per-slot output budget
     pending: List[Optional[np.ndarray]]  # un-prefilled prompt suffix
+    pending_full: List[Optional[np.ndarray]]  # the admitted prompt
     done: List[Request] = dataclasses.field(default_factory=list)
     iters: int = 0
     steps: int = 0
@@ -86,6 +109,8 @@ class _RunState:
     blocks_visited: int = 0
     blocks_dense: int = 0
     kv_bytes: float = 0.0
+    preemptions: int = 0
+    preempt_recovered: int = 0
     pages_used_steps: int = 0
     mixed_steps: int = 0
     chunk_tokens: int = 0
@@ -97,8 +122,9 @@ class _RunState:
 class Engine:
     def __init__(self, model, params, config: Optional[EngineConfig] = None,
                  *, mesh=None, faults=None, fleet=None):
-        for name, val, item in (("mesh", mesh, 11), ("faults", faults, 7),
-                                ("fleet", fleet, 7)):
+        for name, val, item in (("mesh", mesh, "11"), ("faults", faults,
+                                                       "7d"),
+                                ("fleet", fleet, "7e")):
             if val is not None:
                 raise UnsupportedConfigError(
                     f"Engine({name}=...) comes with a later slice of the "
@@ -131,6 +157,12 @@ class Engine:
                                  page_size=self.page_size,
                                  pool_frac=cfg_e.pool_frac,
                                  page_cap=cfg_e.page_cap)
+        # Prefix sharing: paged lanes only (every lane leaf here is a
+        # per-token "kv" lane, so every paged stack can share).
+        self.prefix_share = bool(cfg_e.prefix_share) and self.paged
+        self._shared_tokens = 0
+        self._prompt_tokens = 0
+        self._pages_shared = 0
         self.mixed = traits["mixed_ok"] if cfg_e.mixed is None \
             else bool(cfg_e.mixed)
         self.prefill_budget = cfg_e.prefill_budget
@@ -160,6 +192,7 @@ class Engine:
         self.decode_stats: Dict = {}
         self.max_pending = cfg_e.max_pending
         self.default_ttl = cfg_e.default_ttl_steps
+        self.max_preempt = cfg_e.max_preemptions_per_request
         self.watchdog_patience = int(cfg_e.watchdog_patience)
         self._clock = 0
         self._device_time = 0
@@ -179,7 +212,7 @@ class Engine:
         if sp is not None and ((sp.temperature or 0.0) > 0 or sp.top_k):
             raise UnsupportedConfigError(
                 "per-request sampling comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 7); this slice decodes greedily")
+                "(ROADMAP Queue 1 item 7c); this slice decodes greedily")
         if (self.max_pending is not None
                 and self.scheduler.pending() >= self.max_pending):
             self._finish_terminal(
@@ -229,21 +262,61 @@ class Engine:
     def has_work(self) -> bool:
         return bool(self.scheduler.pending() or self.slots.active.any())
 
+    @property
+    def iteration(self) -> int:
+        """The session's iteration count (0 outside a session): a request
+        with ``tick <= iteration + 1`` is due for the next :meth:`step`."""
+        return self._st.iters if self._st is not None else 0
+
     def _session(self) -> _RunState:
         if self._st is None:
             n = self.num_slots
+            self._shared_tokens = 0
+            self._prompt_tokens = 0
+            self._pages_shared = 0
             st = _RunState(cur=np.zeros(n, np.int32),
                            emitted=np.zeros(n, np.int32),
-                           budget=np.zeros(n, np.int32), pending=[None] * n)
+                           budget=np.zeros(n, np.int32), pending=[None] * n,
+                           pending_full=[None] * n)
             st.done.extend(self._terminal)
             self._terminal.clear()
             self._st = st
         return self._st
 
     def _emit(self, req: Request, tok: int) -> None:
-        req.output.append(int(tok))
+        """Append a token to the submitted request (a continuation's
+        ``_origin``) and report it as a step event."""
+        target = getattr(req, "_origin", req)
+        target.output.append(int(tok))
         if self._events is not None:
-            self._events.append((req, int(tok)))
+            self._events.append((target, int(tok)))
+
+    def cancel(self, req: Request) -> bool:
+        """Withdraw a request: drop it from the queue and/or release its
+        slot (its pages return to the pool at once) and finish it
+        ``cancelled``. Works between steps of a session and outside one.
+        False when the request is already terminal or unknown here."""
+        target = getattr(req, "_origin", req)
+        if target.status is not None:
+            return False
+        hit = bool(self.scheduler.drop_where(
+            lambda r: getattr(r, "_origin", r) is target))
+        sl = self.slots
+        for s in np.flatnonzero(sl.active):
+            if sl.request[s] is target:
+                sl.release(int(s))
+                if self._st is not None:
+                    self._st.pending[s] = None
+                    self._st.pending_full[s] = None
+                hit = True
+        if not hit:
+            return False
+        if self._st is not None:
+            self._finish(target, "cancelled", "cancelled by caller",
+                         self._st.done)
+        else:
+            self._finish_terminal(target, "cancelled", "cancelled by caller")
+        return True
 
     def _step_result(self, res: StepResult, n_done0: int) -> StepResult:
         res.finished = self._st.done[n_done0:]
@@ -254,12 +327,13 @@ class Engine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def step(self, submits: Sequence[Request] = ()) -> StepResult:
-        """ONE engine iteration — admit, one mixed or decode dispatch,
-        retire. ``submits`` are submitted after this step's clock tick."""
+        """ONE engine iteration — grow lanes (preempting when the pool runs
+        dry), admit, one mixed or decode dispatch, retire. ``submits`` are
+        submitted after this step's clock tick."""
         st = self._session()
         sl = self.slots
-        cur, emitted, budget, pending = st.cur, st.emitted, st.budget, \
-            st.pending
+        cur, emitted, budget = st.cur, st.emitted, st.budget
+        pending, pending_full = st.pending, st.pending_full
         done = st.done
         res = StepResult()
         self._events = res.emitted
@@ -274,17 +348,20 @@ class Engine:
                 self._terminal.clear()
             progressed = self._expire(done) > 0
             if self.paged:
-                self._ensure_pages()
-            for s in range(self.num_slots):
-                if not sl.active[s]:
-                    pending[s] = None
+                # Growth runs before admission, so an admission reserves
+                # only pages the in-flight lanes do not need this step.
+                rec, esc = self._ensure_pages(done)
+                st.preemptions += rec + esc
+                st.preempt_recovered += rec
+            self._drop_stale_chunks(st)
             if self.scheduler.pending():
                 free = sl.free_slots()
                 if free.size:
                     n_done = len(done)
                     if self.mixed:
                         admitted = self._admit_mixed(free, cur, emitted,
-                                                     budget, pending, done)
+                                                     budget, pending,
+                                                     pending_full, done)
                     else:
                         admitted = self._admit(free, cur, emitted, budget,
                                                done)
@@ -308,6 +385,20 @@ class Engine:
         finally:
             self._events = None
 
+    def _drop_stale_chunks(self, st: _RunState) -> None:
+        """Forget the chunk state of slots released since it was staged
+        (expired, preempted, failed)."""
+        for s in np.flatnonzero(~self.slots.active):
+            st.pending[s] = None
+            st.pending_full[s] = None
+
+    def _youngest_active(self) -> Tuple[int, int]:
+        """``(slot of the youngest active request, active slots)``: the
+        preemption victim, youngest first, so older requests progress."""
+        active = np.flatnonzero(self.slots.active)
+        return int(max(active, key=lambda v: self._admit_seq[v])), \
+            active.size
+
     def _pages_arg(self) -> Optional[Dict]:
         if not self.paged:
             return None
@@ -328,8 +419,8 @@ class Engine:
         """Pack up to ``prefill_budget`` fresh prompt tokens (chunk rows,
         oldest admission first) with every decode slot in one step."""
         sl = self.slots
-        pending, cur, emitted, budget = st.pending, st.cur, st.emitted, \
-            st.budget
+        pending, pending_full = st.pending, st.pending_full
+        cur, emitted, budget = st.cur, st.emitted, st.budget
         S = self._chunk_width
         left = self.prefill_budget
         n_new = np.zeros(self.num_slots, np.int32)
@@ -343,10 +434,23 @@ class Engine:
                     c = min(c, left)
                     left -= c
                 n_new[s] = c
+        # Chunk writes span [len, len + c): allocate and copy-on-write each
+        # span, oldest first; a dry pool preempts the youngest or defers
+        # the chunk (an inert row this step, chunk intact).
         for s in order:
-            if pending[s] is not None and n_new[s] > 0:
-                self._grow_span(int(s), int(sl.lengths[s]) + int(n_new[s]))
+            if not sl.active[s] or pending[s] is None or n_new[s] <= 0:
+                continue
+            ok, rec, esc = self._grow_span(
+                int(s), int(sl.lengths[s]) + int(n_new[s]), st.done)
+            st.preemptions += rec + esc
+            st.preempt_recovered += rec
+            if not ok:
+                n_new[s] = 0
+        self._drop_stale_chunks(st)
         n_new = np.where(sl.active, n_new, 0).astype(np.int32)
+        active_ix = np.flatnonzero(sl.active)
+        if active_ix.size == 0:
+            return
         toks = np.zeros((self.num_slots, S), np.int32)
         for s in active_ix:
             if pending[s] is not None:
@@ -369,21 +473,26 @@ class Engine:
             if tok < 0:
                 sl.release(int(s))
                 pending[s] = None
+                pending_full[s] = None
                 self._finish(req, "failed", "non-finite logits (NaN/Inf) in "
                              "the mixed step", st.done)
                 continue
             if pending[s] is not None:
                 c = int(n_new[s])
                 if c <= 0:
-                    continue  # budget-starved: nothing this step
+                    continue  # budget-starved or deferred: nothing this step
                 sl.advance_n(int(s), c)
                 st.chunk_tokens += c
                 rest = pending[s][c:]
                 if len(rest):
                     pending[s] = rest  # still mid-prefill
                     continue
-                # Prefill complete: ``tok`` is the request's first token.
+                # Prefill complete: ``tok`` is the request's first token,
+                # and the prompt's full pages hold their final bytes.
+                if self.prefix_share:
+                    self.slots.pool.publish_prefix(int(s), pending_full[s])
                 pending[s] = None
+                pending_full[s] = None
                 self._emit(req, tok)
                 self._note_ttft(req)
                 emitted[s] = len(req.output)
@@ -469,12 +578,18 @@ class Engine:
             "kv_blocks_dense": st.blocks_dense,
             "kv_block_ratio": st.blocks_visited / max(st.blocks_dense, 1),
             "paged": self.paged,
-            "preemptions": 0,
+            "preemptions": st.preemptions,
+            "preemptions_recovered": st.preempt_recovered,
             # contiguous lanes hold everything up front: ratio 1.0
             "kv_pages_total": sl.pool.total_pages if self.paged else 0,
             "kv_memory_ratio": (st.pages_used_steps
                                 / max(st.steps * sl.pool.total_pages, 1)
                                 if self.paged else 1.0),
+            # Prefix sharing: admitted prompt tokens served from shared
+            # pages over prompt tokens admitted; page mappings served.
+            "prefix_hit_ratio": (self._shared_tokens
+                                 / max(self._prompt_tokens, 1)),
+            "pages_shared": self._pages_shared,
             # Estimated HBM bytes per decoded token: the weights streamed
             # once per step plus the KV blocks actually visited.
             "weight_format": self.model.cfg.weight_format,
@@ -511,58 +626,182 @@ class Engine:
 
     # ------------------------------------------------------------------
 
-    def _ensure_pages(self) -> None:
-        """Make every active slot's next write position resident (oldest
-        request first). A dry pool would need preemption, which this slice
-        does not port: raise instead of serving wrong."""
+    def _ensure_pages(self, done: List[Request]) -> Tuple[int, int]:
+        """Make every active slot's next write position writable, oldest
+        request first: allocate missing pages, copy-on-write shared ones,
+        unpublish sole-owner published ones. When the pool is dry (no free
+        page and no retained one to evict), preempt the youngest active
+        request and retry. The oldest can always progress: preempting
+        every other holder leaves its pages to it alone. Returns
+        ``(recovered, escalated)``: victims requeued, and victims failed
+        (over their preemption budget, or a lane that cannot grow even
+        alone under ``page_cap``)."""
         sl, pool = self.slots, self.slots.pool
-        for s in sorted(np.flatnonzero(sl.active),
-                        key=lambda s: self._admit_seq[s]):
-            if not pool.ensure_write(int(s), int(sl.lengths[s])):
-                raise UnsupportedConfigError(
-                    "the page pool ran dry mid-decode; preemption comes with "
-                    "a later slice of the port (ROADMAP Queue 1 item 7) — "
-                    "serve with pool_frac=1.0 (the default)")
+        n_rec = n_esc = 0
+        order = sorted(np.flatnonzero(sl.active),
+                       key=lambda s: self._admit_seq[s])
+        for s in order:
+            while sl.active[s]:  # a victim earlier in this pass is gone
+                ok, copies = pool.make_writable(int(s), int(sl.lengths[s]))
+                if ok:
+                    sl.copy_pages(copies)
+                    break
+                victim, n_active = self._youngest_active()
+                if victim == s and n_active == 1:
+                    req = sl.request[s]
+                    sl.release(int(s))
+                    self._finish(
+                        req, "failed",
+                        "page pool cannot hold the request's next page "
+                        "even with every other slot evicted (page_cap too "
+                        "small for its decode growth)", done)
+                    n_esc += 1
+                    break
+                if self._preempt_or_fail(victim, done):
+                    n_rec += 1
+                else:
+                    n_esc += 1
+        return n_rec, n_esc
 
-    def _grow_span(self, s: int, end: int) -> None:
+    def _grow_span(self, s: int, end: int,
+                   done: List[Request]) -> Tuple[bool, int, int]:
         """Make lane positions ``[lengths[s], end)`` writable for a chunk
-        scatter; a dry pool raises (see :meth:`_ensure_pages`)."""
-        pool = self.slots.pool
+        scatter: allocate the span's pages and copy-on-write shared ones.
+        A dry pool preempts the youngest active request and retries (both
+        calls are all-or-nothing); when the youngest is ``s`` itself and
+        others are active, the chunk is deferred (``ok=False``: the slot
+        keeps its pages and streamed prefix) while older requests drain.
+        A sole survivor that still cannot grow is failed. Returns ``(ok,
+        recovered, escalated)``."""
+        sl, pool = self.slots, self.slots.pool
+        n_rec = n_esc = 0
         end = min(end, self.cache_len)
-        try:
-            pool.alloc_prefix(s, end)
-            pool.make_range_writable(s, int(self.slots.lengths[s]), end)
-        except RuntimeError as e:
-            raise UnsupportedConfigError(
-                f"the page pool cannot hold a prefill chunk ({e}); "
-                "preemption and chunk deferral come with a later slice of "
-                "the port (ROADMAP Queue 1 item 7)") from e
+        while True:
+            try:
+                pool.alloc_prefix(s, end)
+                copies = pool.make_range_writable(s, int(sl.lengths[s]), end)
+            except RuntimeError:
+                victim, n_active = self._youngest_active()
+                if victim == s:
+                    if n_active == 1:
+                        req = sl.request[s]
+                        sl.release(s)
+                        self._finish(
+                            req, "failed",
+                            "page pool cannot hold the prefill chunk span "
+                            "even with every other slot evicted (page_cap "
+                            "too small for the prompt)", done)
+                        n_esc += 1
+                    return False, n_rec, n_esc
+                if self._preempt_or_fail(victim, done):
+                    n_rec += 1
+                else:
+                    n_esc += 1
+                continue
+            sl.copy_pages(copies)
+            return True, n_rec, n_esc
+
+    def _preempt_or_fail(self, slot: int, done: List[Request]) -> bool:
+        """Preempt and requeue ``slot``'s request within its preemption
+        budget (``Request.max_preemptions``, else the engine's
+        ``max_preemptions_per_request``; None is unbounded); over budget
+        it is failed. True when the request was requeued."""
+        req = self.slots.request[slot]
+        target = getattr(req, "_origin", req)
+        n = getattr(target, "_preempt_count", 0) + 1
+        target._preempt_count = n  # type: ignore[attr-defined]
+        limit = target.max_preemptions \
+            if target.max_preemptions is not None else self.max_preempt
+        if limit is not None and n > limit:
+            self.slots.release(slot)
+            self._finish(
+                target, "failed",
+                f"preemption budget exhausted ({n - 1} preempt-requeue "
+                "cycles; stuck in an admit-preempt cycle)", done)
+            return False
+        self._preempt(slot)
+        return True
+
+    def _preempt(self, slot: int) -> None:
+        """Requeue the slot's request at the queue head as a continuation:
+        its prompt plus everything generated so far. Prefilling that
+        sequence gives the token the next decode step would have (greedy),
+        and its published pages make the resume a prefix hit."""
+        req = self.slots.request[slot]
+        cont = Request(
+            rid=req.rid,
+            prompt=np.concatenate([np.asarray(req.prompt, np.int32),
+                                   np.asarray(req.output, np.int32)]),
+            max_new_tokens=req.max_new_tokens, seed=req.seed,
+            sampling=req.sampling)
+        cont._origin = req  # type: ignore[attr-defined]
+        self.scheduler.requeue(cont)
+        self.slots.release(slot)
 
     def _note_ttft(self, req: Request) -> None:
-        if len(req.output) != 1 or hasattr(req, "_ttft_wall"):
+        """Stamp time-to-first-token when the submitted request's first
+        output token lands (a continuation resumes with earlier output)."""
+        target = getattr(req, "_origin", req)
+        if len(target.output) != 1 or hasattr(target, "_ttft_wall"):
             return
         now = time.perf_counter()
-        req._ttft_wall = now - getattr(req, "_submit_wall", now)
-        req._ttft_clock = self._clock - getattr(req, "_submit_clock",
-                                                self._clock)
-        req._first_token_clock = self._clock
-        req._ttft_dev = self._device_time - getattr(req, "_submit_dev",
-                                                    self._device_time)
+        target._ttft_wall = now - getattr(target, "_submit_wall", now)
+        target._ttft_clock = self._clock - getattr(target, "_submit_clock",
+                                                   self._clock)
+        target._first_token_clock = self._clock
+        target._ttft_dev = self._device_time - getattr(
+            target, "_submit_dev", self._device_time)
+
+    # -- prefix sharing ------------------------------------------------
+
+    def _probe_req(self, req: Request) -> Optional[PrefixHit]:
+        """The prefix-cache hit of ``req``'s prompt (None when sharing is
+        off or nothing matches), memoized on the request against the
+        pool's identity and ``prefix_version``: one admission consults it
+        up to three times, and a head-blocked queue front every step."""
+        if not self.prefix_share:
+            return None
+        pool = self.slots.pool
+        memo = getattr(req, "_probe_memo", None)
+        if memo is not None and memo[0] is pool \
+                and memo[1] == pool.prefix_version:
+            return memo[2]
+        hit = pool.probe_prefix(np.asarray(req.prompt, np.int32))
+        req._probe_memo = (pool, pool.prefix_version, hit)  # type: ignore
+        return hit
+
+    def _probe_len(self, req: Request) -> int:
+        hit = self._probe_req(req)
+        return hit.n_shared if hit is not None else 0
 
     def _page_reserve(self, chunk: Optional[int] = None):
         """Admission control over the page budget: a request reserves the
         pages of its prompt's span plus one position — for the mixed step
         (``chunk``) only its first chunk's span — with FIFO head-blocking
-        once the budget would overcommit."""
+        once the budget (free plus retained pages, per width class) would
+        overcommit. A prefix hit reserves only its net-new pages, plus the
+        shared pages its writes will copy and the retained pages it pins by
+        mapping them."""
         pool = self.slots.pool
         ps = pool.page_size
         avail = {w: c.available() for w, c in pool.classes.items()}
 
         def reserve(req: Request) -> bool:
-            span = len(req.prompt) if chunk is None \
-                else min(len(req.prompt), chunk)
-            consume = {w: -(-min(span + 1, c.width) // ps)
-                       for w, c in pool.classes.items()}
+            L = len(req.prompt)
+            span = L if chunk is None else min(L, chunk)
+            hit = self._probe_req(req)
+            consume = {}
+            for w, c in pool.classes.items():
+                need = -(-min(span + 1, c.width) // ps)
+                if hit is None:
+                    consume[w] = need
+                    continue
+                shared = -(-hit.n_shared // ps)
+                writes = {(p % c.width) // ps
+                          for p in range(min(hit.n_shared, span), span + 1)}
+                cow = sum(1 for lp in writes if lp < shared)
+                pinned = sum(1 for pg in hit.pages[w] if c.refcount[pg] == 0)
+                consume[w] = max(0, need - shared) + cow + pinned
             if any(n > avail[w] for w, n in consume.items()):
                 return False
             for w, n in consume.items():
@@ -571,33 +810,54 @@ class Engine:
 
         return reserve
 
+    # -- admission -----------------------------------------------------
+
     def _admit_mixed(self, free: np.ndarray, cur, emitted, budget, pending,
-                     done: List[Request]) -> int:
+                     pending_full, done: List[Request]) -> int:
         """Claim a free slot per admitted request and stage its prompt in
-        ``pending`` for the chunk scheduler."""
+        ``pending`` for the chunk scheduler. A prefix hit maps its shared
+        pages first, so the chunks stream only the suffix."""
         pool = self.slots.pool
         adms = self.scheduler.next_mixed(
-            len(free), reserve=self._page_reserve(self._chunk_width))
+            len(free), reserve=self._page_reserve(self._chunk_width),
+            probe=self._probe_len if self.prefix_share else None)
         fi = 0
         n_processed = 0
-        for req in adms:
+        for req, _ in adms:
             n_processed += 1
-            total_budget = min(req.max_new_tokens, self.max_new)
-            if len(req.output) >= total_budget:
-                self._finish(req, "ok", None, done)
+            target = getattr(req, "_origin", req)
+            total_budget = min(target.max_new_tokens, self.max_new)
+            if len(target.output) >= total_budget:
+                self._finish(target, "ok", None, done)
                 continue
+            prompt = np.asarray(req.prompt, np.int32)
+            hit = self._probe_req(req)
+            off = hit.n_shared if hit is not None else 0
+            self._prompt_tokens += len(prompt)
+            self._shared_tokens += off
             slot = int(free[fi])
             fi += 1
-            self.slots.claim(slot, req, 0)
+            if off:
+                pool.map_shared(slot, hit)
+                self._pages_shared += sum(len(v) for v in hit.pages.values())
+            self.slots.claim(slot, target, off)
             try:
-                pool.alloc_prefix(slot, min(1, self.cache_len))
+                # Hold the first chunk's write position now, copied out of
+                # a shared tail page.
+                pool.alloc_prefix(slot, min(off + 1, self.cache_len))
+                copies = pool.make_range_writable(slot, off, off + 1) \
+                    if off else []
             except RuntimeError:
+                # The reservation makes this unreachable; requeue rather
+                # than wedge the round.
                 self.slots.release(slot)
                 self.scheduler.requeue(req)
                 break
-            pending[slot] = np.asarray(req.prompt, np.int32)
+            self.slots.copy_pages(copies)
+            pending[slot] = prompt[off:]
+            pending_full[slot] = prompt
             cur[slot] = 0
-            emitted[slot] = len(req.output)
+            emitted[slot] = len(target.output)
             budget[slot] = total_budget
             self._admit_seq[slot] = self._seq
             self._seq += 1
@@ -615,57 +875,93 @@ class Engine:
         returns the number of requests processed. With paged lanes the
         run loop grows active lanes before admitting and ``assign_many``
         holds each new lane's first decode page, so an admitted request
-        always reaches its first decode step."""
+        always reaches its first decode step. Prefix hits map their shared
+        pages before the copy, and every admitted prompt's full pages are
+        published after it."""
+        pool = self.slots.pool
         groups = self.scheduler.next_admissions(
-            len(free), reserve=self._page_reserve() if self.paged else None)
+            len(free), reserve=self._page_reserve() if self.paged else None,
+            probe=self._probe_len if self.prefix_share else None)
         fi = 0
         n_processed = 0
         for adm in groups:
             n_processed += len(adm.requests)
-            firsts, caches, slots_of = self._prefill_admission(adm)
-            assigns = []
-            for req, first, (row, start, length) in zip(adm.requests,
-                                                        firsts, slots_of):
-                total_budget = min(req.max_new_tokens, self.max_new)
-                if len(req.output) >= total_budget:
-                    self._finish(req, "ok", None, done)  # nothing left
+            firsts, caches, slots_of, hits = self._prefill_admission(adm)
+            assigns, pubs = [], []
+            for i, req in enumerate(adm.requests):
+                target = getattr(req, "_origin", req)
+                row, start, length, off = slots_of[i]
+                total_budget = min(target.max_new_tokens, self.max_new)
+                if len(target.output) >= total_budget:
+                    self._finish(target, "ok", None, done)  # nothing left
                     continue
-                first = int(first)
+                # Hit accounting covers requests that finish at prefill
+                # too: their prefix compute was saved all the same.
+                self._prompt_tokens += off + length
+                self._shared_tokens += off
+                first = int(firsts[i])
                 if first < 0:
-                    self._finish(req, "failed", "non-finite logits (NaN/Inf) "
-                                 "in the prefill sweep", done)
+                    self._finish(target, "failed", "non-finite logits "
+                                 "(NaN/Inf) in the prefill sweep", done)
                     continue
-                self._emit(req, first)
-                self._note_ttft(req)
-                if len(req.output) >= total_budget or first == self.eos_id:
-                    self._finish(req, "ok", None, done)  # slot stays free
+                self._emit(target, first)
+                self._note_ttft(target)
+                if len(target.output) >= total_budget or first == self.eos_id:
+                    self._finish(target, "ok", None, done)  # slot stays free
                     continue
                 slot = int(free[fi])
                 fi += 1
-                assigns.append((slot, req, row, start, length))
+                if off:
+                    pool.map_shared(slot, hits[i])
+                    self._pages_shared += sum(
+                        len(v) for v in hits[i].pages.values())
+                assigns.append((slot, target, row, start, length, off))
+                if self.prefix_share:
+                    pubs.append((slot, req.prompt))
                 cur[slot] = first
-                emitted[slot] = len(req.output)
+                emitted[slot] = len(target.output)
                 budget[slot] = total_budget
                 self._admit_seq[slot] = self._seq
                 self._seq += 1
             self.slots.assign_many(assigns, caches)
+            # Publish after the copy: only then do the full pages hold
+            # their final bytes.
+            for slot, toks in pubs:
+                pool.publish_prefix(slot, np.asarray(toks, np.int32))
         return n_processed
 
     @torch.inference_mode()
     def _prefill_admission(self, adm: Admission):
         """One prefill sweep: returns ``(first tokens (n,) on the host,
         filled caches (L, rows, width, ...), per-request (row, start,
-        length))``. Packed rows are padded to a power of two (padding rows
-        ride segment id 0, fully masked), as the reference bounds its
-        compiled shapes. Logits are taken only at each request's last
-        prompt position."""
-        if adm.packed is not None:
+        length, offset), per-request prefix hits)``. Packed rows are padded
+        to a power of two (padding rows ride segment id 0, fully masked),
+        as the reference bounds its compiled shapes. A shared admission
+        re-probes (the scheduler's estimates may be stale or short): a solo
+        full miss falls back to a chunked prefill, otherwise one suffix
+        sweep, one row per request, attends each row's prefix gathered out
+        of the pool (``offset`` tokens). Logits are taken only at each
+        request's last prompt position."""
+        hits: List[Optional[PrefixHit]] = [None] * len(adm.requests)
+        prefix_kv = None
+        if adm.shared_prefix:
+            hits = [self._probe_req(r) for r in adm.requests]
+            if len(hits) == 1 and hits[0] is None:
+                adm = Admission(requests=adm.requests, chunks=chunk_prompt(
+                    adm.requests[0].prompt, self.max_len))
+        if adm.shared_prefix:
+            tokens, positions, seg, ids, plen, slots_of = \
+                self._shared_batch_many(adm.requests, hits)
+            rows = len(adm.requests)
+            util = sum(s[2] for s in slots_of) / max(tokens.size, 1)
+        elif adm.packed is not None:
             packed = adm.packed
             rows = packed.rows
             pad = ((0, (1 << (rows - 1).bit_length()) - rows), (0, 0))
             tokens, positions, seg = (np.pad(a, pad) for a in (
                 packed.tokens, packed.positions, packed.segment_ids))
-            slots_of = list(packed.request_slots)
+            slots_of = [(r, s, n, 0) for r, s, n in packed.request_slots]
+            util = adm.utilization
         else:  # solo long prompt, chunked
             prompt = np.concatenate(adm.chunks)
             width = len(adm.chunks) * self.max_len
@@ -675,46 +971,98 @@ class Engine:
             tokens[0, :n] = prompt
             seg[0, :n] = 1
             positions = np.arange(width, dtype=np.int32)[None]
-            slots_of = [(0, 0, n)]
+            slots_of = [(0, 0, n, 0)]
             rows = 1
+            util = adm.utilization
         t0 = time.perf_counter()
+        if adm.shared_prefix:
+            pk, pv = self.slots.gather_prefix(ids)
+            prefix_kv = {"k": pk, "v": pv, "len": self._tensor(plen)}
         caches = self._dmodel.init_cache(*tokens.shape)
         h, caches = self._dmodel.hidden(
             self.params, {"inputs": self._tensor(tokens),
                           "positions": self._tensor(positions),
-                          "seg_ids": self._tensor(seg)}, caches=caches)
-        last = np.array([[r, s + n - 1] for r, s, n in slots_of], np.int64)
+                          "seg_ids": self._tensor(seg)}, caches=caches,
+            prefix_kv=prefix_kv)
+        last = np.array([[r, s + n - 1] for r, s, n, _ in slots_of],
+                        np.int64)
         logits = self._dmodel.logits(self.params, h[self._tensor(last[:, 0]),
                                                     self._tensor(last[:, 1])])
         firsts = greedy_tokens(logits).cpu().numpy()  # the sweep's host sync
         self._st.step_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
         self._device_time += int(tokens.shape[1])
         self.stats.append({"rows": rows, "n_requests": len(adm.requests),
-                           "utilization": adm.utilization})
-        return firsts, caches, slots_of
+                           "utilization": util})
+        return firsts, caches, slots_of, hits
+
+    def _shared_batch_many(self, reqs: List[Request],
+                           hits: List[Optional[PrefixHit]]):
+        """The suffix sweep's layout: row i holds ``prompt[n_i:]`` at
+        absolute positions (``n_i = 0`` for a stale probe: a cold row in
+        the same sweep), padded to the widest suffix's ``max_len``
+        multiple, rows padded to a power of two (fully masked). The
+        prefixes ride as an ``(rows, n_pages)`` page-id array per width
+        class (``FREE``-padded, the widest prefix's ``max_len`` multiple,
+        at least one ``max_len``) and per-row prefix lengths. Returns
+        ``(tokens, positions, seg, ids, plen, slots_of)``."""
+        pool = self.slots.pool
+        ns = [h.n_shared if h is not None else 0 for h in hits]
+        prompts = [np.asarray(r.prompt, np.int32) for r in reqs]
+        sufs = [len(p) - n for p, n in zip(prompts, ns)]
+        width = max(-(-s // self.max_len) * self.max_len for s in sufs)
+        R = len(reqs)
+        pad_rows = 1 << (R - 1).bit_length()
+        tokens = np.zeros((pad_rows, width), np.int32)
+        seg = np.zeros((pad_rows, width), np.int32)
+        pos = np.zeros((pad_rows, width), np.int32)
+        slots_of = []
+        for i, (prompt, n, suf) in enumerate(zip(prompts, ns, sufs)):
+            tokens[i, :suf] = prompt[n:]
+            seg[i, :suf] = 1
+            pos[i, :suf] = np.arange(n, len(prompt), dtype=np.int32)
+            slots_of.append((i, 0, suf, n))
+        np_pad = max(max(-(-n // self.max_len) * self.max_len for n in ns),
+                     self.max_len)
+        n_pages = -(-np_pad // pool.page_size)
+        ids = {}
+        for w, c in pool.classes.items():
+            padded = np.full((pad_rows, n_pages), c.FREE, np.int32)
+            for i, h in enumerate(hits):
+                if h is not None:
+                    padded[i, :len(h.pages[w])] = h.pages[w]
+            ids[w] = padded
+        plen = np.zeros(pad_rows, np.int32)
+        plen[:R] = ns
+        return tokens, pos, seg, ids, plen, slots_of
+
+    # -- lifecycle -----------------------------------------------------
 
     def _finish(self, req: Request, status: str, reason: Optional[str],
                 done: List[Request]) -> None:
-        req.status = status
-        req.status_reason = reason
+        target = getattr(req, "_origin", req)
+        target.status = status
+        target.status_reason = reason
         self._counts[status] += 1
-        done.append(req)
+        done.append(target)
 
     def _finish_terminal(self, req: Request, status: str,
                          reason: str) -> None:
-        req.status = status
-        req.status_reason = reason
+        target = getattr(req, "_origin", req)
+        target.status = status
+        target.status_reason = reason
         self._counts[status] += 1
-        self._terminal.append(req)
+        self._terminal.append(target)
 
     def _expire(self, done: List[Request]) -> int:
         """Expire queued and in-flight requests whose deadline (virtual
-        clock ticks since submission) has passed."""
+        clock ticks since submission) has passed. A continuation expires
+        on its origin's clock: a preempt-requeue cycle resets nothing."""
         def expired(req: Request) -> bool:
-            ttl = req.ttl_steps if req.ttl_steps is not None \
+            t = getattr(req, "_origin", req)
+            ttl = t.ttl_steps if t.ttl_steps is not None \
                 else self.default_ttl
             return ttl is not None and \
-                self._clock > getattr(req, "_submit_clock", 0) + int(ttl)
+                self._clock > getattr(t, "_submit_clock", 0) + int(ttl)
 
         n = 0
         for req in self.scheduler.drop_where(expired):

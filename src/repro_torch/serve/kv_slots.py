@@ -14,6 +14,13 @@ into its lane; the phase-serialized engine prefills admissions into a
 fresh cache and ``assign_many`` copies every admitted request's segment
 into its lane in one gather and scatter per leaf. ``advance``/``advance_n``
 count what was written; ``release`` frees the slot (and its pages).
+
+Prefix sharing adds the device halves of the pool's bookkeeping:
+``copy_pages`` runs the copy-on-write page copies, ``gather_prefix``
+reads a shared prefix out of the pool for a suffix prefill, and an
+``assign_many`` entry with an offset lands its suffix behind pages the
+engine mapped from the prefix cache. All are plain indexing on the
+cache's device.
 """
 from __future__ import annotations
 
@@ -22,8 +29,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.kernels.tda.ops import paged_flat_positions
+from repro_torch.models.layers import kv_dequantize
 from repro_torch.serve.pages import PagePool
 
 __all__ = ["SlotKVCache"]
@@ -48,6 +55,8 @@ class SlotKVCache:
         self.page_size = page_size
         self.device = model.device
         self.specs = model.cache_lane_specs()
+        self.dtype = model.cfg.compute_dtype
+        self.pages_copied = 0  # copy-on-write pages copied (copy_pages)
         self.width = model._block_ring("attn", cache_len)
         self.pool: Optional[PagePool] = None
         if page_size is not None:
@@ -71,16 +80,24 @@ class SlotKVCache:
     # -- lane copies ---------------------------------------------------
 
     def _gather_lanes(self, src: torch.Tensor, rows, starts, lengths,
-                      out_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      out_width: int, offs=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Assignment j's segment out of ``src`` (L, R, W_src, ...) as a
-        lane: position ``p`` holds row position ``starts[j] + p``, valid for
-        ``p < min(lengths[j], width)`` (lanes hold whole sequences: no
-        window, so no ring phase). Returns ``(lanes (L, J, out_width, ...)
-        with zeros at invalid positions, valid (J, out_width))``."""
+        lane: lane position ``p`` holds row position ``starts[j] + p -
+        offs[j]``, valid for ``offs[j] <= p < min(lengths[j], width)``
+        (lanes hold whole sequences: no window, so no ring phase). With an
+        offset, ``lengths`` is the lane's total depth and the row holds only
+        the suffix ``[offs, lengths)``; positions below ``offs`` live in
+        shared pages. Returns ``(lanes (L, J, out_width, ...) with zeros at
+        invalid positions, valid (J, out_width))``."""
         wsrc = src.shape[2]
+        if offs is None:
+            offs = torch.zeros_like(lengths)
         p = torch.arange(out_width, device=src.device)
-        valid = p[None, :] < torch.clamp(lengths, max=self.width)[:, None]
-        idx = torch.clamp(starts[:, None] + p[None, :], 0, wsrc - 1)
+        valid = (p[None, :] < torch.clamp(lengths, max=self.width)[:, None]) \
+            & (p[None, :] >= offs[:, None])
+        idx = torch.clamp(starts[:, None] + p[None, :] - offs[:, None], 0,
+                          wsrc - 1)
         lanes = src[:, rows[:, None], idx]
         vshape = (1,) + tuple(valid.shape) + (1,) * (lanes.dim() - 3)
         lanes = torch.where(valid.reshape(vshape), lanes,
@@ -88,30 +105,31 @@ class SlotKVCache:
                                         device=lanes.device))
         return lanes, valid
 
-    def _copy_lane(self, src_caches, slots, rows, starts, lengths) -> None:
+    def _copy_lane(self, src_caches, slots, rows, starts, lengths,
+                   offs) -> None:
         """Contiguous lanes: overwrite lane ``slots[j]`` wholesale (zeros
-        past the segment). Padding entries (``slot == num_slots``) are
-        dropped."""
+        past the segment; offsets are always 0 here). Padding entries
+        (``slot == num_slots``) are dropped."""
         keep = slots < self.num_slots
         for name, dst in self.caches.items():
             lanes, _ = self._gather_lanes(src_caches[name], rows, starts,
                                           lengths, self.cache_len)
             dst[:, slots[keep]] = lanes[:, keep].to(dst.dtype)
 
-    def _copy_lane_paged(self, src_caches, slots, rows, starts,
-                         lengths) -> None:
+    def _copy_lane_paged(self, src_caches, slots, rows, starts, lengths,
+                         offs) -> None:
         """Paged lanes: lane position ``p`` of slot ``slots[j]`` lands at
         flat pool position ``bt[slot, p // page_size] * page_size + p %
-        page_size``. Invalid positions, FREE entries and the all-FREE
-        sentinel row that padding entries index fall out of bounds and are
-        dropped."""
+        page_size``. Invalid positions (below the offset too: shared pages
+        stay byte-identical), FREE entries and the all-FREE sentinel row
+        that padding entries index fall out of bounds and are dropped."""
         ps = self.page_size
         bt = self.pool.device_tables()[self.width]  # sentinel row last
         W = bt.shape[1] * ps  # page-quantized width (tail never read)
         flat = paged_flat_positions(bt[slots.long()], ps)  # (J, W)
         for name, dst in self.caches.items():
             lanes, valid = self._gather_lanes(src_caches[name], rows, starts,
-                                              lengths, W)
+                                              lengths, W, offs)
             P = dst.shape[1]
             pos = torch.where(valid, flat, P * ps)
             keep = (pos >= 0) & (pos < P * ps)
@@ -121,61 +139,116 @@ class SlotKVCache:
     def assign_many(self, assignments: Sequence[Assignment],
                     src_caches: Dict[str, torch.Tensor]) -> None:
         """Claim several slots in one lane copy per leaf. ``assignments``
-        are ``(slot, request, row, start, length)`` drawn from ONE prefill's
-        contiguous ``src_caches`` (``(L, rows, width, ...)``); segment
-        masking made each packed request's K/V what an unpacked prefill
-        would give. A reassigned lane is overwritten: no state survives a
-        release -> assign cycle. With paged lanes each slot first pages in
-        its logical prefix one position past the prompt (the first decode
-        write's page is then held, not just reserved); an exhausted pool
-        rolls the whole round back and raises ``RuntimeError``."""
+        are ``(slot, request, row, start, length)``, optionally ``+
+        (offset,)``, drawn from ONE prefill's contiguous ``src_caches``
+        (``(L, rows, width, ...)``); segment masking made each packed
+        request's K/V what an unpacked prefill would give. A reassigned
+        lane is overwritten: no state survives a release -> assign cycle.
+
+        With paged lanes each slot first pages in its logical prefix one
+        position past its sequence (the first decode write's page is then
+        held, not just reserved); an exhausted pool rolls the whole round
+        back and raises ``RuntimeError``. A nonzero ``offset`` (paged only)
+        means lane positions ``[0, offset)`` are shared pages the engine
+        mapped (``PagePool.map_shared``): the row holds only the suffix,
+        the lane's depth becomes ``offset + length``, and shared pages in
+        the write range ``[offset, offset + length]`` are copied on write
+        first."""
         if not assignments:
             return
-        for a in assignments:
-            if len(a) > 5 and a[5]:
-                raise UnsupportedConfigError(
-                    "offset assigns onto shared prefix pages come with "
-                    "prefix sharing, a later slice of the port (ROADMAP "
-                    "Queue 1 item 7)")
-        norm = [tuple(a[:5]) for a in assignments]
-        for slot, _, _, _, length in norm:
+        norm = [(a[0], a[1], a[2], a[3], a[4], a[5] if len(a) > 5 else 0)
+                for a in assignments]
+        for slot, _, _, _, length, off in norm:
             if self.active[slot]:
                 raise ValueError(f"slot {slot} is already occupied")
-            if length > self.cache_len:
-                raise ValueError(f"request length {length} exceeds "
+            if off and self.pool is None:
+                raise ValueError("offset assigns require the paged layout")
+            if off + length > self.cache_len:
+                raise ValueError(f"request length {off + length} exceeds "
                                  f"cache_len {self.cache_len}")
         slots = [a[0] for a in norm]
         if len(set(slots)) != len(slots):
             raise ValueError(f"duplicate slots in one admission: {slots}")
         if self.pool is not None:
-            attempted = []
+            attempted, copies = [], []
             try:
-                for slot, _, _, _, length in norm:
+                for slot, _, _, _, length, off in norm:
+                    total = off + length
                     attempted.append(slot)
                     self.pool.alloc_prefix(slot,
-                                           min(length + 1, self.cache_len))
+                                           min(total + 1, self.cache_len))
+                    if off:
+                        # the suffix scatter plus the first decode write
+                        copies += self.pool.make_range_writable(
+                            slot, off, total + 1)
             except RuntimeError:
                 for slot in attempted:
                     self.pool.release(slot)
                 raise
+            self.copy_pages(copies)
         # Pad the round to a power of two, as the reference does to bound
         # its compiled shapes; padding entries scatter nowhere.
         J = 1 << (len(norm) - 1).bit_length()
         pad = J - len(norm)
 
-        def col(i, fill):
-            return torch.tensor([a[i] for a in norm] + [fill] * pad,
-                                dtype=torch.int64, device=self.device)
+        def col(vals, fill):
+            return torch.tensor(list(vals) + [fill] * pad, dtype=torch.int64,
+                                device=self.device)
 
-        args = (col(0, self.num_slots), col(2, 0), col(3, 0), col(4, 0))
+        args = (col(slots, self.num_slots), col((a[2] for a in norm), 0),
+                col((a[3] for a in norm), 0),
+                col((a[4] + a[5] for a in norm), 0),
+                col((a[5] for a in norm), 0))
         if self.pool is not None:
             self._copy_lane_paged(src_caches, *args)
         else:
             self._copy_lane(src_caches, *args)
-        for slot, request, _, _, length in norm:
+        for slot, request, _, _, length, off in norm:
             self.active[slot] = True
-            self.lengths[slot] = length
+            self.lengths[slot] = off + length
             self.request[slot] = request
+
+    # -- prefix-sharing device helpers ---------------------------------
+
+    def copy_pages(self, copies: Sequence[Tuple[int, int, int]]) -> None:
+        """Run copy-on-write page copies: for each ``(width, src, dst)``,
+        physical page ``src`` is duplicated into ``dst`` in every kv leaf
+        (codes and scales move together), one gather and scatter per leaf
+        for the whole list. Sources are shared pages and destinations fresh
+        ones, so no copy reads another's destination."""
+        if not copies:
+            return
+        assert all(w == self.width for w, _, _ in copies), copies
+        src = torch.tensor([c[1] for c in copies], dtype=torch.int64,
+                           device=self.device)
+        dst = torch.tensor([c[2] for c in copies], dtype=torch.int64,
+                           device=self.device)
+        for leaf in self.caches.values():
+            leaf[:, dst] = leaf[:, src]
+        self.pages_copied += len(copies)
+
+    def gather_prefix(self, page_ids: Dict[int, np.ndarray]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dense prefix K/V out of the page pool for a suffix prefill:
+        ``page_ids[width]`` is an int32 ``(R, n_pages)`` array of physical
+        pages, one prefix per row (``FREE`` padding is clamped to a page
+        whose contents the prefill masks). Returns ``(k, v)`` of shape
+        ``(L, R, n_pages * page_size, Hkv, D)`` in the compute dtype, int8
+        lanes dequantized."""
+        ids = torch.as_tensor(np.asarray(page_ids[self.width]),
+                              dtype=torch.int64, device=self.device)
+        ids = torch.clamp(ids, 0, self.pool.classes[self.width].num_pages - 1)
+
+        def lanes(name):
+            leaf = self.caches[name][:, ids]  # (L, R, n, ps, ...)
+            sh = leaf.shape
+            return leaf.reshape(sh[:2] + (sh[2] * sh[3],) + sh[4:])
+
+        k, v = lanes("k"), lanes("v")
+        if "k_scale" in self.caches:
+            return (kv_dequantize(k, lanes("k_scale"), self.dtype),
+                    kv_dequantize(v, lanes("v_scale"), self.dtype))
+        return k.to(self.dtype), v.to(self.dtype)
 
     def assign(self, slot: int, request, src_caches, row: int, start: int,
                length: int) -> None:

@@ -1,10 +1,31 @@
-"""Paged KV lane pool: block-table allocation for the slot table
-(``repro.serve.pages`` without prefix sharing).
+"""Paged KV lane pool: block-table allocation for the slot table, with
+page-level prefix sharing and copy-on-write (``repro.serve.pages``).
 
 Each kv leaf is a pool of ``page_size``-token physical pages; each slot
 holds an int32 block table mapping logical page ``i`` of its lane to a
 physical page or the ``FREE`` sentinel. Lanes grow page by page and
-release their pages to a free list, so pages in use track live tokens.
+release their pages, so pages in use track live tokens.
+
+**Prefix sharing**, as the reference does it:
+
+* every full page a lane holds is content-addressed by a chained digest
+  of all prompt tokens up to the end of that page
+  (:func:`prefix_digests`): a token's K/V depend on the whole prefix
+  before it. ``publish_prefix`` registers a lane's full pages in the
+  per-width-class index; ``probe_prefix`` returns the longest run of hits
+  from logical page 0 (capped at ``len(prompt) - 1``, so the last token
+  is always recomputed);
+* ``map_shared`` points a new slot's block table at the hit pages and
+  takes a reference on each (``refcount``); pages free at refcount 0;
+* a page is never written while anyone else can see it: before a write,
+  ``make_writable`` / ``make_range_writable`` **copy-on-write** pages with
+  refcount > 1 into fresh pages (the caller runs the device copy,
+  ``SlotKVCache.copy_pages``) and unpublish sole-owner pages still in the
+  index;
+* a published page whose last reference drops is **retained** in a
+  per-class LRU instead of freed, so later requests (and preempted
+  continuations) still hit it; allocation takes the free list first,
+  then evicts retained pages LRU-first.
 
 Layout invariants, the same as the reference's:
 
@@ -16,28 +37,53 @@ Layout invariants, the same as the reference's:
 * block tables carry one extra sentinel row (index ``num_slots``) that
   stays all-``FREE``.
 
-Refcounts are kept (one reference per block-table entry) so the invariant
-audit reads like the reference's. Page-level prefix sharing (probe,
-publish, ``map_shared``, copy-on-write, the retained LRU and the fleet
-index) comes with a later slice (ROADMAP Queue 1 item 7); without it no
-page is ever shared, so no write needs a copy.
+The cross-replica ``FleetPrefixIndex`` comes with the front end and fleet
+(ROADMAP Queue 1 item 7e).
 """
 from __future__ import annotations
 
-from collections import Counter
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+import hashlib
+from collections import Counter, OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.errors import AuditError
 
-__all__ = ["PagePool", "PageClass"]
+__all__ = ["PagePool", "PageClass", "PrefixHit", "prefix_digests"]
+
+# (width, src_page, dst_page): a device-side page copy the caller owes the
+# pool after a copy-on-write remap (SlotKVCache.copy_pages runs them).
+PageCopy = Tuple[int, int, int]
+
+
+def prefix_digests(tokens: np.ndarray, page_size: int,
+                   n_pages: int) -> List[str]:
+    """Chained per-page digests: entry ``lp`` hashes all tokens ``[0,
+    (lp + 1) * page_size)`` (blake2b, 16 bytes, over the int32 bytes)."""
+    h = hashlib.blake2b(digest_size=16)
+    out: List[str] = []
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    for lp in range(n_pages):
+        h.update(toks[lp * page_size:(lp + 1) * page_size].tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+@dataclasses.dataclass
+class PrefixHit:
+    """A probe's result: the first ``n_shared`` prompt tokens are served by
+    mapping ``pages[width]`` (physical page ids per width class)."""
+
+    n_shared: int
+    pages: Dict[int, List[int]]
 
 
 class PageClass:
-    """Bookkeeping for one lane width: free list, per-slot block table and
-    per-page refcounts."""
+    """Bookkeeping for one lane width: free list, per-slot block table,
+    per-page refcounts, the prefix index and the retained LRU."""
 
     def __init__(self, width: int, num_slots: int, page_size: int,
                  num_pages: int):
@@ -48,13 +94,19 @@ class PageClass:
         self.table = np.full((num_slots + 1, self.lane_pages), num_pages,
                              np.int32)
         self.refcount = np.zeros(num_pages, np.int32)
+        # (logical_page, chained_digest) -> physical page, and back.
+        self.index: Dict[Tuple[int, str], int] = {}
+        self.published: Dict[int, Tuple[int, str]] = {}
+        # refcount-0 published pages, oldest first
+        self.retained: "OrderedDict[int, None]" = OrderedDict()
 
     @property
     def FREE(self) -> int:
         return self.num_pages
 
     def available(self) -> int:
-        return len(self.free)
+        """Pages obtainable now: free plus evictable retained."""
+        return len(self.free) + len(self.retained)
 
 
 class PagePool:
@@ -84,6 +136,9 @@ class PagePool:
                 num_pages = min(num_pages, page_cap)
             self.classes[w] = PageClass(w, num_slots, page_size, num_pages)
         self._dev: Optional[Dict[int, torch.Tensor]] = None
+        # Bumped whenever the prefix index changes: a probe is a pure
+        # function of the index, so callers memoize hits against it.
+        self.prefix_version = 0
 
     # -- capacity queries ----------------------------------------------
 
@@ -92,7 +147,15 @@ class PagePool:
         return sum(c.num_pages for c in self.classes.values())
 
     def pages_in_use(self) -> int:
-        return sum(c.num_pages - len(c.free) for c in self.classes.values())
+        """Distinct pages mapped by at least one slot (retained pages are
+        reclaimable cache, not footprint)."""
+        return sum(c.num_pages - len(c.free) - len(c.retained)
+                   for c in self.classes.values())
+
+    def pages_shared(self) -> int:
+        """Block-table references served by an already-mapped page."""
+        return int(sum(np.maximum(c.refcount - 1, 0).sum()
+                       for c in self.classes.values()))
 
     def free_page_budget(self) -> int:
         return sum(c.available() for c in self.classes.values())
@@ -113,18 +176,116 @@ class PagePool:
         return all(need <= self.classes[w].available()
                    for w, need in self.class_needs(n_tokens).items())
 
+    # -- prefix cache ---------------------------------------------------
+
+    def probe_prefix(self, tokens: np.ndarray) -> Optional[PrefixHit]:
+        """Longest shareable prefix of ``tokens`` resident now: per class
+        the run of consecutive digest hits from page 0, the minimum over
+        classes, capped at ``len(tokens) - 1``. A class whose lane the
+        prompt would wrap cannot share. None on a miss."""
+        L = len(tokens)
+        ps = self.page_size
+        m_max = L // ps
+        if m_max == 0:
+            return None
+        digests = prefix_digests(tokens, ps, m_max)
+        m = m_max
+        for c in self.classes.values():
+            if L > c.width:
+                return None
+            mc = 0
+            while mc < m and (mc, digests[mc]) in c.index:
+                mc += 1
+            m = min(m, mc)
+            if m == 0:
+                return None
+        n_shared = min(m * ps, L - 1)
+        k = -(-n_shared // ps)  # mapped pages cover [0, n_shared)
+        pages = {w: [c.index[(lp, digests[lp])] for lp in range(k)]
+                 for w, c in self.classes.items()}
+        return PrefixHit(n_shared=n_shared, pages=pages)
+
+    def map_shared(self, slot: int, hit: PrefixHit) -> None:
+        """Point ``slot``'s logical pages ``0..k-1`` at the hit pages and
+        take a reference on each; a retained page leaves the LRU."""
+        for w, page_list in hit.pages.items():
+            c = self.classes[w]
+            for lp, pg in enumerate(page_list):
+                assert c.table[slot, lp] == c.FREE, "slot lane not empty"
+                c.table[slot, lp] = pg
+                if c.refcount[pg] == 0:
+                    c.retained.pop(pg, None)
+                c.refcount[pg] += 1
+        if hit.pages:
+            self._dev = None
+
+    def publish_prefix(self, slot: int, tokens: np.ndarray) -> None:
+        """Register ``slot``'s full pages (``lp < len // page_size``) in the
+        prefix index; the first publisher of a key wins."""
+        L = len(tokens)
+        ps = self.page_size
+        m = L // ps
+        if m == 0:
+            return
+        digests = prefix_digests(tokens, ps, m)
+        for c in self.classes.values():
+            if L > c.width:
+                continue  # a wrapped lane is not prefix-determined
+            for lp in range(m):
+                pg = int(c.table[slot, lp])
+                if pg == c.FREE:
+                    break
+                key = (lp, digests[lp])
+                if key in c.index or pg in c.published:
+                    continue
+                c.index[key] = pg
+                c.published[pg] = key
+                self.prefix_version += 1
+
+    def adopt_published(self, width: int, lp: int,
+                        digest: str) -> Optional[int]:
+        """Take a page for an externally supplied prefix page and park it
+        indexed and retained (refcount 0); the caller owes it its bytes.
+        Returns the page (the resident one when the key is indexed), or
+        None when the class has no obtainable page."""
+        c = self.classes[width]
+        key = (lp, digest)
+        if key in c.index:
+            return c.index[key]
+        pg = self._take_page(c)
+        if pg is None:
+            return None
+        c.index[key] = pg
+        c.published[pg] = key
+        c.retained[pg] = None
+        c.retained.move_to_end(pg)
+        self.prefix_version += 1
+        return pg
+
     # -- allocation ----------------------------------------------------
 
-    def _take(self, c: PageClass, slot: int, lp: int) -> None:
-        pg = c.free.pop()
-        c.table[slot, lp] = pg
-        c.refcount[pg] = 1
+    def _unpublish(self, c: PageClass, pg: int) -> None:
+        key = c.published.pop(pg, None)
+        if key is not None:
+            c.index.pop(key, None)
+            self.prefix_version += 1
+
+    def _take_page(self, c: PageClass) -> Optional[int]:
+        """A writable page: the free list first, then the LRU retained page
+        (unpublished)."""
+        if c.free:
+            return c.free.pop()
+        if c.retained:
+            pg, _ = c.retained.popitem(last=False)
+            self._unpublish(c, pg)
+            return pg
+        return None
 
     def alloc_prefix(self, slot: int, n_tokens: int) -> None:
         """Allocate the logical-prefix pages covering positions ``[0,
         min(n_tokens, width))`` in every class (mapped entries are kept).
         All-or-nothing: raises ``RuntimeError`` and allocates nothing if
-        any class lacks free pages."""
+        any class lacks obtainable pages."""
         plan = []
         for c in self.classes.values():
             need = -(-min(n_tokens, c.width) // self.page_size)
@@ -135,50 +296,119 @@ class PagePool:
                     f"{len(lps)} pages, {c.available()} obtainable")
             plan.extend((c, lp) for lp in lps)
         for c, lp in plan:
-            self._take(c, slot, lp)
+            pg = self._take_page(c)
+            c.table[slot, lp] = pg
+            c.refcount[pg] = 1
         if plan:
             self._dev = None
 
-    def ensure_write(self, slot: int, length: int) -> bool:
-        """Make position ``length`` (mod each width) writable for ``slot``,
-        allocating the page it lands on where missing. All-or-nothing:
-        returns False, changing nothing, when any class is out of pages."""
-        plan = []
+    def make_writable(self, slot: int,
+                      length: int) -> Tuple[bool, List[PageCopy]]:
+        """Make position ``length`` (mod each width) writable for ``slot``:
+        allocate its page where missing, copy-on-write it where shared,
+        unpublish it where it is the last reference. All-or-nothing:
+        ``(False, [])``, changing nothing, when a class is out of pages;
+        else ``(True, copies the caller must run)``."""
+        plan = []  # (class, lp, shared source or None)
         for c in self.classes.values():
             lp = (length % c.width) // self.page_size
-            if c.table[slot, lp] == c.FREE:
-                plan.append((c, lp))
-        counts = Counter(id(c) for c, _ in plan)
+            entry = int(c.table[slot, lp])
+            if entry == c.FREE:
+                plan.append((c, lp, None))
+            elif c.refcount[entry] > 1:
+                plan.append((c, lp, entry))
+        counts = Counter(id(c) for c, _, _ in plan)
         if any(counts[id(c)] > c.available() for c in self.classes.values()):
-            return False
-        for c, lp in plan:
-            self._take(c, slot, lp)
+            return False, []
+        copies: List[PageCopy] = []
+        for c, lp, src in plan:
+            pg = self._take_page(c)
+            c.table[slot, lp] = pg
+            c.refcount[pg] = 1
+            if src is not None:
+                c.refcount[src] -= 1  # still >= 1: someone else maps it
+                copies.append((c.width, src, pg))
+        for c in self.classes.values():
+            entry = int(c.table[slot, (length % c.width) // self.page_size])
+            if c.refcount[entry] == 1 and entry in c.published:
+                self._unpublish(c, entry)
         if plan:
             self._dev = None
-        return True
+        return True, copies
 
-    def make_range_writable(self, slot: int, start: int, end: int) -> None:
-        """Check that every position in ``[start, end)`` of ``slot``'s lane
-        is mapped (``alloc_prefix`` ran); raises ``RuntimeError`` otherwise.
-        Without sharing no mapped page needs a copy before the write."""
+    def ensure_write(self, slot: int, length: int) -> bool:
+        """:meth:`make_writable` without the copy list (allocator tests;
+        the engine must run the copies)."""
+        return self.make_writable(slot, length)[0]
+
+    def make_range_writable(self, slot: int, start: int,
+                            end: int) -> List[PageCopy]:
+        """Make every position in ``[start, end)`` writable: copy-on-write
+        shared pages, unpublish sole-owner published ones. The pages must
+        be mapped already (``RuntimeError`` otherwise). All-or-nothing: a
+        ``RuntimeError`` (no page for a copy) changes nothing, so the
+        caller may preempt and retry."""
+        def lps_of(c):
+            return sorted({(p % c.width) // self.page_size
+                           for p in range(start, end)})
+
+        plan = []  # (class, lp, shared page)
+        need: Dict[int, int] = {}
         for c in self.classes.values():
-            for lp in sorted({(p % c.width) // self.page_size
-                              for p in range(start, end)}):
-                if c.table[slot, lp] == c.FREE:
+            for lp in lps_of(c):
+                entry = int(c.table[slot, lp])
+                if entry == c.FREE:
                     raise RuntimeError("write range not allocated")
+                if c.refcount[entry] > 1:
+                    plan.append((c, lp, entry))
+                    need[c.width] = need.get(c.width, 0) + 1
+        for c in self.classes.values():
+            if need.get(c.width, 0) > c.available():
+                raise RuntimeError(
+                    f"page pool exhausted: class width={c.width} needs "
+                    f"{need[c.width]} pages for copy-on-write, "
+                    f"{c.available()} obtainable")
+        copies: List[PageCopy] = []
+        for c, lp, entry in plan:
+            pg = self._take_page(c)
+            c.table[slot, lp] = pg
+            c.refcount[pg] = 1
+            c.refcount[entry] -= 1
+            copies.append((c.width, entry, pg))
+            self._dev = None
+        for c in self.classes.values():
+            for lp in lps_of(c):
+                entry = int(c.table[slot, lp])
+                if c.refcount[entry] == 1 and entry in c.published:
+                    self._unpublish(c, entry)
+        return copies
 
     def release(self, slot: int) -> None:
-        """Drop every reference ``slot`` holds; pages at refcount 0 return
-        to the free list."""
+        """Drop every reference ``slot`` holds. Pages at refcount 0 return
+        to the free list, or, when published, to the retained LRU."""
         for c in self.classes.values():
             held = c.table[slot]
             for lp in np.flatnonzero(held != c.FREE):
                 pg = int(held[lp])
                 c.refcount[pg] -= 1
                 if c.refcount[pg] == 0:
-                    c.free.append(pg)
+                    if pg in c.published:
+                        c.retained[pg] = None
+                        c.retained.move_to_end(pg)
+                    else:
+                        c.free.append(pg)
             held[:] = c.FREE
         self._dev = None
+
+    def drop_prefix_cache(self) -> None:
+        """Unpublish everything and free every retained page."""
+        for c in self.classes.values():
+            for pg in list(c.retained):
+                self._unpublish(c, pg)
+                c.free.append(pg)
+            c.retained.clear()
+            for pg in list(c.published):
+                self._unpublish(c, pg)
 
     def shuffle_free(self, rng: np.random.Generator) -> None:
         """Scramble physical page order (tests: output must not depend on
@@ -200,8 +430,9 @@ class PagePool:
     # -- invariants ----------------------------------------------------
 
     def check_invariants(self) -> None:
-        """Refcounts equal block-table references, the sentinel row is all
-        ``FREE``, and free/mapped partition the pool. Raises
+        """Refcounts equal block-table references, free / retained / mapped
+        partition the pool, the sentinel row is all ``FREE`` and the prefix
+        index is a bijection. Raises
         :class:`~repro_torch.core.errors.AuditError` naming the check."""
         for c in self.classes.values():
             if c.table[self.num_slots].tolist() != [c.FREE] * c.lane_pages:
@@ -218,14 +449,77 @@ class PagePool:
                         f"width={c.width} page {pg}: refcount "
                         f"{int(c.refcount[pg])} != {refs.get(pg, 0)} "
                         "block-table references")
-            if len(set(c.free)) != len(c.free):
+            free, retained = set(c.free), set(c.retained)
+            if len(free) != len(c.free):
                 raise AuditError("free-dup",
                                  f"width={c.width}: free list duplicated")
-            if set(c.free) & set(refs):
+            for check, a, b in (("free-mapped", free, set(refs)),
+                                ("retained-free", retained, free),
+                                ("retained-mapped", retained, set(refs))):
+                if a & b:
+                    raise AuditError(check, f"width={c.width}: pages "
+                                     f"{sorted(a & b)} in both")
+            if retained - set(c.published):
                 raise AuditError(
-                    "free-mapped", f"width={c.width}: pages "
-                    f"{sorted(set(c.free) & set(refs))} free AND mapped")
-            if len(c.free) + len(refs) != c.num_pages:
+                    "retained-unpublished", f"width={c.width}: pages "
+                    f"{sorted(retained - set(c.published))} retained but "
+                    "not in the prefix index")
+            if len(free) + len(retained) + len(refs) != c.num_pages:
                 raise AuditError(
-                    "page-leak", f"width={c.width}: free {len(c.free)} + "
-                    f"mapped {len(refs)} != {c.num_pages} pool pages")
+                    "page-leak", f"width={c.width}: free {len(free)} + "
+                    f"retained {len(retained)} + mapped {len(refs)} != "
+                    f"{c.num_pages} pool pages")
+            if len(c.index) != len(c.published) or any(
+                    c.published.get(pg) != key
+                    for key, pg in c.index.items()):
+                raise AuditError("index-bijection",
+                                 f"width={c.width}: prefix index and "
+                                 "published map disagree")
+
+    def check_lane_bounds(self, slot: int, length: int) -> None:
+        """One active slot's block tables against its occupancy: allocated
+        entries form a logical prefix, in range, covering ``[0, length]``
+        (this step's write included)."""
+        ps = self.page_size
+        for c in self.classes.values():
+            held = c.table[slot]
+            k = 0
+            while k < c.lane_pages and held[k] != c.FREE:
+                k += 1
+            if not (held[k:] == c.FREE).all():
+                raise AuditError(
+                    "lane-prefix", f"slot {slot} width={c.width}: allocated "
+                    "pages are not a logical prefix of the lane: "
+                    f"{held.tolist()}")
+            if ((held[:k] < 0) | (held[:k] >= c.num_pages)).any():
+                raise AuditError(
+                    "table-range", f"slot {slot} width={c.width}: physical "
+                    f"page id out of range: {held[:k].tolist()}")
+            need = -(-min(length + 1, c.width) // ps)
+            if k < need:
+                raise AuditError(
+                    "lane-bounds", f"slot {slot} width={c.width}: occupancy "
+                    f"[0, {length}) + next write needs {need} pages, lane "
+                    f"holds {k}")
+
+    def check_write_private(self, slot: int, length: int) -> None:
+        """The copy-on-write postcondition for one active slot: the page
+        its next write (position ``length``) lands in is mapped, held by
+        this slot alone, and not in the prefix index."""
+        for c in self.classes.values():
+            lp = (length % c.width) // self.page_size
+            pg = int(c.table[slot, lp])
+            if pg == c.FREE:
+                raise AuditError(
+                    "write-unmapped", f"slot {slot} width={c.width}: write "
+                    f"position {length} lands on unallocated logical page "
+                    f"{lp}")
+            if c.refcount[pg] != 1:
+                raise AuditError(
+                    "cow-write-shared", f"slot {slot} width={c.width}: "
+                    f"write-target page {pg} has refcount "
+                    f"{int(c.refcount[pg])} (must be exclusively owned)")
+            if pg in c.published:
+                raise AuditError(
+                    "cow-write-published", f"slot {slot} width={c.width}: "
+                    f"write-target page {pg} is still in the prefix index")

@@ -4,7 +4,7 @@
 request carries the same fields; the engine refuses any that ask for
 sampling (temperature > 0 or top-k) — seeded sampling needs the
 reference's threefry draws bit for bit and comes with a later slice
-(ROADMAP Queue 1 item 7).
+(ROADMAP Queue 1 item 7c).
 """
 from __future__ import annotations
 

@@ -12,13 +12,16 @@
 
 Both stop at the first queue head that a page-budget ``reserve`` callback
 refuses (head-blocking, never skip-ahead), so admission order is
-deterministic. Prefix-sharing probes and the row-per-request layout of
-recurrent stacks (``pack=False``) are refused in this slice.
+deterministic. With prefix sharing the engine passes a ``probe``: requests
+whose leading tokens sit in the prefix cache ride row-per-request
+**shared** admissions, hits adjacent in admission order batched into one
+suffix sweep. The row-per-request layout of recurrent stacks
+(``pack=False``) comes with ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -56,12 +59,17 @@ class Request:
 @dataclasses.dataclass
 class Admission:
     """One prefill sweep's worth of admitted requests: a ``packed`` batch
-    of short prompts, or one long prompt's ``chunks`` (its prefill row is
-    ``len(chunks) * max_len`` wide)."""
+    of short prompts, one long prompt's ``chunks`` (its prefill row is
+    ``len(chunks) * max_len`` wide), or (``shared_prefix > 0``) requests
+    whose leading tokens are expected in the prefix cache, one row each:
+    ``shared_prefixes[i]`` is request i's estimate, ``shared_prefix`` the
+    largest. The engine re-probes at prefill time."""
 
     requests: List[Request]
     packed: Optional[PackedBatch] = None
     chunks: Optional[List[np.ndarray]] = None
+    shared_prefix: int = 0
+    shared_prefixes: Optional[List[int]] = None
 
     @property
     def utilization(self) -> float:
@@ -105,7 +113,9 @@ class Scheduler:
         return len(self.queue)
 
     def requeue(self, req: Request) -> None:
-        """Put a request back at the queue head."""
+        """Put a request (a preempted continuation) back at the queue
+        head, skipping :meth:`submit`'s length check: a continuation
+        carries its generated tokens, and its admission proved they fit."""
         self.queue.insert(0, req)
 
     def drop_where(self, pred: Callable[[Request], bool]) -> List[Request]:
@@ -121,27 +131,46 @@ class Scheduler:
     def next_admissions(self, free_slots: int, reserve=None,
                         probe=None) -> List[Admission]:
         """Admit up to ``free_slots`` queue-head requests that ``reserve``
-        accepts, as admission groups: each prompt longer than ``max_len``
-        its own chunked group, in queue order, then one packed group of the
-        short ones. A packing wider than ``max_rows`` rows hands its last
-        requests back to the queue head."""
-        if probe is not None:
-            raise UnsupportedConfigError(
-                "prefix-sharing probes come with a later slice of the port "
-                "(ROADMAP Queue 1 item 7)")
+        accepts, as admission groups in queue order: requests that
+        ``probe`` reports a prefix hit for gather into shared groups (at
+        most ``max_rows`` each), each prompt longer than ``max_len`` is its
+        own chunked group (flushing the hits buffered before it), then one
+        packed group of the short ones. A packing wider than ``max_rows``
+        rows hands its last requests back to the queue head."""
         groups: List[Admission] = []
         shorts: List[Request] = []
+        hits: List[Request] = []
+        hit_ns: List[int] = []
+
+        def flush_hits() -> None:
+            if hits:
+                groups.append(Admission(requests=list(hits),
+                                        shared_prefix=max(hit_ns),
+                                        shared_prefixes=list(hit_ns)))
+                hits.clear()
+                hit_ns.clear()
+
         taken = 0
         while (self.queue and taken < free_slots
                and (reserve is None or reserve(self.queue[0]))):
-            req = self.queue.pop(0)
-            if len(req.prompt) > self.policy.max_len:
+            req = self.queue[0]
+            shared = probe(req) if probe is not None else 0
+            if shared > 0:
+                self.queue.pop(0)
+                hits.append(req)
+                hit_ns.append(shared)
+                if len(hits) >= self.max_rows:
+                    flush_hits()
+            elif len(req.prompt) > self.policy.max_len:
+                flush_hits()
+                self.queue.pop(0)
                 groups.append(Admission(
                     requests=[req],
                     chunks=chunk_prompt(req.prompt, self.policy.max_len)))
             else:
-                shorts.append(req)
+                shorts.append(self.queue.pop(0))
             taken += 1
+        flush_hits()
         if shorts:
             packed = pack_requests([r.prompt for r in shorts], self.policy)
             while packed.rows > self.max_rows and len(shorts) > 1:
@@ -151,11 +180,14 @@ class Scheduler:
             groups.append(Admission(requests=shorts, packed=packed))
         return groups
 
-    def next_mixed(self, free_slots: int, reserve=None) -> List[Request]:
+    def next_mixed(self, free_slots: int, reserve=None,
+                   probe=None) -> List[Tuple[Request, int]]:
         """Pop up to ``free_slots`` queue-head requests that ``reserve``
-        accepts (FIFO head-blocking)."""
-        out: List[Request] = []
+        accepts (FIFO head-blocking), as ``(request, probe estimate)``
+        pairs (0 without a ``probe``; the engine re-probes)."""
+        out: List[Tuple[Request, int]] = []
         while (self.queue and len(out) < free_slots
                and (reserve is None or reserve(self.queue[0]))):
-            out.append(self.queue.pop(0))
+            req = self.queue.pop(0)
+            out.append((req, probe(req) if probe is not None else 0))
         return out

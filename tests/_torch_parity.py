@@ -87,3 +87,64 @@ def paged_pool(rng, *, B, Hkv, D, ps, n, extra_pages=3, free_tail=True):
     k = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
     v = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
     return k, v, perm, P
+
+
+# Host counters the sharing and preemption parity tests hold to the
+# reference's (exact: they follow lengths and prompt tokens, not logits).
+SHARE_STATS = ("prefix_hit_ratio", "pages_shared", "preemptions",
+               "preemptions_recovered", "kv_memory_ratio", "steps",
+               "mixed_steps", "decoded_tokens", "status_counts")
+
+
+def jax_smoke(arch: str, n_layers: int = 2, seed: int = 0, **over):
+    """Float32 ``arch`` smoke in the reference: (cfg, Model, params)."""
+    import jax
+    from repro.configs import get_config
+    from repro.models.transformer import Model
+    cfg = get_config(arch, "smoke", dtype="float32", n_layers=n_layers,
+                     **over)
+    m = Model(cfg)
+    return cfg, m, m.init(jax.random.key(seed))
+
+
+def torch_smoke(arch: str, jax_params, n_layers: int = 2, device=CPU,
+                **over):
+    """The port's float32 ``arch`` smoke with the reference's parameters
+    bridged over: (Model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch, "smoke", dtype="float32", n_layers=n_layers,
+                     **over)
+    return Model(cfg, device=device), params_from_numpy(
+        to_numpy_tree(jax_params), device)
+
+
+def serve_rounds(pkg: str, model, params, rounds, **cfg_kw):
+    """Serve ``rounds`` on ONE engine of package ``pkg`` (``"repro"`` or
+    ``"repro_torch"``), one ``run`` per round; each round is a list of
+    ``(rid, prompt, max_new_tokens)`` or ``(tick, (rid, prompt,
+    max_new_tokens))`` arrivals. Returns ``({rid: (output, status)},
+    [SHARE_STATS of each round], engine)``; the pool's invariants are
+    checked after every round."""
+    import importlib
+    serve = importlib.import_module(pkg + ".serve")
+    eng = serve.Engine(model, params, config=serve.EngineConfig(**cfg_kw))
+    out, stats = {}, []
+    for rnd in rounds:
+        arrivals = []
+        for item in rnd:
+            tick, (rid, prompt, budget) = item if len(item) == 2 \
+                else (0, item)
+            req = serve.Request(rid=rid, prompt=prompt,
+                                max_new_tokens=budget)
+            if tick:
+                arrivals.append((tick, req))
+            else:
+                eng.submit(req)
+        done = eng.run(arrivals=arrivals)
+        out.update({r.rid: (list(r.output), r.status) for r in done})
+        stats.append({k: eng.decode_stats[k] for k in SHARE_STATS})
+        if eng.paged:
+            eng.slots.pool.check_invariants()
+    return out, stats, eng

@@ -141,7 +141,6 @@ def _refusals():
                         {}),
         "temperature": (EngineConfig(temperature=0.7, **base), {}, {}),
         "top_k": (EngineConfig(top_k=4, **base), {}, {}),
-        "prefix_share": (EngineConfig(), {}, {}),
         "audit": (EngineConfig(audit=True, **base), {}, {}),
         "faults": (EngineConfig(**base), {"faults": object()}, {}),
         "mesh": (EngineConfig(**base), {"mesh": object()}, {}),
@@ -183,21 +182,25 @@ def test_refused_models(arch, over):
 
 
 def test_per_request_sampling_and_dry_pool_refused(qwen):
+    """Per-request sampling is refused (ROADMAP Queue 1 item 7c). The dry
+    pool is no longer refused: 7 pages of 8 tokens cannot hold two
+    30-token prompts growing at once, so the engine preempts and requeues
+    (as the reference does) and serves every request with the tokens of
+    an uncut pool."""
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.serve import (Engine, EngineConfig, Request,
                                    SamplingParams)
     cfg, _, _, tm, tparams = qwen
-    eng = Engine(tm, tparams, config=EngineConfig(prefix_share=False,
-                                                  **tp.ENGINE_KW))
-    with pytest.raises(UnsupportedConfigError):
+    eng = Engine(tm, tparams, config=EngineConfig(**tp.ENGINE_KW))
+    with pytest.raises(UnsupportedConfigError, match="7c"):
         eng.submit(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
                            sampling=SamplingParams(temperature=0.5)))
-    # 7 pages of 8 tokens cannot hold two 30-token prompts growing at
-    # once: the reference would preempt, which is refused here.
-    small = Engine(tm, tparams, config=EngineConfig(
-        prefix_share=False, page_size=8, pool_frac=0.34, **tp.ENGINE_KW))
-    assert small.slots.pool.total_pages == 7
-    for i, p in enumerate(tp.prompts(cfg.vocab_size, [30, 30, 30])):
-        small.submit(Request(rid=i, prompt=p, max_new_tokens=4))
-    with pytest.raises(UnsupportedConfigError, match="later slice"):
-        small.run()
+    outs = []
+    for frac in (0.34, 1.0):
+        small = Engine(tm, tparams, config=EngineConfig(
+            page_size=8, pool_frac=frac, **tp.ENGINE_KW))
+        for i, p in enumerate(tp.prompts(cfg.vocab_size, [30, 30, 30])):
+            small.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+        outs.append({r.rid: (list(r.output), r.status) for r in small.run()})
+        outs.append(small.decode_stats["preemptions"])
+    assert outs[0] == outs[2] and outs[1] > 0 and outs[3] == 0

@@ -82,14 +82,13 @@ def test_assign_many_matches_reference(models, kv_quant, page_size):
 
 
 def test_assign_many_refusals_and_rollback(models):
-    from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.serve.kv_slots import SlotKVCache
     _, tm = models[False]
     src = {k: tp.t(v) for k, v in _source(np.random.default_rng(0),
                                           tm).items()}
     ts = SlotKVCache(tm, NUM_SLOTS, CACHE_LEN)
-    with pytest.raises(UnsupportedConfigError):
-        ts.assign_many([(0, "a", 0, 0, 4, 2)], src)  # offset: sharing
+    with pytest.raises(ValueError, match="paged"):
+        ts.assign_many([(0, "a", 0, 0, 4, 2)], src)  # offset: paged only
     with pytest.raises(ValueError):
         ts.assign_many([(0, "a", 0, 0, 4), (0, "b", 1, 0, 4)], src)
     with pytest.raises(ValueError):

@@ -132,10 +132,13 @@ def test_scheduler_refuses_sharing_and_row_layout():
     from repro_torch.serve.scheduler import Request, Scheduler
     with pytest.raises(UnsupportedConfigError):
         Scheduler(pack=False)
+    # Sharing probes are served now: a hit rides a shared admission.
     s = Scheduler(max_len=8)
     s.submit(Request(rid=0, prompt=np.arange(3, dtype=np.int32)))
-    with pytest.raises(UnsupportedConfigError):
-        s.next_admissions(2, probe=lambda r: 0)
+    s.submit(Request(rid=1, prompt=np.arange(12, dtype=np.int32)))
+    (hit, packed) = s.next_admissions(2, probe=lambda r: 8 * r.rid)
+    assert hit.shared_prefixes == [8] and hit.requests[0].rid == 1
+    assert packed.packed is not None and packed.requests[0].rid == 0
     with pytest.raises(ValueError):
         Scheduler(max_len=8, max_prompt_len=4).submit(
             Request(rid=1, prompt=np.arange(5, dtype=np.int32)))

@@ -129,7 +129,7 @@ def test_scheduler_and_chunking_match_reference():
             return True
         return f
 
-    got = [r.rid for r in a.next_mixed(4, reserve=reserve("a"))]
+    got = [r.rid for r, _ in a.next_mixed(4, reserve=reserve("a"))]
     ref = [r.rid for r, _ in b.next_mixed(4, reserve=reserve("b"))]
     assert got == ref
     assert [r.rid for r in a.drop_where(lambda r: r.rid == 4)] == \
