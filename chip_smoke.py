@@ -103,7 +103,26 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               mixed engine (prefill budgets None and 4) and the serialized
               paged engine, with hits; preemption: a pool of 7 pages that
               preempts gives the tokens of an uncut pool (mixed and
-              serialized paged).
+              serialized paged). The serving surface, card against the
+              port's CPU run of the same workload on the same params
+              (``surface_checks``; tokens, statuses and host counters
+              equal): a sampled engine (temperature 0.8, top-k 12, seed 7)
+              mixed and serialized; a greedy batch with per-request
+              ``SamplingParams`` (its greedy requests keep the greedy
+              run's tokens); the sampled engine over a 7-page pool that
+              preempts (also equal to the uncut pool's tokens); a chaos
+              ``FaultPlan`` (allocation failures, forced preemptions, NaN
+              logits, stalls) with audits on; ``audit=True`` against the
+              same run without it; a ``Frontend`` against ``Engine.run``;
+              a two-replica ``Dispatcher`` with a fleet index against one
+              engine, pages restored from the fleet.
+   sampler  — the sampler at the full-width vocabulary: (8, 152064) f32
+              logits from a seed, five (seed, position, temperature,
+              top-k) sets; the card's threefry bits equal to the CPU's as
+              integers, its uniforms bit-identical, its tokens equal but
+              for rows whose top two perturbed scores lie within 4 ulp
+              (counted; expected none); launches and device ms per call
+              of the sampler and of the greedy argmax.
 4. serve    — the main path at full width: qwen2.5-32b (d_model 5120, 40/8
               heads, d_head 128, d_ff 27648, vocab 152064; depth cut to 8
               of 64 layers), random weights from torch.Generator seed 0,
@@ -129,6 +148,23 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               CPU for the same workload on the 2-layer float32 smoke config.
               Reports tok/s, TTFT, K/V token writes against the cold run and
               the requests whose bf16 tokens equal the cold run's.
+   sampled_serve — phase 4's workload on its params with seeded sampling
+              (temperature 0.8, top-k 50): 16/16 ``ok`` with the launch
+              checks of phase 4, two runs of seed 0 token-identical, seed
+              1 changing more than half the requests; tok/s, TTFT and step
+              times beside the greedy serve's, and a short profiled window
+              (8 requests) of a greedy and a sampled engine: launches and
+              device ms per decode and mixed step, and of the token choice
+              alone.
+   fleet_serve — two replicas over the same prepared weights behind a
+              ``Dispatcher`` and a ``FleetPrefixIndex`` serve
+              ``profile_serve.shared_workload`` (request 0 first, the
+              other up-front requests at tick 3): 16/16 ``ok``, pages
+              restored from the fleet, host counters (routing, hit ratios,
+              pages shared and restored, the fleet's counters, steps)
+              equal to the CPU smoke run's; then a ``Frontend`` over one
+              full-width engine gives ``Engine.run``'s tokens on a Poisson
+              trace with per-request sampling.
 5. compressed — the same model factorized (T-REX defaults: rank 0.625,
               nnz 0.125 of the rank), its f32 weights drawn on the card,
               W_D projected and the whole tree compressed on the card, then
@@ -208,6 +244,34 @@ def time_ms(torch, fn, reps=20):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def range_profile(torch, fn, reps=20):
+    """(median device ms, median kernel launches) of one call, from the
+    kernels that the profiler's op tree puts inside each call's host range
+    (``profile_serve.range_kernels``), with a cold L2 before every call:
+    for calls whose own kernels include the separator of
+    :func:`device_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.profile_serve import range_kernels
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            with record_function("smoke.call"):
+                fn()
+        torch.cuda.synchronize()
+    calls = [range_kernels(e) for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name == "smoke.call"]
+    if len(calls) != reps or not all(n for n, _ in calls):
+        fail(f"range_profile: {len(calls)} calls, kernels {calls}")
+    ns = sorted(n for n, _ in calls)
+    ms = sorted(m for _, m in calls)
+    return ms[reps // 2], ns[reps // 2]
 
 
 def device_ms(torch, fn, reps=20):
@@ -1577,8 +1641,10 @@ def phase_tokens(torch):
             fail(f"preemption {label}: {n_pre} preemptions, tokens "
                  f"{runs_[0][0]} vs uncut {runs_[1][0]}")
         preempt[label] = n_pre
+    surface = surface_checks(torch, np, model, params)
     line("tokens", seconds=round(time.perf_counter() - t0, 3),
          float32_smoke_identical=True, prefill_budgets=checked, tokens=n_tok,
+         card_vs_cpu_identical=surface,
          sharing_identical_to_cold=sharing,
          preemption_identical_to_uncut_pool={"preemptions": preempt},
          serialized_identical={
@@ -1587,6 +1653,400 @@ def phase_tokens(torch):
          serialized_int8_tokens=ser_tok,
          compressed_identical=True, compressed_prefill_budgets=[16, None],
          compressed_tokens=sum(len(v) for v in got.values()))
+
+
+def tree_to(tree, dev):
+    """A params tree (nested dicts of tensors) copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# Engine-wide sampling of the float32 smoke comparisons (the reference's
+# test_pages.py settings).
+SMOKE_SAMPLED = dict(temperature=0.8, top_k=12, seed=7)
+CHAOS = dict(seed=5, p_alloc_fail=0.05, p_forced_preempt=0.2,
+             p_nan_logits=0.04, p_stall=0.1, max_faults=10)
+SURFACE_COUNTERS = ("status_counts", "preemptions", "preemptions_recovered",
+                    "faults_injected", "steps", "mixed_steps",
+                    "decoded_tokens", "prefix_hit_ratio", "pages_shared",
+                    "fleet_restored_pages", "clock_ticks")
+
+
+def surface_checks(torch, np, model, params):
+    """The serving surface of the float32 smoke config on the card against
+    the port's CPU run of the same workload on the same params: tokens,
+    statuses and host counters (SURFACE_COUNTERS) must be equal for a
+    sampled engine (mixed and serialized), a greedy batch with per-request
+    ``SamplingParams``, the sampled engine over a cut pool that preempts
+    (which must also equal the uncut pool's tokens), a chaos ``FaultPlan``
+    with audits on (statuses, outputs, ``faults_injected``,
+    ``preemptions``), ``audit=True`` against the run without it, a
+    ``Frontend`` against ``Engine.run``, and a two-replica ``Dispatcher``
+    with a fleet index against one engine (same tokens; routing and
+    ``fleet_restored_pages`` equal the CPU's). Returns a summary."""
+    import asyncio
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import (Dispatcher, Engine, EngineConfig,
+                                   FaultPlan, Frontend, Request,
+                                   SamplingParams)
+    cfg = model.cfg
+    models = {"cuda": (model, params),
+              "cpu": (Model(cfg, device="cpu"), tree_to(params, "cpu"))}
+    V = cfg.vocab_size
+    rng = np.random.default_rng(1)
+    base = ([rng.integers(0, V, size=n).astype(np.int32)
+             for n in (5, 25, 12, 18)], [6, 5, 4, 6], [1, 1, 3, 6])
+    prng = np.random.default_rng(5)
+    tight = ([prng.integers(0, V, size=n).astype(np.int32)
+              for n in (30, 30, 30, 12)], [8] * 4, [1] * 4)
+    srng = np.random.default_rng(6)
+    pre = srng.integers(0, V, size=17).astype(np.int32)
+    system = ([np.concatenate([pre, srng.integers(0, V, size=n)])
+               .astype(np.int32) for n in (3, 9, 1, 14, 6, 2, 11, 5)],
+              [4 + i % 3 for i in range(8)], [1, 1, 1, 1, 2, 4, 6, 9])
+    # one request first, the rest once its prompt is published: the
+    # second replica's first probe restores the prefix from the fleet
+    fleet_work = system[:2] + ([1, 4, 4, 5, 5, 6, 8, 9],)
+    per_req = [{"sampling": SamplingParams(temperature=0.9, top_k=4,
+                                           seed=7 + i)} if i % 2 else {}
+               for i in range(4)]
+    kw0 = dict(max_len=16, max_new_tokens=8, num_slots=3, max_prompt_len=40,
+               page_size=8)
+
+    def arrivals(work, req_kw=None):
+        prompts, budgets, ticks = work
+        return [(t, Request(rid=i, prompt=p, max_new_tokens=b,
+                            **(req_kw[i] if req_kw else {})))
+                for i, (p, b, t) in enumerate(zip(prompts, budgets, ticks))]
+
+    def result(done, st):
+        if sorted(r.rid for r in done) != sorted(set(r.rid for r in done)):
+            fail("a request came back twice")
+        return ({r.rid: (r.status, list(r.output)) for r in done},
+                {k: st.get(k) for k in SURFACE_COUNTERS})
+
+    def engine(dev, faults=None, **kw):
+        m, p = models[dev]
+        return Engine(m, p, config=EngineConfig(**{**kw0, **kw}),
+                      faults=faults)
+
+    def serve(dev, work, req_kw=None, faults=None, **kw):
+        eng = engine(dev, faults, **kw)
+        done = eng.run(arrivals=arrivals(work, req_kw))
+        if eng.paged:
+            eng.slots.pool.check_invariants()
+        return result(done, eng.decode_stats)
+
+    def frontend(dev, work, req_kw=None, **kw):
+        eng = engine(dev, **kw)
+
+        async def main():
+            async with Frontend(eng) as fe:
+                hs = [fe.submit(r, tick=t) for t, r in arrivals(work,
+                                                                req_kw)]
+                streams = await asyncio.gather(*(_collect(h) for h in hs))
+            return fe, streams
+
+        fe, streams = asyncio.run(main())
+        out = result(fe.results, fe.stats)
+        if {h: s for h, s in streams} != {r: o for r, (_, o)
+                                           in out[0].items()}:
+            fail("frontend: streamed tokens differ from the outputs")
+        return out
+
+    def dispatch(dev, work, **kw):
+        disp = Dispatcher([engine(dev, **kw) for _ in range(2)])
+        done = disp.run(arrivals=arrivals(work))
+        st = disp.decode_stats
+        out = result(done, st)
+        out[1].update(routed_counts=st["routed_counts"],
+                      fleet=st.get("fleet"), prefix_hit_ratio=[
+                          r["prefix_hit_ratio"] for r in st["replicas"]])
+        return out
+
+    scenarios = {
+        "sampled_mixed": lambda d: serve(d, base, mixed=True,
+                                         **SMOKE_SAMPLED),
+        "sampled_serialized": lambda d: serve(d, base, mixed=False,
+                                              **SMOKE_SAMPLED),
+        "per_request_sampling": lambda d: serve(d, base, per_req),
+        "sampled_cut_pool": lambda d: serve(d, tight, pool_frac=0.34,
+                                            **SMOKE_SAMPLED),
+        "chaos": lambda d: serve(d, base, faults=FaultPlan(**CHAOS),
+                                 audit=True, num_slots=4, max_new_tokens=16),
+        "frontend": lambda d: frontend(d, base, per_req),
+        "dispatcher_fleet": lambda d: dispatch(d, fleet_work,
+                                               max_new_tokens=6),
+    }
+    summary = {}
+    got = {}
+    for name, fn in scenarios.items():
+        got[name] = card = fn("cuda")
+        cpu = fn("cpu")
+        if card != cpu:
+            fail(f"tokens: {name} on the card {card} differs from the CPU "
+                 f"run {cpu}")
+        summary[name] = {k: v for k, v in card[1].items()
+                         if k in ("preemptions", "faults_injected",
+                                  "fleet_restored_pages", "routed_counts")
+                         and v}
+        summary[name]["statuses"] = {k: v for k, v in
+                                     card[1]["status_counts"].items() if v}
+    # the card's runs against each other
+    uncut = serve("cuda", tight, **SMOKE_SAMPLED)
+    if got["sampled_cut_pool"][0] != uncut[0] \
+            or not got["sampled_cut_pool"][1]["preemptions"] > 0:
+        fail(f"tokens: the sampled cut pool {got['sampled_cut_pool']} "
+             f"against the uncut pool {uncut}")
+    audited = serve("cuda", base, audit=True, **SMOKE_SAMPLED)
+    if audited != got["sampled_mixed"]:
+        fail("tokens: audit=True changed the sampled run")
+    if got["frontend"][0] != got["per_request_sampling"][0]:
+        fail("tokens: the Frontend's tokens differ from Engine.run's")
+    one = serve("cuda", fleet_work, max_new_tokens=6)
+    if got["dispatcher_fleet"][0] != one[0] or \
+            not got["dispatcher_fleet"][1]["fleet_restored_pages"] > 0:
+        fail(f"tokens: the two-replica fleet {got['dispatcher_fleet']} "
+             f"against one engine {one}")
+    chaos = got["chaos"][1]
+    if not sum(chaos["faults_injected"].values()) > 0:
+        fail("tokens: the chaos plan injected nothing")
+    greedy = serve("cuda", base)
+    for rid in (0, 2):
+        if got["per_request_sampling"][0][rid] != greedy[0][rid]:
+            fail("tokens: a greedy request of the per-request batch moved")
+    return summary
+
+
+async def _collect(handle):
+    return handle.request.rid, [tok async for tok in handle]
+
+
+# The sampler phase's (base seed, base position, temperature, top_k) sets:
+# row b draws with seed + b and position + b (32-bit words).
+SAMPLER_SETS = ((7, 1, 0.8, 50), (0, 513, 1.0, 0),
+                (2**32 - 1, 2**31 - 1, 0.5, 1),
+                (123456789, 40000, 1.3, 152064), (42, 7, 0.8, 12))
+TIE_ULP = 4  # rows whose top two perturbed scores lie this close
+
+
+def phase_sampler(torch, np):
+    """The sampler at the full-width vocabulary on the card against the
+    CPU: (8, 152064) float32 logits from a seed, for each SAMPLER_SETS
+    entry the raw threefry bits must be equal as integers, the uniforms
+    bit-identical and the tokens equal, except rows whose top two
+    perturbed scores (Gumbel noise plus the truncated scaled logits, on
+    the CPU) lie within TIE_ULP ulp, which are counted (expected: none).
+    Records the sampler's launches and device ms per call
+    (``torch.profiler``) beside the greedy argmax's."""
+    from repro_torch.serve import sampling as S
+    t0 = time.perf_counter()
+    B, V = 8, 152064
+    logits_cpu = 4 * torch.randn(B, V, generator=torch.Generator()
+                                 .manual_seed(11))
+    logits = logits_cpu.cuda()
+    ties, checked = 0, []
+    for seed, pos, temp, topk in SAMPLER_SETS:
+        seeds = ((seed + np.arange(B)) & 0xFFFFFFFF).astype(np.uint32)
+        positions = (pos + np.arange(B)) & 0xFFFFFFFF
+        temps = np.full(B, temp, np.float32)
+        topks = np.full(B, topk, np.int32)
+        kc = S.row_keys(seeds, positions, "cuda")
+        kh = S.row_keys(seeds, positions, "cpu")
+        if not torch.equal(S.random_bits(kc, V).cpu(), S.random_bits(kh, V)):
+            fail(f"sampler {seed, pos}: threefry bits differ from the CPU's")
+        if not torch.equal(S.uniform(kc, V).cpu().view(torch.int32),
+                           S.uniform(kh, V).view(torch.int32)):
+            fail(f"sampler {seed, pos}: uniforms differ from the CPU's")
+        got = S.sample_tokens_batch(logits, seeds, positions, temps,
+                                    topks).cpu()
+        want = S.sample_tokens_batch(logits_cpu, seeds, positions, temps,
+                                     topks)
+        score = S.gumbel(kh, V) + S.truncate_batch(logits_cpu, temps, topks)
+        top2 = torch.topk(score, 2).values
+        ulp = torch.nextafter(top2[:, 0], torch.tensor(float("inf"))) \
+            - top2[:, 0]
+        tie = (top2[:, 0] - top2[:, 1]) <= TIE_ULP * ulp
+        bad = (got != want) & ~tie
+        if bad.any():
+            fail(f"sampler {seed, pos, temp, topk}: tokens {got.tolist()} "
+                 f"against the CPU's {want.tolist()}")
+        ties += int(tie.sum())
+        checked.append([seed, pos, temp, topk])
+    temps = np.array([0.8, 0.0] * 4, np.float32)
+    sampling = (torch.tensor(np.arange(B), device="cuda"),
+                torch.full((B,), 300, device="cuda"),
+                torch.tensor(temps, device="cuda"),
+                torch.full((B,), 50, dtype=torch.int32, device="cuda"))
+    s_ms, s_n = range_profile(torch, lambda: S.sample_or_greedy(logits,
+                                                               sampling),
+                              reps=10)
+    g_ms, g_n = range_profile(torch, lambda: S.greedy_tokens(logits),
+                              reps=10)
+    line("sampler", seconds=round(time.perf_counter() - t0, 3),
+         shape=[B, V], sets=checked, bits_equal=True, uniforms_equal=True,
+         tokens_equal_except_near_ties=True, near_tie_rows=ties,
+         tie_ulp=TIE_ULP, sampler_launches=s_n, sampler_device_ms=s_ms,
+         greedy_launches=g_n, greedy_device_ms=g_ms)
+
+
+def twin_engine(eng, **over):
+    """Another engine over ``eng``'s prepared weights (the same tensors, no
+    second copy), priced at the same weight stream."""
+    from repro_torch.serve import Engine
+    return Engine(eng.model, eng.params, config=dataclasses.replace(
+        eng.config, weight_stream_bits=eng._weight_stream_bits, **over))
+
+
+def short_profile(torch, eng, engine_kw):
+    """profile_serve's per-step breakdown of a short window on ``eng``:
+    the first 8 requests of ``profile_serve.workload`` at 8 new tokens
+    each, served once to warm up, once plainly and once profiled."""
+    import numpy as np
+    from repro_torch.launch.profile_serve import profile_run, workload
+    vocab = eng.model.cfg.vocab_size
+    for _ in range(2):
+        _, up_front, _, _ = workload(vocab, 8)
+        for r in up_front:
+            eng.submit(r)
+        eng.run()
+    plain = {k: float(np.mean(v)) if v else 0.0
+             for k, v in eng.decode_stats["step_ms"].items()}
+    _, up_front, _, _ = workload(vocab, 8)
+    prof = profile_run(eng, up_front, [], plain)
+    return {kind: {k: prof[kind][k] for k in (
+        "steps", "host_ms_per_step_unprofiled", "device_busy_ms_per_step",
+        "launches_per_step", "choose_launches_per_step",
+        "choose_device_ms_per_step")} for kind in ("decode", "mixed")}
+
+
+def phase_sampled_serve(torch, np, model, params, engine_kw, greedy):
+    """The serve phase's workload at full width with seeded sampling
+    (``profile_serve.SAMPLED``): 16/16 ``ok`` with serve_run's launch
+    checks, two runs of the same seed token-identical, another seed
+    changing most requests. Reports tok/s, TTFT and step times beside the
+    greedy serve's, and a short profiled window of each engine: launches
+    and device ms per decode step, and of the token choice alone."""
+    from repro_torch.launch.profile_serve import SAMPLED
+    from repro_torch.serve import Engine, EngineConfig
+    t0 = time.perf_counter()
+    runs = {}
+    for label, seed in (("seed0", 0), ("seed0_again", 0), ("seed1", 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[label] = serve_run(torch, np, model, params, engine_kw,
+                                seed=seed, **SAMPLED)
+    if runs["seed0"][2] != runs["seed0_again"][2]:
+        fail("sampled_serve: the same seed gave other tokens")
+    moved = sum(runs["seed0"][2][r] != runs["seed1"][2][r]
+                for r in runs["seed0"][2])
+    if moved <= len(runs["seed0"][2]) // 2:
+        fail(f"sampled_serve: another seed changed {moved} of 16 requests")
+    eng = Engine(model, params, config=EngineConfig(prefix_share=False,
+                                                    **engine_kw))
+    prof = {"greedy": short_profile(torch, eng, engine_kw),
+            "sampled": short_profile(torch, twin_engine(eng, **SAMPLED),
+                                     engine_kw)}
+    del eng
+    keys = ("output_tok_s", "ttft_p50_s", "ttft_p99_s",
+            "decode_step_ms_median", "mixed_step_ms_median", "steps",
+            "mixed_steps")
+    line("sampled_serve", seconds=round(time.perf_counter() - t0, 3),
+         sampling=SAMPLED, requests=16, ok=16, same_seed_identical=True,
+         other_seed_moved=f"{moved}/16",
+         **{k: runs["seed0"][0][k] for k in keys},
+         again={k: runs["seed0_again"][0][k] for k in keys[:4]},
+         greedy={k: greedy[k] for k in keys},
+         short_window_profile=prof)
+
+
+FLEET_TICK = 3
+
+
+def phase_fleet_serve(torch, np, model, params, engine_kw):
+    """Two replicas over the same prepared weights behind a ``Dispatcher``
+    with a ``FleetPrefixIndex`` serve ``profile_serve.shared_workload``
+    (request 0 at tick 1, the other 7 up-front requests at FLEET_TICK,
+    after request 0's prompt is published): 16/16 ``ok``, at least one
+    page restored from the fleet, and the host
+    counters (routing, per-replica hit ratio, pages shared, fleet
+    restored pages, the fleet's own counters, steps) equal to the port's
+    CPU run of the same workload on the 2-layer float32 smoke config.
+    Then a ``Frontend`` over one full-width engine must give ``Engine.
+    run``'s tokens on a ``traces.poisson_trace`` (half of it with
+    per-request sampling)."""
+    import asyncio
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import shared_workload
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Dispatcher, Engine, EngineConfig, Frontend
+    from repro_torch.serve.traces import build_arrivals, poisson_trace
+    t0 = time.perf_counter()
+    n_new = engine_kw["max_new_tokens"]
+
+    def fleet(m, p):
+        a = Engine(m, p, config=EngineConfig(page_size=128, **engine_kw))
+        disp = Dispatcher([a, twin_engine(a)])
+        warm, up_front, arr, lengths = shared_workload(256, n_new)
+        disp.run(arrivals=[(1, warm)])
+        t1 = time.perf_counter()
+        # request 0 first; the other up-front requests once its prompt
+        # is published, so the second replica's first probe restores the
+        # system prompt's pages from the fleet
+        done = disp.run(arrivals=[(1, up_front[0])] + [
+            (FLEET_TICK, r) for r in up_front[1:]] + arr)
+        if m.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if len(done) != 16 or any(r.status != "ok" for r in done):
+            fail(f"fleet_serve on {m.device}: not 16/16 ok")
+        st = disp.decode_stats
+        counters = dict(
+            routed_counts=st["routed_counts"], steps=st["steps"],
+            pages_shared=st["pages_shared"],
+            fleet_restored_pages=st["fleet_restored_pages"],
+            preemptions=st["preemptions"], fleet=st["fleet"],
+            prefix_hit_ratio=[r["prefix_hit_ratio"] for r in st["replicas"]])
+        for e in disp.replicas:
+            e.slots.pool.check_invariants()
+        toks = sum(len(r.output) for r in done)
+        return counters, toks / wall, disp
+
+    scfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
+    smodel = Model(scfg, device="cpu")
+    cpu, _, _ = fleet(smodel, smodel.init(seed=0))
+    card, tok_s, disp = fleet(model, params)
+    if card != cpu:
+        fail(f"fleet_serve: host counters {card} != the CPU run's {cpu}")
+    if not card["fleet_restored_pages"] > 0:
+        fail("fleet_serve: no page was restored from the fleet")
+    eng = twin_engine(disp.replicas[0], prefix_share=False)
+    del disp
+    specs = poisson_trace(16, seed=0)
+
+    def trace():
+        return build_arrivals(specs, model.cfg.vocab_size, seed=1)
+
+    want = {r.rid: (r.status, list(r.output))
+            for r in eng.run(arrivals=trace())}
+
+    async def drive():
+        async with Frontend(eng) as fe:
+            hs = [fe.submit(r, tick=t) for t, r in trace()]
+            await asyncio.gather(*(h.result() for h in hs))
+        return fe
+
+    fe = asyncio.run(drive())
+    got = {r.rid: (r.status, list(r.output)) for r in fe.results}
+    if got != want or any(s != "ok" for s, _ in got.values()):
+        fail("fleet_serve: the Frontend's tokens differ from Engine.run's")
+    line("fleet_serve", seconds=round(time.perf_counter() - t0, 3),
+         replicas=2, requests=16, ok=16, output_tok_s=tok_s,
+         host_counters_equal_cpu_smoke=True, **card,
+         frontend_vs_run_identical=True,
+         frontend_trace={"requests": len(specs),
+                         "sampled": sum(s.sampled for s in specs)})
 
 
 def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
@@ -1921,9 +2381,14 @@ def main():
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
     table_launches = timed("kernel_table", phase_kernel_table, torch)
     timed("tokens", phase_tokens, torch)
+    timed("sampler", phase_sampler, torch, np)
     dense, runs, model, params = timed("serve", phase_serve, torch, np,
                                        full_cfg, engine_kw)
     timed("shared_serve", phase_shared_serve, torch, np, model, params,
+          engine_kw)
+    timed("sampled_serve", phase_sampled_serve, torch, np, model, params,
+          engine_kw, dense)
+    timed("fleet_serve", phase_fleet_serve, torch, np, model, params,
           engine_kw)
     del model, params
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,

@@ -2,7 +2,8 @@
 ``chip_smoke.py``'s serve phase under ``torch.profiler``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
-      [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]]
+      [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]] \\
+      [--sampled]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -25,7 +26,12 @@ phase-serialized engine, contiguous lanes and int8 K/V lanes (the last two
 imply the serialized engine), as ``launch/serve.py`` does. ``--shared``
 profiles :func:`shared_workload` (system-prompt traffic) through the
 default ``EngineConfig`` (prefix sharing on), ``--pool-frac`` cutting the
-page pool as ``chip_smoke.py``'s shared phase does. Needs a CUDA device.
+page pool as ``chip_smoke.py``'s shared phase does. ``--sampled`` serves
+with seeded sampling (:data:`SAMPLED`: temperature 0.8, top-k 50) instead
+of greedy decoding. Every step also reports its token choice alone
+(``choose_*``: the kernels launched inside ``Engine._choose``, the argmax
+of a greedy step or the sampler of a sampled one), found through the
+profiler's op tree. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,14 +44,18 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ENGINE_KW", "SYSTEM_PROMPT", "serve_config", "compressed_config",
-           "workload", "shared_workload", "main"]
+__all__ = ["ENGINE_KW", "SAMPLED", "SYSTEM_PROMPT", "serve_config",
+           "compressed_config", "workload", "shared_workload", "profile_run",
+           "range_kernels", "main"]
 
 # The full-width serve's engine settings: paged lanes of 128-token pages
 # and mixed steps of chunk width 256 (``workload`` serves them with
 # ``prefix_share=False``, ``shared_workload`` with the default sharing).
 ENGINE_KW = dict(max_len=256, max_new_tokens=32, num_slots=8)
 SYSTEM_PROMPT = 256  # tokens: two full 128-token pages
+# The sampled serve's engine-wide sampling (``--sampled``, chip_smoke.py's
+# sampled_serve phase).
+SAMPLED = dict(temperature=0.8, top_k=50)
 
 _KINDS = {"mixed": "_run_mixed", "decode": "_run_decode",
           "prefill": "_prefill_admission"}
@@ -132,9 +142,119 @@ def _union(iv: List[Tuple[float, float]]) -> float:
     return total
 
 
-def main(argv=None):
+def range_kernels(event) -> Tuple[int, float]:
+    """(launches, device ms) of the kernels launched inside one host range
+    of the profiler's op tree (the range's own device mirror left out)."""
+    n, us, stack = 0, 0.0, [event]
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            if k.name != event.name:
+                n += 1
+                us += k.duration
+        stack.extend(e.cpu_children)
+    return n, us / 1e3
+
+
+def profile_run(eng, up_front, arrivals, plain_ms: Dict[str, float]):
+    """Serve ``up_front`` (submitted first) and ``arrivals`` through
+    ``eng.run`` under ``torch.profiler`` and return the per-step breakdown
+    by step kind (see the module docstring) against ``plain_ms``, the same
+    run's host ms per step without the profiler. Wraps the engine's step
+    and token-choice methods in named ranges for the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    wrapped_attrs = dict(_KINDS, choose="_choose")
+    for kind, attr in wrapped_attrs.items():
+        fn = getattr(eng, attr)
+        name = "serve.choose" if kind == "choose" else f"serve.{kind}_step"
+
+        def wrapped(*a, _fn=fn, _name=name):
+            with record_function(_name):
+                return _fn(*a)
+        setattr(eng, attr, wrapped)
+    try:
+        for r in up_front:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            done = eng.run(arrivals=arrivals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for attr in wrapped_attrs.values():
+            delattr(eng, attr)
+    events = prof.events()
+    # Host ranges of the steps; device kernels (the profiler also mirrors
+    # each record_function range onto the device timeline: skip those).
+    steps = [(e.name.split(".")[1].split("_")[0], e.time_range.start,
+              e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name in {f"serve.{k}_step" for k in _KINDS}]
+    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("serve.")]
+    steps.sort(key=lambda s: s[1])
+    starts = np.array([s[1] for s in steps])
+    per: Dict[str, dict] = {}
+    for kind in _KINDS:
+        per[kind] = {"steps": 0, "host_ms": 0.0, "by_category_ms": {},
+                     "launches": {}, "intervals": [], "choose": [0, 0.0]}
+    for kind, a, b in steps:
+        per[kind]["steps"] += 1
+        per[kind]["host_ms"] += (b - a) / 1e3
+    for name, a, b in kernels:
+        i = int(np.searchsorted(starts, a, side="right")) - 1
+        if i < 0 or a > steps[i][2]:
+            continue  # outside any step (e.g. admission-time table copies)
+        p = per[steps[i][0]]
+        cat = _category(name)
+        p["by_category_ms"][cat] = p["by_category_ms"].get(cat, 0.0) \
+            + (b - a) / 1e3
+        p["launches"][cat] = p["launches"].get(cat, 0) + 1
+        p["intervals"].append((a, b))
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name == "serve.choose":
+            i = int(np.searchsorted(starts, e.time_range.start,
+                                    side="right")) - 1
+            if i >= 0:
+                n, ms = range_kernels(e)
+                per[steps[i][0]]["choose"][0] += n
+                per[steps[i][0]]["choose"][1] += ms
+    out = {"requests": len(done), "wall_s": wall,
+           "kernel_events": len(kernels)}
+    busy_all = _union([(a, b) for _, a, b in kernels]) / 1e3
+    out["device_busy_s"] = busy_all / 1e3
+    out["idle_share"] = 1.0 - busy_all / 1e3 / wall
+    for kind, p in per.items():
+        n = max(p["steps"], 1)
+        busy = _union(p.pop("intervals")) / 1e3
+        out[kind] = {"steps": p["steps"],
+                     "host_ms_per_step_profiled": p["host_ms"] / n,
+                     "host_ms_per_step_unprofiled": plain_ms[kind],
+                     "device_busy_ms_per_step": busy / n,
+                     "idle_share_vs_unprofiled": 1.0 - busy / n
+                     / max(plain_ms[kind], 1e-9),
+                     "by_category_ms_per_step": {
+                         k: v / n for k, v in sorted(
+                             p["by_category_ms"].items())},
+                     "launches_per_step": sum(p["launches"].values()) / n,
+                     "launches_by_category_per_step": {
+                         k: v / n for k, v in sorted(
+                             p["launches"].items())},
+                     "choose_launches_per_step": p["choose"][0] / n,
+                     "choose_device_ms_per_step": p["choose"][1] / n}
+    top = {}
+    for name, a, b in kernels:
+        top[name[:96]] = top.get(name[:96], 0.0) + (b - a) / 1e3
+    out["top_kernels_ms"] = dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                 [:12])
+    return out
+
+
+def main(argv=None):
     from repro_torch.core.factorized import project_wd_leaves
     from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig
@@ -146,6 +266,7 @@ def main(argv=None):
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--shared", action="store_true")
     ap.add_argument("--pool-frac", type=float, default=1.0)
+    ap.add_argument("--sampled", action="store_true")
     args = ap.parse_args(argv)
     cfg = compressed_config() if args.compressed else serve_config()
     if args.kv_quant:
@@ -161,7 +282,8 @@ def main(argv=None):
     eng = Engine(model, params, config=EngineConfig(
         prefix_share=args.shared, pool_frac=args.pool_frac,
         weight_stream_bits=wsb, paged=not args.contiguous,
-        mixed=False if args.serialized else None, **kw))
+        mixed=False if args.serialized else None,
+        **(SAMPLED if args.sampled else {}), **kw))
     del params
 
     def traffic():
@@ -184,88 +306,18 @@ def main(argv=None):
     if args.shared:
         eng.slots.pool.drop_prefix_cache()
     _, up_front, arrivals, _ = traffic()
-
-    for kind, attr in _KINDS.items():
-        fn = getattr(eng, attr)
-
-        def wrapped(*a, _fn=fn, _name=f"serve.{kind}_step"):
-            with record_function(_name):
-                return _fn(*a)
-        setattr(eng, attr, wrapped)
-    for r in up_front:
-        eng.submit(r)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        done = eng.run(arrivals=arrivals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    # Host ranges of the steps; device kernels (the profiler also mirrors
-    # each record_function range onto the device timeline: skip those).
-    steps = [(e.name.split(".")[1].split("_")[0], e.time_range.start,
-              e.time_range.end) for e in events
-             if e.device_type == DeviceType.CPU
-             and e.name in {f"serve.{k}_step" for k in _KINDS}]
-    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in events
-               if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("serve.")]
-    steps.sort(key=lambda s: s[1])
-    starts = np.array([s[1] for s in steps])
-    per: Dict[str, dict] = {}
-    for kind in _KINDS:
-        per[kind] = {"steps": 0, "host_ms": 0.0, "by_category_ms": {},
-                     "launches": {}, "intervals": []}
-    for kind, a, b in steps:
-        per[kind]["steps"] += 1
-        per[kind]["host_ms"] += (b - a) / 1e3
-    for name, a, b in kernels:
-        i = int(np.searchsorted(starts, a, side="right")) - 1
-        if i < 0 or a > steps[i][2]:
-            continue  # outside any step (e.g. admission-time table copies)
-        p = per[steps[i][0]]
-        cat = _category(name)
-        p["by_category_ms"][cat] = p["by_category_ms"].get(cat, 0.0) \
-            + (b - a) / 1e3
-        p["launches"][cat] = p["launches"].get(cat, 0) + 1
-        p["intervals"].append((a, b))
+    prof = profile_run(eng, up_front, arrivals, plain_ms)
     out = {"model": cfg.name, "n_layers": cfg.n_layers,
            "weight_format": model.cfg.weight_format,
            "engine": "mixed" if eng.mixed else "serialized",
            "lanes": "paged" if eng.paged else "contiguous",
            "kv_quant": cfg.kv_quant,
            "shared": args.shared, "pool_frac": args.pool_frac,
+           "sampled": SAMPLED if args.sampled else None,
            "prefix_hit_ratio": eng.decode_stats["prefix_hit_ratio"],
            "pages_shared": eng.decode_stats["pages_shared"],
            "preemptions": eng.decode_stats["preemptions"],
-           "device": torch.cuda.get_device_name(0),
-           "requests": len(done), "wall_s": wall,
-           "kernel_events": len(kernels)}
-    busy_all = _union([(a, b) for _, a, b in kernels]) / 1e3
-    out["device_busy_s"] = busy_all / 1e3
-    out["idle_share"] = 1.0 - busy_all / 1e3 / wall
-    for kind, p in per.items():
-        n = max(p["steps"], 1)
-        busy = _union(p.pop("intervals")) / 1e3
-        out[kind] = {"steps": p["steps"],
-                     "host_ms_per_step_profiled": p["host_ms"] / n,
-                     "host_ms_per_step_unprofiled": plain_ms[kind],
-                     "device_busy_ms_per_step": busy / n,
-                     "idle_share_vs_unprofiled": 1.0 - busy / n
-                     / max(plain_ms[kind], 1e-9),
-                     "by_category_ms_per_step": {
-                         k: v / n for k, v in sorted(
-                             p["by_category_ms"].items())},
-                     "launches_per_step": sum(p["launches"].values()) / n,
-                     "launches_by_category_per_step": {
-                         k: v / n for k, v in sorted(
-                             p["launches"].items())}}
-    top = {}
-    for name, a, b in kernels:
-        top[name[:96]] = top.get(name[:96], 0.0) + (b - a) / 1e3
-    out["top_kernels_ms"] = dict(sorted(top.items(), key=lambda kv: -kv[1])
-                                 [:12])
+           "device": torch.cuda.get_device_name(0), **prof}
     print(json.dumps(out))
 
 

@@ -2,17 +2,15 @@
 with the reference's fields and defaults, whose :meth:`EngineConfig.validate`
 holds every construction-time refusal.
 
-The port serves greedy decoding of attention-only stacks through the
-mixed-step engine (paged, unquantized lanes) or the phase-serialized one
-(contiguous or paged lanes, fp or int8 ``kv_quant``); ``mixed=None``
-picks the mixed step where the stack can take it, as the reference does.
-Prefix sharing (``prefix_share``, on by default) and preemption
-(``pool_frac < 1``, ``max_preemptions_per_request``) are served as the
-reference serves them, so ``EngineConfig()`` is valid. Settings outside
-the port so far raise
+The port serves attention-only stacks through the mixed-step engine
+(paged, unquantized lanes) or the phase-serialized one (contiguous or paged
+lanes, fp or int8 ``kv_quant``); ``mixed=None`` picks the mixed step where
+the stack can take it, as the reference does. Every field is served as the
+reference serves it — greedy or seeded sampling, prefix sharing,
+preemption, audits — so ``EngineConfig()`` is valid. Stacks outside the
+port so far (recurrent layers) raise
 :class:`~repro_torch.core.errors.UnsupportedConfigError` naming the later
-slice (ROADMAP Queue 1) that brings them — never silently ignored, since
-each of them changes admission or tokens.
+slice that brings them, as do the reference's own refusals.
 """
 from __future__ import annotations
 
@@ -22,8 +20,6 @@ from typing import Optional
 from repro_torch.core.errors import UnsupportedConfigError
 
 RECURRENT_KINDS = frozenset({"ssd", "rglru"})
-
-_LATER = "comes with a later slice of the port (ROADMAP Queue 1 item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +70,7 @@ class EngineConfig:
                              and not model_cfg.kv_quant)}
 
     def validate(self, model_cfg) -> dict:
-        """Refuse what this slice does not serve; returns the model traits."""
+        """Refuse what the port does not serve; returns the model traits."""
         traits = self._model_traits(model_cfg)
         if not traits["has_attn"] or traits["recurrent"]:
             raise UnsupportedConfigError(
@@ -87,13 +83,6 @@ class EngineConfig:
                 f"recurrent={traits['recurrent']}, "
                 f"kv_quant={model_cfg.kv_quant}. Drop mixed=True to use "
                 "the phase-serialized engine.")
-        if self.temperature > 0 or self.top_k is not None:
-            raise UnsupportedConfigError(
-                "seeded sampling (temperature > 0 / top_k) "
-                f"{_LATER.format('7c')}; this slice decodes greedily")
-        if self.audit:
-            raise UnsupportedConfigError(
-                f"per-step invariant audits {_LATER.format('7d')}")
         if self.prefill_budget is not None and self.prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1 token/step, got "

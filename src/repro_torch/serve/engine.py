@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine (``repro.serve.engine``, greedy).
+"""Continuous-batching serving engine (``repro.serve.engine``).
 
 Two engines share the slot table, the run loop and the accounting:
 
@@ -42,13 +42,31 @@ invisible: a write that would land in a shared page copies it first.
 ``decode_stats`` reports ``prefix_hit_ratio`` (prompt tokens served from
 shared pages over prompt tokens admitted) and ``pages_shared``.
 
-What the reference does that the port refuses so far
-(``EngineConfig.validate`` and here): sampling (ROADMAP Queue 1 item 7c),
-faults and audits (7d), fleets (7e) and meshes (11). Deadlines
-(``ttl_steps``), load shedding (``max_pending``), never-admissible
-rejection, ``cancel``, the non-finite-logits guard and the no-progress
-watchdog are kept, as are ``run(arrivals=...)``, the ``decode_stats``
-counters and one ``stats`` entry per prefill sweep.
+**Sampling** (``serve/sampling.py``): each slot carries the seed,
+temperature and top-k resolved at admission (``SamplingParams.seed`` >
+``Request.seed`` > ``seed + rid``); a step whose active slots are all
+greedy runs the plain argmax and nothing else, otherwise the batch sampler
+draws at the token's absolute position (decode: ``lengths + 1``; mixed:
+``lengths + n_new``; a prefill's first token: the prompt length), so a
+preempted continuation draws what it would have drawn uninterrupted.
+
+**Failure hardening**, as the reference's: deadlines (``ttl_steps`` on a
+virtual clock), load shedding (``max_pending``), never-admissible
+rejection, ``cancel``, the non-finite-logits guard (a row reports ``-1``
+and its request alone fails), the no-progress watchdog, the seeded chaos
+harness (``faults=``: a :class:`~repro_torch.serve.faults.FaultPlan`
+replayed by a fresh injector each session, or an injector used as is;
+allocation failures at every page request, forced youngest-first
+preemption, NaN logits written on the device after the model and before
+the sampler, stall ticks on the clock) and opt-in per-step audits
+(``audit``, default from ``REPRO_SERVE_AUDIT``).
+
+**Fleet** (``fleet=`` or :meth:`Engine.attach_fleet`, which
+``serve/dispatch.py`` calls): a
+:class:`~repro_torch.serve.pages.FleetPrefixIndex` shared by replicas;
+publishes mirror full prefix pages to its host tier, probes restore
+fleet-only pages into the local pool first. The only reference option the
+port still refuses is ``mesh`` (ROADMAP Queue 1 item 11).
 
 **Estimated HBM traffic** (``weight_bytes_per_token``,
 ``kv_bytes_per_token``, ``bytes_per_token``), as the reference reports it:
@@ -61,21 +79,23 @@ their f32 scales under ``kv_quant``).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.core.errors import AuditError, UnsupportedConfigError
 from repro_torch.core.factorized import params_stream_bits
 from repro_torch.core.packing import chunk_prompt
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ref import block_stats
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.kv_slots import SlotKVCache
-from repro_torch.serve.pages import PrefixHit
-from repro_torch.serve.sampling import greedy_tokens
+from repro_torch.serve.faults import FaultInjector, FaultPlan
+from repro_torch.serve.pages import PrefixHit, prefix_digests
+from repro_torch.serve.sampling import sample_or_greedy
 from repro_torch.serve.scheduler import (TERMINAL_STATUSES, Admission,
                                          Request, Scheduler)
 
@@ -122,13 +142,10 @@ class _RunState:
 class Engine:
     def __init__(self, model, params, config: Optional[EngineConfig] = None,
                  *, mesh=None, faults=None, fleet=None):
-        for name, val, item in (("mesh", mesh, "11"), ("faults", faults,
-                                                       "7d"),
-                                ("fleet", fleet, "7e")):
-            if val is not None:
-                raise UnsupportedConfigError(
-                    f"Engine({name}=...) comes with a later slice of the "
-                    f"port (ROADMAP Queue 1 item {item})")
+        if mesh is not None:
+            raise UnsupportedConfigError(
+                "Engine(mesh=...) comes with a later slice of the port "
+                "(ROADMAP Queue 1 item 11)")
         cfg_e = config if config is not None else EngineConfig()
         traits = cfg_e.validate(model.cfg)
         self.config = cfg_e
@@ -138,6 +155,9 @@ class Engine:
         self.max_new = cfg_e.max_new_tokens
         self.num_slots = num_slots = cfg_e.num_slots
         self.eos_id = cfg_e.eos_id
+        self.temperature = float(cfg_e.temperature)
+        self.top_k = cfg_e.top_k
+        self._base_seed = int(cfg_e.seed)
         self.max_prompt_len = cfg_e.max_prompt_len or 2 * self.max_len
         self.cache_len = self.max_prompt_len + self.max_new
         self.scheduler = Scheduler(max_len=self.max_len,
@@ -163,6 +183,10 @@ class Engine:
         self._shared_tokens = 0
         self._prompt_tokens = 0
         self._pages_shared = 0
+        self._fleet = None
+        self._fleet_restored_pages = 0
+        if fleet is not None:
+            self.attach_fleet(fleet)
         self.mixed = traits["mixed_ok"] if cfg_e.mixed is None \
             else bool(cfg_e.mixed)
         self.prefill_budget = cfg_e.prefill_budget
@@ -186,10 +210,31 @@ class Engine:
                                 * c.compute_dtype.itemsize)
         self.params = self._dmodel.prepare(params) if params is not None \
             else None
+        # Per-slot sampling state, resolved at admission (temps 0: greedy;
+        # topks 0: no truncation).
+        self._seeds = np.zeros(num_slots, np.uint32)
+        self._temps = np.zeros(num_slots, np.float32)
+        self._topks = np.zeros(num_slots, np.int32)
         self._admit_seq = np.zeros(num_slots, np.int64)
         self._seq = 0
         self.stats: List[Dict] = []  # one entry per prefill sweep
         self.decode_stats: Dict = {}
+        audit = cfg_e.audit
+        if audit is None:
+            audit = bool(int(os.environ.get("REPRO_SERVE_AUDIT", "0") or 0))
+        self.audit = bool(audit)
+        self._audit_violations = 0
+        # A FaultPlan builds a fresh injector per session (every run replays
+        # the same schedule); an injector instance is used as it is.
+        self._fault_plan: Optional[FaultPlan] = None
+        self.fault_injector: Optional[FaultInjector] = None
+        if isinstance(faults, FaultPlan):
+            self._fault_plan = faults if faults.any_faults() else None
+        elif isinstance(faults, FaultInjector):
+            self.fault_injector = faults
+        elif faults is not None:
+            raise TypeError("faults must be a FaultPlan or FaultInjector")
+        self._inj: Optional[FaultInjector] = None  # the session's injector
         self.max_pending = cfg_e.max_pending
         self.default_ttl = cfg_e.default_ttl_steps
         self.max_preempt = cfg_e.max_preemptions_per_request
@@ -206,13 +251,8 @@ class Engine:
     def submit(self, req: Request) -> None:
         """Queue a request: shed it when the pending queue is full
         (``max_pending``), reject it when its lane can never be allocated,
-        raise ``ValueError`` when the prompt exceeds ``max_prompt_len``,
-        and refuse per-request sampling."""
-        sp = req.sampling
-        if sp is not None and ((sp.temperature or 0.0) > 0 or sp.top_k):
-            raise UnsupportedConfigError(
-                "per-request sampling comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 7c); this slice decodes greedily")
+        and raise ``ValueError`` when the prompt exceeds
+        ``max_prompt_len``."""
         if (self.max_pending is not None
                 and self.scheduler.pending() >= self.max_pending):
             self._finish_terminal(
@@ -271,9 +311,13 @@ class Engine:
     def _session(self) -> _RunState:
         if self._st is None:
             n = self.num_slots
+            inj = FaultInjector(self._fault_plan) \
+                if self._fault_plan is not None else self.fault_injector
+            self._inj = self.fault_injector = inj
             self._shared_tokens = 0
             self._prompt_tokens = 0
             self._pages_shared = 0
+            self._fleet_restored_pages = 0
             st = _RunState(cur=np.zeros(n, np.int32),
                            emitted=np.zeros(n, np.int32),
                            budget=np.zeros(n, np.int32), pending=[None] * n,
@@ -285,9 +329,13 @@ class Engine:
 
     def _emit(self, req: Request, tok: int) -> None:
         """Append a token to the submitted request (a continuation's
-        ``_origin``) and report it as a step event."""
+        ``_origin``), stamp its modeled device time (the ITL clock) and
+        report it as a step event."""
         target = getattr(req, "_origin", req)
         target.output.append(int(tok))
+        if not hasattr(target, "_token_dev"):
+            target._token_dev = []  # type: ignore[attr-defined]
+        target._token_dev.append(self._device_time)
         if self._events is not None:
             self._events.append((target, int(tok)))
 
@@ -332,6 +380,7 @@ class Engine:
         submitted after this step's clock tick."""
         st = self._session()
         sl = self.slots
+        inj = self._inj
         cur, emitted, budget = st.cur, st.emitted, st.budget
         pending, pending_full = st.pending, st.pending_full
         done = st.done
@@ -339,7 +388,12 @@ class Engine:
         self._events = res.emitted
         n_done0 = len(done)
         try:
+            # One tick per iteration plus injected stall ticks: deadlines
+            # age even while nothing decodes.
             self._clock += 1
+            if inj is not None:
+                self._clock += inj.begin_step(st.iters, self.num_slots,
+                                              sl.active)
             st.iters += 1
             for r in submits:
                 self.submit(r)
@@ -347,6 +401,10 @@ class Engine:
                 done.extend(self._terminal)
                 self._terminal.clear()
             progressed = self._expire(done) > 0
+            if inj is not None and inj.forced_preempt() and sl.active.any():
+                if self._preempt_or_fail(self._youngest_active()[0], done):
+                    st.preempt_recovered += 1
+                st.preemptions += 1
             if self.paged:
                 # Growth runs before admission, so an admission reserves
                 # only pages the in-flight lanes do not need this step.
@@ -367,6 +425,8 @@ class Engine:
                                                done)
                     progressed |= admitted > 0 or len(done) > n_done
             active_ix = np.flatnonzero(sl.active)
+            if self.audit:
+                self._audit_step()
             if active_ix.size == 0:
                 if progressed:
                     st.idle = 0
@@ -460,7 +520,8 @@ class Engine:
                 toks[s, 0] = cur[s]
         self._count_blocks(st, sl.lengths + n_new)
         t0 = time.perf_counter()
-        nxt = self._run_mixed(toks, n_new)
+        nxt = self._run_mixed(toks, n_new, self._nan_mask(),
+                              self._sampling(sl.lengths + n_new))
         st.step_ms["mixed"].append((time.perf_counter() - t0) * 1e3)
         self._device_time += self._chunk_width
         st.steps += 1
@@ -490,7 +551,7 @@ class Engine:
                 # Prefill complete: ``tok`` is the request's first token,
                 # and the prompt's full pages hold their final bytes.
                 if self.prefix_share:
-                    self.slots.pool.publish_prefix(int(s), pending_full[s])
+                    self._publish_prefix(int(s), pending_full[s])
                 pending[s] = None
                 pending_full[s] = None
                 self._emit(req, tok)
@@ -514,7 +575,8 @@ class Engine:
         sl = self.slots
         self._count_blocks(st, sl.lengths + 1)
         t0 = time.perf_counter()
-        nxt = self._run_decode(st.cur)
+        nxt = self._run_decode(st.cur, self._nan_mask(),
+                               self._sampling(sl.lengths + 1))
         st.step_ms["decode"].append((time.perf_counter() - t0) * 1e3)
         self._device_time += 1
         st.steps += 1
@@ -538,8 +600,35 @@ class Engine:
                 self._finish(req, "ok", None, st.done)
                 sl.release(s)
 
+    def _nan_mask(self) -> Optional[torch.Tensor]:
+        """This step's injected NaN rows on the device (None: no fault)."""
+        m = self._inj.nan_mask() if self._inj is not None else None
+        return None if m is None else self._tensor(m)
+
+    def _sampling(self, positions: np.ndarray):
+        """The sampler's per-slot ``(seeds, positions, temperatures,
+        top_ks)`` on the device, or None when every active slot is greedy:
+        such a step runs the plain argmax alone."""
+        if not np.any(self._temps[self.slots.active] > 0):
+            return None
+        return (self._tensor(self._seeds.astype(np.int64)),
+                self._tensor(np.asarray(positions, np.int64)),
+                self._tensor(self._temps), self._tensor(self._topks))
+
+    @staticmethod
+    def _choose(logits: torch.Tensor, nan_mask, sampling) -> torch.Tensor:
+        """Injected NaN rows go onto the logits after the model and before
+        the sampler, so the caches never see them and the row reports the
+        ``-1`` sentinel."""
+        if nan_mask is not None:
+            logits = torch.where(nan_mask[:, None],
+                                 torch.full_like(logits, float("nan")),
+                                 logits)
+        return sample_or_greedy(logits, sampling)
+
     @torch.inference_mode()
-    def _run_mixed(self, toks: np.ndarray, n_new: np.ndarray) -> np.ndarray:
+    def _run_mixed(self, toks: np.ndarray, n_new: np.ndarray, nan_mask=None,
+                   sampling=None) -> np.ndarray:
         """The mixed step on the device; the emitted token of row b comes
         from chunk column ``n_new - 1`` (clamped: inert rows read column 0
         and the host ignores it). Returns the (B,) tokens on the host."""
@@ -552,23 +641,30 @@ class Engine:
         last = torch.clamp(nn.long() - 1, 0, toks.shape[1] - 1)
         row = h[torch.arange(h.shape[0], device=h.device), last]
         logits = self._dmodel.logits(self.params, row)
-        return greedy_tokens(logits).cpu().numpy()  # the step's host sync
+        # the step's host sync
+        return self._choose(logits, nan_mask, sampling).cpu().numpy()
 
     @torch.inference_mode()
-    def _run_decode(self, cur: np.ndarray) -> np.ndarray:
+    def _run_decode(self, cur: np.ndarray, nan_mask=None,
+                    sampling=None) -> np.ndarray:
         sl = self.slots
         logits, sl.caches = self._dmodel.decode_step(
             self.params, {"inputs": self._tensor(cur[:, None])}, sl.caches,
             self._tensor(sl.lengths), slot_mask=self._tensor(sl.active),
             pages=self._pages_arg())
-        return greedy_tokens(logits[:, 0]).cpu().numpy()
+        return self._choose(logits[:, 0], nan_mask, sampling).cpu().numpy()
 
     def finish_run(self) -> List[Request]:
         """Close the session: build ``decode_stats``, reset the session
         state, return every terminal request in completion order."""
         st = self._session()
         sl = self.slots
+        inj = self._inj
         done = st.done
+        # Inter-token latency in modeled device tokens (``_emit`` stamps).
+        itl = [b - a for r in done
+               for a, b in zip(getattr(r, "_token_dev", []),
+                               getattr(r, "_token_dev", [])[1:])]
         self.decode_stats = {
             "steps": st.steps,
             "decoded_tokens": st.decoded_tokens,
@@ -606,8 +702,14 @@ class Engine:
                                 / max(st.decoded_tokens, 1)),
             "status_counts": dict(self._counts),
             "completed_ok": self._counts["ok"],
+            **{s: self._counts[s] for s in TERMINAL_STATUSES if s != "ok"},
+            "audit_violations": self._audit_violations,
+            "faults_injected": dict(inj.counts) if inj is not None else {},
             "clock_ticks": self._clock,
             "device_time": self._device_time,
+            "fleet_restored_pages": self._fleet_restored_pages,
+            "itl_p50": float(np.percentile(itl, 50)) if itl else 0.0,
+            "itl_p99": float(np.percentile(itl, 99)) if itl else 0.0,
             "mixed": self.mixed,
             "prefill_budget": self.prefill_budget,
             "mixed_steps": st.mixed_steps,
@@ -621,6 +723,7 @@ class Engine:
                 for r in done if hasattr(r, "_ttft_wall")},
         }
         self._counts = {s: 0 for s in TERMINAL_STATUSES}
+        self._inj = None
         self._st = None
         return done
 
@@ -630,24 +733,34 @@ class Engine:
         """Make every active slot's next write position writable, oldest
         request first: allocate missing pages, copy-on-write shared ones,
         unpublish sole-owner published ones. When the pool is dry (no free
-        page and no retained one to evict), preempt the youngest active
-        request and retry. The oldest can always progress: preempting
-        every other holder leaves its pages to it alone. Returns
+        page and no retained one to evict, or the fault injector fails the
+        request), preempt the youngest active request and retry; an
+        injected failure is never fatal to the only active request. The
+        oldest can always progress: preempting every other holder leaves
+        its pages to it alone. Returns
         ``(recovered, escalated)``: victims requeued, and victims failed
         (over their preemption budget, or a lane that cannot grow even
         alone under ``page_cap``)."""
         sl, pool = self.slots, self.slots.pool
+        inj = self._inj
         n_rec = n_esc = 0
         order = sorted(np.flatnonzero(sl.active),
                        key=lambda s: self._admit_seq[s])
         for s in order:
+            suppress = False
             while sl.active[s]:  # a victim earlier in this pass is gone
-                ok, copies = pool.make_writable(int(s), int(sl.lengths[s]))
+                injected = (not suppress and inj is not None
+                            and inj.alloc_fail())
+                ok, copies = (False, []) if injected else \
+                    pool.make_writable(int(s), int(sl.lengths[s]))
                 if ok:
                     sl.copy_pages(copies)
                     break
                 victim, n_active = self._youngest_active()
                 if victim == s and n_active == 1:
+                    if injected:  # retry for real
+                        suppress = True
+                        continue
                     req = sl.request[s]
                     sl.release(int(s))
                     self._finish(
@@ -674,16 +787,24 @@ class Engine:
         A sole survivor that still cannot grow is failed. Returns ``(ok,
         recovered, escalated)``."""
         sl, pool = self.slots, self.slots.pool
+        inj = self._inj
         n_rec = n_esc = 0
+        suppress = False
         end = min(end, self.cache_len)
         while True:
+            injected = not suppress and inj is not None and inj.alloc_fail()
             try:
+                if injected:
+                    raise RuntimeError("injected allocation failure")
                 pool.alloc_prefix(s, end)
                 copies = pool.make_range_writable(s, int(sl.lengths[s]), end)
             except RuntimeError:
                 victim, n_active = self._youngest_active()
                 if victim == s:
                     if n_active == 1:
+                        if injected:
+                            suppress = True
+                            continue
                         req = sl.request[s]
                         sl.release(s)
                         self._finish(
@@ -724,9 +845,10 @@ class Engine:
 
     def _preempt(self, slot: int) -> None:
         """Requeue the slot's request at the queue head as a continuation:
-        its prompt plus everything generated so far. Prefilling that
-        sequence gives the token the next decode step would have (greedy),
-        and its published pages make the resume a prefix hit."""
+        its prompt plus everything generated so far, with its sampling.
+        Prefilling that sequence gives the token the next decode step would
+        have (greedy, or drawn with the same key at the same position), and
+        its published pages make the resume a prefix hit."""
         req = self.slots.request[slot]
         cont = Request(
             rid=req.rid,
@@ -754,20 +876,90 @@ class Engine:
 
     # -- prefix sharing ------------------------------------------------
 
+    def attach_fleet(self, fleet) -> None:
+        """Join a cross-replica
+        :class:`~repro_torch.serve.pages.FleetPrefixIndex`: local prefix
+        publishes mirror page bytes into its host tier, and probes first
+        restore fleet-only pages into the local pool. Needs local prefix
+        sharing."""
+        if not self.prefix_share:
+            raise UnsupportedConfigError(
+                "a fleet prefix index needs local prefix sharing: this "
+                "engine has prefix_share disabled (or contiguous lanes that "
+                "cannot share)")
+        self._fleet = fleet
+
+    def _publish_prefix(self, slot: int, tokens) -> None:
+        """Publish a freshly prefilled lane's full pages locally, then
+        mirror each indexed page's bytes into the fleet tier, consecutive
+        from logical page 0 (a fleet entry is useful only in an unbroken
+        chain, as a local hit run)."""
+        pool = self.slots.pool
+        toks = np.asarray(tokens, np.int32)
+        pool.publish_prefix(slot, toks)
+        fleet = self._fleet
+        m = len(toks) // pool.page_size
+        if fleet is None or m == 0:
+            return
+        digests = prefix_digests(toks, pool.page_size, m)
+        for w, c in pool.classes.items():
+            if len(toks) > c.width:
+                continue
+            for lp in range(m):
+                pg = c.index.get((lp, digests[lp]))
+                if pg is None:
+                    break
+                if not fleet.has(w, lp, digests[lp]):
+                    fleet.publish(w, lp, digests[lp],
+                                  self.slots.read_page(w, pg))
+
+    def _fleet_restore(self, toks: np.ndarray) -> None:
+        """Pull fleet-published prefix pages this pool is missing into its
+        retained tier, so the local probe that follows hits them: a logical
+        page in every width class or none, stopping at the first page that
+        cannot be restored (hit runs are consecutive)."""
+        fleet, pool = self._fleet, self.slots.pool
+        m = len(toks) // pool.page_size
+        if m == 0 or any(len(toks) > c.width for c in pool.classes.values()):
+            return
+        digests = prefix_digests(toks, pool.page_size, m)
+        for lp in range(m):
+            plan = []
+            for w, c in pool.classes.items():
+                if (lp, digests[lp]) in c.index:
+                    continue  # already resident
+                host = fleet.get(w, lp, digests[lp])
+                if host is None or c.available() == 0:
+                    return
+                plan.append((w, host))
+            for w, host in plan:
+                pg = pool.adopt_published(w, lp, digests[lp])
+                if pg is None:
+                    return
+                self.slots.write_page(w, pg, host)
+                self._fleet_restored_pages += 1
+                fleet.restored_pages += 1
+
     def _probe_req(self, req: Request) -> Optional[PrefixHit]:
         """The prefix-cache hit of ``req``'s prompt (None when sharing is
-        off or nothing matches), memoized on the request against the
-        pool's identity and ``prefix_version``: one admission consults it
-        up to three times, and a head-blocked queue front every step."""
+        off or nothing matches; with a fleet, fleet-only pages are restored
+        first), memoized on the request against the pool's identity,
+        ``prefix_version`` and the fleet's ``version``: one admission
+        consults it up to three times, and a head-blocked queue front every
+        step."""
         if not self.prefix_share:
             return None
         pool = self.slots.pool
+        ver = (pool.prefix_version,
+               self._fleet.version if self._fleet is not None else -1)
         memo = getattr(req, "_probe_memo", None)
-        if memo is not None and memo[0] is pool \
-                and memo[1] == pool.prefix_version:
+        if memo is not None and memo[0] is pool and memo[1] == ver:
             return memo[2]
-        hit = pool.probe_prefix(np.asarray(req.prompt, np.int32))
-        req._probe_memo = (pool, pool.prefix_version, hit)  # type: ignore
+        toks = np.asarray(req.prompt, np.int32)
+        if self._fleet is not None:
+            self._fleet_restore(toks)
+        hit = pool.probe_prefix(toks)
+        req._probe_memo = (pool, ver, hit)  # type: ignore[attr-defined]
         return hit
 
     def _probe_len(self, req: Request) -> int:
@@ -787,6 +979,8 @@ class Engine:
         avail = {w: c.available() for w, c in pool.classes.items()}
 
         def reserve(req: Request) -> bool:
+            if self._inj is not None and self._inj.alloc_fail():
+                return False  # injected pool failure: head-block the round
             L = len(req.prompt)
             span = L if chunk is None else min(L, chunk)
             hit = self._probe_req(req)
@@ -859,6 +1053,7 @@ class Engine:
             cur[slot] = 0
             emitted[slot] = len(target.output)
             budget[slot] = total_budget
+            self._set_sampling(slot, target)
             self._admit_seq[slot] = self._seq
             self._seq += 1
         if n_processed:
@@ -921,13 +1116,14 @@ class Engine:
                 cur[slot] = first
                 emitted[slot] = len(target.output)
                 budget[slot] = total_budget
+                self._set_sampling(slot, target)
                 self._admit_seq[slot] = self._seq
                 self._seq += 1
             self.slots.assign_many(assigns, caches)
             # Publish after the copy: only then do the full pages hold
             # their final bytes.
             for slot, toks in pubs:
-                pool.publish_prefix(slot, np.asarray(toks, np.int32))
+                self._publish_prefix(slot, toks)
         return n_processed
 
     @torch.inference_mode()
@@ -936,7 +1132,9 @@ class Engine:
         filled caches (L, rows, width, ...), per-request (row, start,
         length, offset), per-request prefix hits)``. Packed rows are padded
         to a power of two (padding rows ride segment id 0, fully masked),
-        as the reference bounds its compiled shapes. A shared admission
+        as the reference bounds its compiled shapes. First tokens are
+        greedy, or drawn by the batch sampler at position ``offset +
+        length`` for requests that sample. A shared admission
         re-probes (the scheduler's estimates may be stale or short): a solo
         full miss falls back to a chunked prefill, otherwise one suffix
         sweep, one row per request, attends each row's prefix gathered out
@@ -988,7 +1186,18 @@ class Engine:
                         np.int64)
         logits = self._dmodel.logits(self.params, h[self._tensor(last[:, 0]),
                                                     self._tensor(last[:, 1])])
-        firsts = greedy_tokens(logits).cpu().numpy()  # the sweep's host sync
+        sampling = None
+        res = [self._resolve_sampling(getattr(r, "_origin", r))
+               for r in adm.requests]
+        if any(temp > 0 for temp, _, _ in res):
+            sampling = (
+                self._tensor(np.array([sd for _, _, sd in res], np.int64)),
+                self._tensor(np.array([o + n for _, _, n, o in slots_of],
+                                      np.int64)),
+                self._tensor(np.array([tp for tp, _, _ in res], np.float32)),
+                self._tensor(np.array([k for _, k, _ in res], np.int32)))
+        # the sweep's host sync
+        firsts = self._choose(logits, None, sampling).cpu().numpy()
         self._st.step_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
         self._device_time += int(tokens.shape[1])
         self.stats.append({"rows": rows, "n_requests": len(adm.requests),
@@ -1077,6 +1286,53 @@ class Engine:
                              f"at clock tick {self._clock}", done)
                 n += 1
         return n
+
+    def _audit_step(self) -> None:
+        """The opt-in per-iteration audit (``audit=True``), after page growth
+        and admissions, before the dispatch: the pool's refcount, partition
+        and index invariants, each active lane's block-table bounds and
+        private write target, and each slot's length bound. A violation is
+        counted and raised as :class:`AuditError`."""
+        sl = self.slots
+        try:
+            active = np.flatnonzero(sl.active)
+            if self.paged:
+                sl.pool.check_invariants()
+                for s in active:
+                    sl.pool.check_lane_bounds(int(s), int(sl.lengths[s]))
+                    sl.pool.check_write_private(int(s), int(sl.lengths[s]))
+            for s in active:
+                if not 0 <= int(sl.lengths[s]) < self.cache_len:
+                    raise AuditError(
+                        "slot-length-bounds",
+                        f"slot {int(s)} length {int(sl.lengths[s])} "
+                        f"outside [0, {self.cache_len})")
+        except AuditError:
+            self._audit_violations += 1
+            raise
+
+    def _resolve_sampling(self, target: Request) -> Tuple[float, int, int]:
+        """A request's ``(temperature, top_k, seed)``: its
+        :class:`SamplingParams` override the engine defaults field by field
+        (``top_k=0`` disables truncation); the seed is
+        ``SamplingParams.seed``, else ``Request.seed``, else ``seed +
+        rid``, as a 32-bit word."""
+        sp = target.sampling
+        temp = self.temperature if sp is None or sp.temperature is None \
+            else float(sp.temperature)
+        topk = self.top_k if sp is None or sp.top_k is None \
+            else int(sp.top_k)
+        if sp is not None and sp.seed is not None:
+            seed = sp.seed
+        elif target.seed is not None:
+            seed = target.seed
+        else:
+            seed = self._base_seed + target.rid
+        return float(temp), int(topk or 0), int(seed) & 0xFFFFFFFF
+
+    def _set_sampling(self, slot: int, target: Request) -> None:
+        self._temps[slot], self._topks[slot], self._seeds[slot] = \
+            self._resolve_sampling(target)
 
     def _watchdog_escalate(self, done: List[Request]) -> None:
         """Fail the queue head after ``watchdog_patience`` consecutive idle

@@ -20,7 +20,8 @@ Prefix sharing adds the device halves of the pool's bookkeeping:
 reads a shared prefix out of the pool for a suffix prefill, and an
 ``assign_many`` entry with an offset lands its suffix behind pages the
 engine mapped from the prefix cache. All are plain indexing on the
-cache's device.
+cache's device. ``read_page`` / ``write_page`` move one page of every
+leaf to host numpy and back, for the fleet's host tier.
 """
 from __future__ import annotations
 
@@ -249,6 +250,33 @@ class SlotKVCache:
             return (kv_dequantize(k, lanes("k_scale"), self.dtype),
                     kv_dequantize(v, lanes("v_scale"), self.dtype))
         return k.to(self.dtype), v.to(self.dtype)
+
+    # numpy has no bfloat16: such leaves travel as their int16 bit patterns
+    _HOST_VIEW = {torch.bfloat16: torch.int16}
+
+    def read_page(self, width: int, page: int) -> List[np.ndarray]:
+        """Host copy of physical page ``page`` of every kv leaf (codes and
+        int8 scales included), in sorted leaf-name order: the payload a
+        :class:`~repro_torch.serve.pages.FleetPrefixIndex` publish
+        mirrors. Bytes are copied verbatim (bf16 as its int16 bits), so a
+        restore is bit-identical."""
+        assert width == self.width, (width, self.width)
+        out = []
+        for name in sorted(self.caches):
+            leaf = self.caches[name][:, page]
+            out.append(leaf.view(self._HOST_VIEW.get(leaf.dtype, leaf.dtype))
+                       .cpu().numpy())
+        return out
+
+    def write_page(self, width: int, page: int,
+                   host: Sequence[np.ndarray]) -> None:
+        """Inverse of :meth:`read_page`: write host page bytes into physical
+        page ``page`` of every kv leaf (same order)."""
+        assert width == self.width, (width, self.width)
+        for name, arr in zip(sorted(self.caches), host, strict=True):
+            leaf = self.caches[name]
+            leaf[:, page] = torch.from_numpy(np.asarray(arr)).to(
+                self.device).view(leaf.dtype)
 
     def assign(self, slot: int, request, src_caches, row: int, start: int,
                length: int) -> None:

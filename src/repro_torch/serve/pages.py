@@ -37,8 +37,10 @@ Layout invariants, the same as the reference's:
 * block tables carry one extra sentinel row (index ``num_slots``) that
   stays all-``FREE``.
 
-The cross-replica ``FleetPrefixIndex`` comes with the front end and fleet
-(ROADMAP Queue 1 item 7e).
+:class:`FleetPrefixIndex` adds a cross-replica host tier: replicas mirror
+the bytes of their published pages into it (``SlotKVCache.read_page``) and
+restore pages another replica prefilled (``adopt_published`` +
+``SlotKVCache.write_page``).
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ import torch
 
 from repro_torch.core.errors import AuditError
 
-__all__ = ["PagePool", "PageClass", "PrefixHit", "prefix_digests"]
+__all__ = ["FleetPrefixIndex", "PagePool", "PageClass", "PrefixHit",
+           "prefix_digests"]
 
 # (width, src_page, dst_page): a device-side page copy the caller owes the
 # pool after a copy-on-write remap (SlotKVCache.copy_pages runs them).
@@ -79,6 +82,69 @@ class PrefixHit:
 
     n_shared: int
     pages: Dict[int, List[int]]
+
+
+class FleetPrefixIndex:
+    """Cross-replica prefix index with a host-memory page tier.
+
+    One instance is shared by N engine replicas (``serve/dispatch.py``
+    wires it). A replica that publishes a prompt's full prefix pages
+    locally also mirrors each page's bytes here (host numpy copies, one
+    array per kv leaf in ``SlotKVCache.read_page`` order) under the local
+    index's content address ``(width, logical_page, chained_digest)``; a
+    replica probing a prompt that only another replica prefilled restores
+    the missing pages into its own pool and then hits locally, so a hot
+    system prompt is prefilled once per fleet. Pages stay restorable after
+    local eviction while this index keeps them (LRU, bounded by
+    ``capacity``). ``version`` is bumped on every store mutation: engines
+    key their probe memo on it."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        if capacity is not None and capacity <= 0:
+            raise ValueError("capacity must be positive when set")
+        self.capacity = capacity
+        # (width, logical_page, digest) -> host page bytes (one np array
+        # per kv leaf of the width class, in SlotKVCache.read_page order).
+        self._store: "OrderedDict[Tuple[int, int, str], List[np.ndarray]]" \
+            = OrderedDict()
+        # Bumped on every store mutation: engines fold this into their
+        # probe memo key so a fleet publish invalidates cached misses.
+        self.version = 0
+        self.published = 0
+        self.hits = 0
+        self.misses = 0
+        self.restored_pages = 0
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def has(self, width: int, lp: int, digest: str) -> bool:
+        return (width, lp, digest) in self._store
+
+    def publish(self, width: int, lp: int, digest: str,
+                host_page: List[np.ndarray]) -> None:
+        """Mirror one page's bytes (first publisher wins — identical
+        content by construction). LRU-evicts past ``capacity``."""
+        key = (width, lp, digest)
+        if key in self._store:
+            return
+        self._store[key] = host_page
+        self.published += 1
+        self.version += 1
+        if self.capacity is not None:
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
+
+    def get(self, width: int, lp: int,
+            digest: str) -> Optional[List[np.ndarray]]:
+        key = (width, lp, digest)
+        page = self._store.get(key)
+        if page is None:
+            self.misses += 1
+            return None
+        self._store.move_to_end(key)
+        self.hits += 1
+        return page
 
 
 class PageClass:

@@ -130,38 +130,55 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def _refusals():
+    """name -> (EngineConfig, Engine kwargs, model overrides, what the
+    reference does: the exception it raises, or None when it accepts)."""
+    from repro_torch.core.errors import UnsupportedConfigError as U
     from repro_torch.serve import EngineConfig
+    from repro_torch.serve.pages import FleetPrefixIndex
     base = dict(prefix_share=False)
     return {
         # the reference's own refusals: an explicit mixed=True needs paged,
         # unquantized lanes (both serve through the serialized engine)
         "kv_quant": (EngineConfig(mixed=True, **base), {},
-                     {"kv_quant": True}),
+                     {"kv_quant": True}, U),
         "paged=False": (EngineConfig(mixed=True, paged=False, **base), {},
-                        {}),
-        "temperature": (EngineConfig(temperature=0.7, **base), {}, {}),
-        "top_k": (EngineConfig(top_k=4, **base), {}, {}),
-        "audit": (EngineConfig(audit=True, **base), {}, {}),
-        "faults": (EngineConfig(**base), {"faults": object()}, {}),
-        "mesh": (EngineConfig(**base), {"mesh": object()}, {}),
-        "fleet": (EngineConfig(**base), {"fleet": object()}, {}),
+                        {}, U),
+        # sampling and audits are served
+        "temperature": (EngineConfig(temperature=0.7, **base), {}, {}, None),
+        "top_k": (EngineConfig(top_k=4, **base), {}, {}, None),
+        "audit": (EngineConfig(audit=True, **base), {}, {}, None),
+        # faults must be a FaultPlan or an injector; a fleet needs sharing
+        "faults": (EngineConfig(**base), {"faults": object()}, {},
+                   TypeError),
+        "fleet": (EngineConfig(**base), {"fleet": FleetPrefixIndex()}, {},
+                  U),
+        # served by a later slice of the port (ROADMAP Queue 1 item 11)
+        "mesh": (EngineConfig(**base), {"mesh": object()}, {}, U),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_refusals()))
 def test_refused_engine_settings(name):
-    """Every setting outside the port so far, and every setting the
-    reference refuses, raises UnsupportedConfigError."""
+    """Each setting does what the reference does with it: the reference's
+    refusals raise as there (an explicit mixed step on int8 or contiguous
+    lanes, ``faults`` of an unknown type, a fleet without prefix sharing),
+    sampling and audits are accepted, and ``mesh``, the one option the
+    port does not serve yet, raises UnsupportedConfigError."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model
-    from repro_torch.serve import Engine
-    config, kw, model_over = _refusals()[name]
+    from repro_torch.serve import Engine, FaultPlan
+    config, kw, model_over, exc = _refusals()[name]
     cfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
-    with pytest.raises(UnsupportedConfigError):
-        model = Model(dataclasses.replace(cfg, **model_over), device="cpu")
-        Engine(model, None, config=config, **kw)
+    model = Model(dataclasses.replace(cfg, **model_over), device="cpu")
+    if exc is not None:
+        with pytest.raises(exc):
+            Engine(model, None, config=config, **kw)
+        return
+    eng = Engine(model, None, config=config, **kw)
+    assert (eng.temperature, eng.top_k, eng.audit) == (
+        config.temperature, config.top_k, bool(config.audit))
+    Engine(model, None, config=config, faults=FaultPlan(seed=1))
 
 
 @pytest.mark.parametrize("arch,over", [
@@ -182,19 +199,29 @@ def test_refused_models(arch, over):
 
 
 def test_per_request_sampling_and_dry_pool_refused(qwen):
-    """Per-request sampling is refused (ROADMAP Queue 1 item 7c). The dry
-    pool is no longer refused: 7 pages of 8 tokens cannot hold two
-    30-token prompts growing at once, so the engine preempts and requeues
-    (as the reference does) and serves every request with the tokens of
-    an uncut pool."""
-    from repro_torch.core.errors import UnsupportedConfigError
+    """Per-request sampling runs (it was refused before the port had the
+    sampler): a request with its own ``SamplingParams`` on a greedy engine
+    draws the reference Engine's tokens. The dry pool is not refused
+    either: 7 pages of 8 tokens cannot hold two 30-token prompts growing
+    at once, so the engine preempts and requeues (as the reference does)
+    and serves every request with the tokens of an uncut pool."""
+    from repro.serve import (Engine as JEngine, EngineConfig as JConfig,
+                             Request as JRequest,
+                             SamplingParams as JSampling)
     from repro_torch.serve import (Engine, EngineConfig, Request,
                                    SamplingParams)
-    cfg, _, _, tm, tparams = qwen
-    eng = Engine(tm, tparams, config=EngineConfig(**tp.ENGINE_KW))
-    with pytest.raises(UnsupportedConfigError, match="7c"):
-        eng.submit(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
-                           sampling=SamplingParams(temperature=0.5)))
+    cfg, jm, jp, tm, tparams = qwen
+    prompt = tp.prompts(cfg.vocab_size, [9], seed=4)[0]
+    sampled = []
+    for eng_cls, cfg_cls, req_cls, sp_cls, model, params in (
+            (Engine, EngineConfig, Request, SamplingParams, tm, tparams),
+            (JEngine, JConfig, JRequest, JSampling, jm, jp)):
+        eng = eng_cls(model, params, config=cfg_cls(**tp.ENGINE_KW))
+        eng.submit(req_cls(rid=0, prompt=prompt, max_new_tokens=6,
+                           sampling=sp_cls(temperature=0.5, seed=11)))
+        (r,) = eng.run()
+        sampled.append((r.status, list(r.output)))
+    assert sampled[0] == sampled[1] and sampled[0][0] == "ok"
     outs = []
     for frac in (0.34, 1.0):
         small = Engine(tm, tparams, config=EngineConfig(
