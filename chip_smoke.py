@@ -20,9 +20,9 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               130 with LUT blocks of 16 and 128 positions; pages of 8 and 16;
               hi <= lo rows, windows, FREE block-table entries; int8 codes
               with f32 scales for all three kernels), the decode kernels'
-              split edges (``SPLIT_EDGES``: G 1, 2, 5, 8; D 20, 64, 128; one
-              slot over lanes of up to 64 splits, 64 slots over lanes of
-              one or two; hi and lo on split and page edges, windows across
+              split edges (``SPLIT_EDGES``: G 1, 2, 5, 8, and 10, 12, 16 in
+              two group tiles; D 20, 64, 128; one slot over lanes of up to
+              64 splits, 64 slots over lanes of one or two; hi and lo on split and page edges, windows across
               a split; pages of 128 and 16; f32 and bf16) and the full-width
               shapes of phase 4 (bf16, and int8 K/V with bf16 queries; exact
               and LUT exp, contiguous LUT blocks at the reference's block_k
@@ -79,8 +79,15 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               a yardstick the port never calls) and its bound; every row
               (the TDA, DMM, SMM and AFU kernels) and its yardstick also by
               the kernels' device time alone (``device_ms``,
-              ``library_device_ms``: ``torch.profiler`` intervals, without
-              the host dispatch that the events of ``ms`` include).
+              ``library_device_ms``: CUDA events around the call with the
+              stream held by a GPU sleep while the host enqueues it, so
+              the host dispatch that the events of ``ms`` include is
+              hidden). Phase 2 also holds both decode kernels and the mixed
+              kernel at the ring serve's shapes (``ring_rows``: 48 q / 4 kv
+              heads of 128, G = 12 in two group tiles of 6, and G = 10;
+              rings of 4096 positions in 32 pages of 128, lanes that
+              wrapped; the mixed step's chunks past the ring with a window
+              of 4096) against their plain versions, timed beside SDPA.
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -116,6 +123,17 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               same run without it; a ``Frontend`` against ``Engine.run``;
               a two-replica ``Dispatcher`` with a fleet index against one
               engine, pages restored from the fleet.
+              starcoder2 smoke at float32 (window 32: ring lanes; prompts
+              up to 45 tokens decoding past the window, two sharing a
+              prefix whose page a wrapping ring copies): the mixed and the
+              serialized paged and contiguous engines give the same tokens
+              through the kernels and the plain path on the card and on
+              the CPU, with the CPU's host counters.
+   bf16_logits — bf16 logits of qwen2.5 smoke and starcoder2 smoke
+              (``apply`` over 40 tokens, ``decode_step`` and ``mixed_step``
+              over a page pool; the kernels on the card, the plain path on
+              the CPU): the card's largest gap to the CPU's float32 logits
+              within ``BF16_FACTOR`` (2) times the CPU's own bf16 gap.
    sampler  — the sampler at the full-width vocabulary: (8, 152064) f32
               logits from a seed, five (seed, position, temperature,
               top-k) sets; the card's threefry bits equal to the CPU's as
@@ -175,13 +193,30 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               tensor-core bodies, none through the CUDA-core fallbacks
               (``BODY_LAUNCHES``), and the TDA counts keep phase 4's
               invariants.
+6. ring_serve — starcoder2-15b at its published widths (d_model 6144, 48 q
+              / 4 kv heads of 128, d_ff 24576, vocab 49152, window 4096,
+              all 40 layers, ``RING_LAYERS``), bf16 weights from seed 0,
+              through the default ``EngineConfig`` (mixed, paged, sharing
+              on; 8 slots, 128-token pages, chunks of 2048, 32 new tokens):
+              ``profile_serve.ring_workload``, 12 requests of long-context
+              completion (short prompts, prompts crossing the window while
+              decoding, two of them sharing a 2048-token prefix, prompts
+              wrapping inside their chunks). 12/12 ``ok``, one ring class
+              of 4096 positions (at most 32 pages a slot), pages shared and
+              copied on write, and every host counter equal to the port's
+              CPU run of the same workload on starcoder2 smoke with a window
+              of 4096; tok/s, TTFT and decode-step ms with the card's name
+              and power limit. It runs last, after phase 5 has freed its
+              weights.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
-(``serve:<engine>``; int8 rows from the int8 serves), DMM and SMM from phase
+(``serve:<engine>``; int8 rows from the int8 serves), the G = 12 paged
+decode and mixed rows from phase 6 (``serve:ring``), DMM and SMM from phase
 5 (``compressed_serve``), softmax_lut from the kernel_table phase
-(``kernel_table``); layernorm_residual and the TDA LUT and int8-mixed
-variants, which no serve runs, from their check at the row's full-width
+(``kernel_table``); layernorm_residual, the TDA LUT and int8-mixed
+variants and the other ring-shape rows (contiguous decode at G = 12, every
+G = 10 row), which no serve runs, from their check at the row's full-width
 shape in phase 2 (``check``: the one launch at that shape, two for
 LayerNorm's f32 and bf16 inputs; counted before they are timed). Then the
 card's name and power limit, the kernels' JSON line, and last the device
@@ -246,69 +281,83 @@ def time_ms(torch, fn, reps=20):
     return times[len(times) // 2]
 
 
-def range_profile(torch, fn, reps=20):
-    """(median device ms, median kernel launches) of one call, from the
-    kernels that the profiler's op tree puts inside each call's host range
-    (``profile_serve.range_kernels``), with a cold L2 before every call:
-    for calls whose own kernels include the separator of
-    :func:`device_ms`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.launch.profile_serve import range_kernels
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    fn()
+def _queue_ahead(torch, fn):
+    """A GPU sleep long enough to hide ``fn``'s host dispatch: ``fn`` is
+    enqueued behind it, so its kernels then run back to back. Returns a
+    callable that enqueues the sleep (``torch.cuda._sleep``, in cycles
+    calibrated here against CUDA events)."""
+    probe = 1 << 20
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.bitwise_not_()
-            with record_function("smoke.call"):
-                fn()
-        torch.cuda.synchronize()
-    calls = [range_kernels(e) for e in prof.events()
-             if e.device_type == DeviceType.CPU and e.name == "smoke.call"]
-    if len(calls) != reps or not all(n for n, _ in calls):
-        fail(f"range_profile: {len(calls)} calls, kernels {calls}")
-    ns = sorted(n for n, _ in calls)
-    ms = sorted(m for _, m in calls)
-    return ms[reps // 2], ns[reps // 2]
+    a.record()
+    torch.cuda._sleep(probe)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = probe / max(a.elapsed_time(b), 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3  # enqueue, plus any sync
+    torch.cuda.synchronize()
+    cycles = int(cycles_per_ms * (2 * host_ms + 1.0))
+    return lambda: torch.cuda._sleep(cycles)
 
 
 def device_ms(torch, fn, reps=20):
-    """Median device time of the kernels one call launches: the kernels'
-    intervals in a ``torch.profiler`` trace, summed per call, with a cold
-    L2 as in :func:`time_ms` (the 64 MB buffer is inverted before each
-    call; its kernel, the only ``bitwise_not`` in the trace, separates the
-    calls). Unlike :func:`time_ms` it leaves out the host's dispatch, which
-    dominates calls of tens of microseconds. A trace that comes back without
-    the calls' kernels (the profiler's device tracing now and then returns
-    none) is taken again, up to three times in all."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Median device time of one call, without the host's dispatch, which
+    dominates calls of tens of microseconds in :func:`time_ms`: CUDA events
+    around the call with the stream held by a GPU sleep while the host
+    enqueues it (:func:`_queue_ahead`), so the events time the call's
+    kernels back to back (and the device's gaps between them), with a cold
+    L2 as in :func:`time_ms`. No profiler trace is read: the profiler's
+    device tracing now and then returns no device events at all."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
-    torch.cuda.synchronize()
+    ahead = _queue_ahead(torch, fn)
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        ahead()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def range_profile(torch, fn, reps=20):
+    """(median device ms, median kernel launches) of one call: the time by
+    :func:`device_ms`, the launches from the kernels that the profiler's op
+    tree puts inside each call's host range (``profile_serve.
+    range_kernels``). A trace whose calls hold no kernels is taken again,
+    up to three times; then the row fails with what the traces held."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.profile_serve import range_kernels
+    ms = device_ms(torch, fn, reps)
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                flush.bitwise_not_()
-                fn()
+                with record_function("smoke.call"):
+                    fn()
             torch.cuda.synchronize()
-        kernels = sorted((e.time_range.start, e.time_range.end, e.name)
-                         for e in prof.events()
-                         if e.device_type == DeviceType.CUDA)
-        calls = []
-        for a, b, name in kernels:
-            if "bitwise_not" in name.lower():
-                calls.append(0.0)
-            elif calls:
-                calls[-1] += (b - a) / 1e3
+        events = prof.events()
+        calls = [range_kernels(e)[0] for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name == "smoke.call"]
         if len(calls) == reps and all(calls):
-            calls.sort()
-            return calls[len(calls) // 2]
-    fail(f"device_ms: {len(calls)} calls with kernels in the trace, "
-         f"expected {reps}, in three traces")
+            return ms, sorted(calls)[reps // 2]
+        seen.append({"calls": len(calls), "with_kernels": sum(
+            1 for n in calls if n), "device_events": sum(
+            1 for e in events if e.device_type == DeviceType.CUDA)})
+    fail(f"range_profile: no kernels in the calls of three traces {seen}")
 
 
 def rel_err(got, plain):
@@ -343,7 +392,8 @@ def pool_case(np, rng, B, Hkv, D, ps, n, P, needed):
 # long lane (many splits) and 64 slots over short lanes (one or few); D 20
 # stages bf16 and int8 rows by element copies.
 SPLIT_EDGES = [(1, 64, 1), (2, 128, 64), (5, 128, 1), (8, 64, 64),
-               (5, 128, 8), (2, 20, 8)]
+               (5, 128, 8), (2, 20, 8), (12, 128, 8), (10, 64, 1),
+               (16, 20, 64)]
 
 
 def split_edge_rows(np, rng, W, L, B):
@@ -948,6 +998,7 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
             row.update(device_ms=device_ms(torch, fn),
                        library_device_ms=device_ms(torch, library))
         rows.append(row)
+        return row
 
     # --- decode: every slot attends [0, length); all rows live. Paged
     # (128-token pages) and contiguous lanes of cache_len (544) positions,
@@ -1118,6 +1169,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
                  + (", LUT exp" if lut else "")}, launches, plain_reps=5,
                 device=True)
         del kl, vl, keys_all, vals_all
+    del q, k, v, kr, vr, kq, vq, ks, vs, sq, fmask
+    ring_rows(torch, np, err, check, add_row, gather)
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
@@ -1128,6 +1181,141 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
              "library_device_ms", "library", "bound_ms", "bound_by",
              "max_abs_err", "shape") if k in r} for r in rows})
     return rows
+
+
+# The ring serve's attention at G = 12 (starcoder2-15b: 48 q / 4 kv heads
+# of 128) and at G = 10 (40 over 4): 8 slots, rings of 4096 positions (32
+# pages of 128). Decode: lanes that wrapped attend their whole ring (hi =
+# min(len + 1, ring) = 4096), beside partial ones. Mixed (window 4096):
+# a fresh chunk, a second chunk up to the ring's end, a chunk that wraps
+# (positions 4096..6143 onto lane positions 0..2047), a short chunk past
+# the ring, decode rows before and after the wrap, an inert row.
+RING_DECODE_HI = (4096, 4096, 4096, 4096, 1000, 4096, 300, 2500)
+RING_MIXED_ROWS = ((0, 2048), (2048, 2048), (4096, 2048), (4500, 500),
+                   (4100, 1), (5000, 1), (300, 1), (90, 0))
+RING_GROUPS = ((48, "g12"), (40, "g10"))  # (Hq over 4 kv heads, suffix)
+
+
+def ring_rows(torch, np, err, check, add_row, gather):
+    """Kernels-line rows of the decode kernels (paged and contiguous) and
+    the mixed kernel at the ring serve's shapes, G = 12 and G = 10, bf16,
+    each checked against its plain version (the limits of phase 2, exact
+    zeros off the live part) and timed beside SDPA over the same lanes and
+    masks. Each row carries the launches of its check here; main gives
+    the G = 12 paged-decode and mixed rows the ring serve's instead."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ref import (_mixed_masks,
+                                             decode_attention_reference,
+                                             mixed_attention_reference)
+    from repro_torch.launch.profile_serve import RING_ENGINE_KW, ring_config
+    rcfg = ring_config()
+    Hkv, D = rcfg.kv_heads, rcfg.head_dim
+    ps, B = RING_ENGINE_KW["page_size"], RING_ENGINE_KW["num_slots"]
+    ring, S = rcfg.sliding_window, RING_ENGINE_KW["prefill_budget"]
+    n = ring // ps
+    P = B * n + 5
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    bt = torch.from_numpy(rng.permutation(P)[:B * n].reshape(B, n).astype(
+        np.int32)).to(dev)
+    k = torch.randn((P, ps, Hkv, D), device=dev).to(bf)
+    v = torch.randn((P, ps, Hkv, D), device=dev).to(bf)
+    kl, vl = gather(k, bt).contiguous(), gather(v, bt).contiguous()
+    hi = torch.tensor(RING_DECODE_HI, dtype=torch.int32, device=dev)
+    bounds = torch.stack([torch.zeros_like(hi), hi], 1).contiguous()
+    tokens = int(hi.sum())
+    pos = torch.arange(ring, device=dev)
+    lmask = (pos[None] < hi[:, None].long())[:, None, None, :]
+    fp_b = Hkv * D * 2 * 2
+    mrows = torch.tensor(RING_MIXED_ROWS, dtype=torch.int32, device=dev)
+    ci, nn = mrows[:, :1].long(), mrows[:, 1:].long()
+    cols = torch.arange(S, device=dev)
+    mlive = cols[None] < nn
+    cache_valid, row_valid = _mixed_masks(ci, nn, S, ring, ring, ring)
+    pairs = int((cache_valid & mlive[:, :, None]).sum()
+                + (row_valid & mlive[:, :, None]).sum())
+    fmask = torch.cat([cache_valid, row_valid], -1)
+    fmask = fmask | ~fmask.any(-1, keepdim=True)  # no all-masked rows
+    live_cols = int(nn.sum())
+    read_keys = int(torch.where(nn > 0, torch.clamp(ci, max=ring), 0).sum())
+    kr = torch.randn((B, S, Hkv, D), device=dev).to(bf)
+    vr = torch.randn((B, S, Hkv, D), device=dev).to(bf)
+    keys_all = torch.cat([kl, kr], 1).permute(0, 2, 1, 3)
+    vals_all = torch.cat([vl, vr], 1).permute(0, 2, 1, 3)
+    repl = {"paged": "src/repro/kernels/tda/tda.py:220",
+            "contig": "src/repro/kernels/tda/tda.py:168",
+            "mixed": "src/repro/kernels/tda/tda.py:391"}
+    for Hq, suffix in RING_GROUPS:
+        q1 = torch.randn((B, Hq, D), device=dev).to(bf)
+        qo = q1.numel() * 2 + B * Hq * D * 4 + bounds.numel() * 4
+        shape = {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "G": Hq // Hkv,
+                 "group_tiles": tda.group_tiles(Hq, Hkv), "ring": ring,
+                 "tokens_attended": tokens, "hi": list(RING_DECODE_HI),
+                 "dtype": "bfloat16"}
+        kk, vv = kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3)
+
+        def plain(q1=q1):  # the oracle over the (gathered) lanes
+            return decode_attention_reference(q1, kl, vl, hi.long()[:, None])
+
+        for kind, name in (("paged", "tda_paged_decode_attention"),
+                           ("contig", "tda_decode_attention")):
+            row = f"{name}.{suffix}"
+            if kind == "paged":
+                fn = (lambda q1=q1: tda.tda_paged_decode_attention(
+                    q1, k, v, bounds, bt))
+            else:
+                fn = (lambda q1=q1: tda.tda_decode_attention(
+                    q1, kl, vl, bounds))
+            n0 = tda.VARIANT_LAUNCHES[name]
+            err[row] = 0.0
+            check(row, fn(), plain(), hi > 0)
+            launches = tda.VARIANT_LAUNCHES[name] - n0
+            r = add_row(row, "tda_paged_decode.cu" if kind == "paged"
+                    else "tda_decode.cu", repl[kind], fn, plain,
+                    lambda q1=q1, kk=kk, vv=vv:
+                    F.scaled_dot_product_attention(
+                        q1[:, :, None], kk, vv, attn_mask=lmask,
+                        enable_gqa=True),
+                    "SDPA over bf16 ring lanes",
+                    tokens * fp_b + qo + (bt.numel() * 4
+                                          if kind == "paged" else 0),
+                    4 * tokens * Hq * D,
+                    dict(shape, lane={"page_size": ps, "pages": n}
+                         if kind == "paged" else ring),
+                    launches, device=True)
+            r.update(launches=launches, launches_from="check")
+        q = torch.randn((B, S, Hq, D), device=dev).to(bf)
+        row = f"tda_mixed_attention.{suffix}"
+        fn = (lambda q=q: tda.tda_mixed_attention(
+            q, k, v, kr, vr, mrows, bt, ring=ring, window=ring))
+        plain = (lambda q=q: mixed_attention_reference(
+            q, kl, vl, kr, vr, mrows[:, 0], mrows[:, 1], ring=ring,
+            window=ring))
+        n0 = tda.VARIANT_LAUNCHES["tda_mixed_attention"]
+        err[row] = 0.0
+        check(row, fn(), plain(), mlive)
+        launches = tda.VARIANT_LAUNCHES["tda_mixed_attention"] - n0
+        sq = q.permute(0, 2, 1, 3)
+        nbytes = read_keys * fp_b + live_cols * fp_b \
+            + live_cols * Hq * D * (2 + 4) + mrows.numel() * 4 \
+            + bt.numel() * 4
+        r = add_row(row, "tda_mixed.cu", repl["mixed"], fn, plain,
+                lambda sq=sq: F.scaled_dot_product_attention(
+                    sq, keys_all, vals_all, attn_mask=fmask[:, None],
+                    enable_gqa=True),
+                "SDPA over bf16 ring lanes and the chunk", nbytes,
+                4 * pairs * Hq * D,
+                {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                 "G": Hq // Hkv, "ring": ring, "window": ring,
+                 "rows_ci_nnew": [list(r) for r in RING_MIXED_ROWS],
+                 "live_columns": live_cols, "bound_bytes": nbytes,
+                 "live_query_key_pairs_per_head": pairs,
+                 "dtype": "bfloat16"}, launches, plain_reps=3, device=True)
+        r.update(launches=launches, launches_from="check")
+        del q, sq
+    torch.cuda.synchronize()
 
 
 # AFU shapes: the kernel table's softmax (256, 512); decode scores of 8
@@ -1642,6 +1830,7 @@ def phase_tokens(torch):
                  f"{runs_[0][0]} vs uncut {runs_[1][0]}")
         preempt[label] = n_pre
     surface = surface_checks(torch, np, model, params)
+    ring = starcoder2_tokens(torch, np)
     line("tokens", seconds=round(time.perf_counter() - t0, 3),
          float32_smoke_identical=True, prefill_budgets=checked, tokens=n_tok,
          card_vs_cpu_identical=surface,
@@ -1652,7 +1841,87 @@ def phase_tokens(torch):
              "int8_contiguous_vs_paged_vs_plain": True},
          serialized_int8_tokens=ser_tok,
          compressed_identical=True, compressed_prefill_budgets=[16, None],
-         compressed_tokens=sum(len(v) for v in got.values()))
+         compressed_tokens=sum(len(v) for v in got.values()),
+         starcoder2_ring=ring)
+
+
+# starcoder2 smoke at float32 (window 32: ring lanes of 32 positions):
+# prompts shorter than, at and past the window, decoding to 54 tokens; the
+# last two share the first 16 tokens of the 25-token prompt and arrive at
+# tick 3, after it has published and while it decodes, so its ring wraps
+# into a page they share and copies it.
+SC2_LENGTHS = (3, 11, 25, 7, 40, 45, 33, 20, 22)
+SC2_BUDGETS = (4, 2, 12, 3, 6, 9, 5, 12, 12)
+SC2_TICKS = (1, 1, 1, 2, 4, 5, 7, 3, 3)
+SC2_ENGINES = {"mixed": {}, "serialized_paged": {"mixed": False},
+               "serialized_contiguous": {"mixed": False, "paged": False}}
+
+
+def starcoder2_tokens(torch, np):
+    """starcoder2 smoke at float32 with ring lanes past the window, through
+    the mixed engine (pages of 8, sharing on) and the serialized engines
+    over paged and contiguous lanes: on the card through the kernels
+    (``decode_attn="tda"``; each engine's kernels launched) and through
+    the plain path (``"dense"``), and on the CPU; every run's tokens equal,
+    and every paged run's host counters equal to the CPU's. Returns the
+    line's summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tda import tda
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig, Request
+    cfg = get_config("starcoder2-15b", "smoke", dtype="float32")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SC2_LENGTHS]
+    for i in (7, 8):  # share the first 16 tokens of the 25-token prompt
+        prompts[i][:16] = prompts[2][:16]
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    model = Model(cfg)
+    params = tree_to(cpu_params, "cuda")
+    launched = {"mixed": ("tda_mixed_attention",
+                          "tda_paged_decode_attention"),
+                "serialized_paged": ("tda_paged_decode_attention",),
+                "serialized_contiguous": ("tda_decode_attention",)}
+    keys = ("steps", "mixed_steps", "decoded_tokens", "kv_blocks_visited",
+            "prefix_hit_ratio", "pages_shared", "preemptions")
+    out = {}
+    for label, kw in SC2_ENGINES.items():
+        runs = {}
+        for where, m, prm, mode in (("card_tda", model, params, "tda"),
+                                    ("card_dense", model, params, "dense"),
+                                    ("cpu", cpu_model, cpu_params, "dense")):
+            eng = Engine(m, prm, config=EngineConfig(
+                max_len=16, max_new_tokens=12, num_slots=3,
+                max_prompt_len=48, page_size=8, decode_attn=mode, **kw))
+            reqs = [Request(rid=i, prompt=pr, max_new_tokens=b)
+                    for i, (pr, b) in enumerate(zip(prompts, SC2_BUDGETS))]
+            tda.reset_launch_counts()
+            done = eng.run(arrivals=list(zip(SC2_TICKS, reqs)))
+            if len(done) != len(reqs) or any(r.status != "ok"
+                                             for r in done):
+                fail(f"starcoder2 {label} {where}: not every request ok")
+            if where == "card_tda" and (
+                    sorted(k for k, n in tda.LAUNCHES.items() if n)
+                    != sorted(launched[label])):
+                fail(f"starcoder2 {label}: launched {tda.LAUNCHES}")
+            runs[where] = ({r.rid: list(r.output) for r in done},
+                           {k: eng.decode_stats[k] for k in keys},
+                           eng.slots.pages_copied)
+        toks = {w: r[0] for w, r in runs.items()}
+        if not toks["card_tda"] == toks["card_dense"] == toks["cpu"]:
+            fail(f"starcoder2 {label}: tokens differ (kernels, plain path, "
+                 f"CPU): {toks}")
+        if runs["card_tda"][1:] != runs["cpu"][1:]:
+            fail(f"starcoder2 {label}: host counters {runs['card_tda'][1:]}"
+                 f" != the CPU run's {runs['cpu'][1:]}")
+        out[label] = dict(runs["cpu"][1], pages_copied=runs["cpu"][2])
+    if not (out["mixed"]["prefix_hit_ratio"] > 0
+            and out["mixed"]["pages_copied"] > 0):
+        fail(f"starcoder2 mixed: no ring copy-on-write of a shared page "
+             f"({out['mixed']})")
+    return {"window": cfg.sliding_window, "prompt_lengths": SC2_LENGTHS,
+            "tokens_identical_kernels_plain_cpu": True, "engines": out}
 
 
 def tree_to(tree, dev):
@@ -2049,7 +2318,8 @@ def phase_fleet_serve(torch, np, model, params, engine_kw):
                          "sampled": sum(s.sampled for s in specs)})
 
 
-def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
+def serve_run(torch, np, model, params, engine_kw, traffic=None,
+              reduced=None, **cfg_kw):
     """Serve ``traffic(max_new_tokens)`` (default: ``profile_serve.
     workload``) through ``Engine.run`` after one warm-up request, with
     every launch counter set to 0 just before the run and read just after
@@ -2058,8 +2328,9 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
     pool's invariants, and that each TDA kernel launches once per layer per
     step of its kind: the mixed engine's paged decode and mixed kernels,
     the serialized engine's contiguous or paged decode kernel (every one
-    of its steps is a decode step), and no other. Returns (summary dict,
-    launches, {rid: output tokens})."""
+    of its steps is a decode step), and no other. ``reduced`` names the
+    configuration's cuts (default: qwen2.5-32b's depth). Returns (summary
+    dict, launches, {rid: output tokens}, engine)."""
     from repro_torch.kernels.dmm import dmm
     from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
@@ -2075,6 +2346,7 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
         def traffic(n):
             return workload(cfg.vocab_size, n)
     warm, up_front, arrivals, lengths = traffic(engine_kw["max_new_tokens"])
+    n_req = len(up_front) + len(arrivals)
     eng.submit(warm)  # library initialisation, first launches
     eng.run()
     for r in up_front:
@@ -2091,7 +2363,7 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
     launches = {**tda.LAUNCHES, **dmm.LAUNCHES, **smm.LAUNCHES,
                 **dmm.BODY_LAUNCHES, **smm.BODY_LAUNCHES}
     st = eng.decode_stats
-    if sorted(r.rid for r in done) != list(range(16)):
+    if sorted(r.rid for r in done) != list(range(n_req)):
         fail("not every request came back")
     bad = [(r.rid, r.status, r.status_reason) for r in done
            if r.status != "ok"]
@@ -2127,7 +2399,8 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
         lanes="paged" if eng.paged else "contiguous",
         kv="int8" if cfg.kv_quant else str(cfg.compute_dtype).split(".")[1],
         d_model=cfg.d_model, n_layers=L,
-        reduced={"n_layers": "64 -> 8 (depth only)"},
+        reduced=({"n_layers": "64 -> 8 (depth only)"} if reduced is None
+                 else reduced),
         requests=len(done), ok=len(done), output_tokens=toks,
         prompt_tokens=int(lengths.sum()), wall_s=wall, setup_s=setup_s,
         output_tok_s=toks / wall,
@@ -2152,12 +2425,14 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None, **cfg_kw):
         kv_token_writes=(st["prefill_chunk_tokens"] + st["decoded_tokens"]
                          + (eng.page_size or 0)
                          * (eng.slots.pages_copied - copied0)),
+        pages_copied=eng.slots.pages_copied - copied0,
         kv_blocks_visited=st["kv_blocks_visited"],
+        kv_blocks_dense=st["kv_blocks_dense"],
         kv_bytes_per_token=st["kv_bytes_per_token"],
         weight_bytes_per_step=st["weight_bytes_per_step"],
         bytes_per_token=st["bytes_per_token"], launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return summary, launches, {r.rid: list(r.output) for r in done}
+    return summary, launches, {r.rid: list(r.output) for r in done}, eng
 
 
 def phase_serve(torch, np, full_cfg, engine_kw):
@@ -2170,7 +2445,7 @@ def phase_serve(torch, np, full_cfg, engine_kw):
     model = Model(full_cfg)
     params = model.init(seed=0)
     init_s = time.perf_counter() - t0
-    summary, launches, _ = serve_run(torch, np, model, params, engine_kw)
+    summary, launches, _, _ = serve_run(torch, np, model, params, engine_kw)
     line("serve", seconds=round(time.perf_counter() - t0, 3),
          init_s=init_s, **summary)
     runs = {"mixed": launches}
@@ -2184,8 +2459,8 @@ def phase_serve(torch, np, full_cfg, engine_kw):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        ser, runs[label], _ = serve_run(torch, np, m, params, engine_kw,
-                                        **kw)
+        ser, runs[label], _, _ = serve_run(torch, np, m, params, engine_kw,
+                                           **kw)
         if ser["engine"] != "serialized":
             fail(f"{label}: the {ser['engine']} engine served it")
         kv_bytes[label] = (ser["kv_bytes_per_token"],
@@ -2268,7 +2543,7 @@ def phase_shared_serve(torch, np, model, params, engine_kw):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        summ, _, outputs[label] = serve_run(
+        summ, _, outputs[label], _ = serve_run(
             torch, np, model, params, engine_kw, traffic=traffic,
             page_size=128, **{"prefix_share": True, **kw})
         got = {k: summ[k] for k in HOST_COUNTERS}
@@ -2320,7 +2595,7 @@ def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
     compress_s = time.perf_counter() - t1
     del params  # the f32 factors; cparams shares only embeddings and head
     gc.collect()
-    summary, launches, _ = serve_run(
+    summary, launches, _, _ = serve_run(
         torch, np, mc, cparams, engine_kw,
         weight_stream_bits=stats["weight_stream_bits"])
     del cparams
@@ -2345,6 +2620,206 @@ def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
          dense_weight_bytes_per_step=dense["weight_bytes_per_step"],
          dense_bytes_per_token=dense["bytes_per_token"],
          dense_output_tok_s=dense["output_tok_s"], **summary)
+    return launches
+
+
+# bf16 logits, card against CPU: the same bound as tests/test_torch_bf16_
+# parity.py (there: the port's bf16 against the reference's, as a multiple
+# of the reference's own bf16-vs-f32 gap; here: the card's bf16 against the
+# CPU's f32, as a multiple of the port's own bf16-vs-f32 gap on the CPU).
+BF16_FACTOR = 2.0
+BF16_ARCHS = ("qwen2.5-32b", "starcoder2-15b")
+
+
+def phase_bf16_logits(torch, np):
+    """bf16 logits on the card against the CPU, for qwen2.5 smoke and
+    starcoder2 smoke (2 layers; float32 params from ``Model.init`` seed 0,
+    made bf16 by ``Model.prepare``): ``apply`` over 40 tokens (past
+    starcoder2's window of 32), ``decode_step`` and ``mixed_step`` over a
+    shuffled page pool of bf16 values (the TDA kernels on the card, the
+    plain path on the CPU). For each, the card's largest gap to the CPU's
+    float32 logits over live positions, divided by the CPU's own bf16 gap
+    to them, must stay within BF16_FACTOR, and the logits be finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    PS, NPG, B, S = 8, 3, 4, 6
+    W = PS * NPG
+    P = B * NPG + 2
+    bt = rng.permutation(P)[:B * NPG].reshape(B, NPG).astype(np.int32)
+    active = np.array([True, True, False, True])
+    ci_d = np.array([3, 15, 0, 20], np.int32)
+    ci_m = np.array([5, 14, 9, 0], np.int32)
+    nn = np.array([4, 1, 3, S], np.int32)
+    live = {"apply": None, "decode": active,
+            "mixed": (np.arange(S)[None, :] < nn[:, None]) & active[:, None]}
+    out = {}
+    for arch in BF16_ARCHS:
+        c32 = get_config(arch, "smoke", dtype="float32")
+        toks = rng.integers(0, c32.vocab_size, size=(2, 40)).astype(np.int32)
+        dtoks = rng.integers(0, c32.vocab_size, size=(B, 1)).astype(np.int32)
+        mtoks = rng.integers(0, c32.vocab_size, size=(B, S)).astype(np.int32)
+        shape = (c32.n_layers, P, PS, c32.kv_heads, c32.head_dim)
+        pools = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).bfloat16().float() for _ in range(2)]
+        params = Model(c32, device="cpu").init(seed=0)
+
+        def logits(dtype, dev, mode):
+            m = Model(get_config(arch, "smoke", dtype=dtype), device=dev) \
+                .with_decode_attn(mode)
+            prm = m.prepare(tree_to(params, dev))
+
+            def T(a):
+                return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+            def caches():
+                return {"k": pools[0].to(dev, m.cfg.compute_dtype),
+                        "v": pools[1].to(dev, m.cfg.compute_dtype)}
+
+            pages = {"bt": T(bt), "width": W, "page_size": PS}
+            res = {"apply": m.apply(prm, {"inputs": T(toks)})[0],
+                   "decode": m.decode_step(
+                       prm, {"inputs": T(dtoks)}, caches(), T(ci_d),
+                       slot_mask=T(active), pages=pages)[0][:, 0],
+                   "mixed": m.mixed_step(
+                       prm, {"inputs": T(mtoks)}, caches(), T(ci_m), T(nn),
+                       slot_mask=T(active), pages=pages)[0]}
+            return {k: v.float().cpu().numpy() for k, v in res.items()}
+
+        ref32 = logits("float32", "cpu", "dense")
+        cpu16 = logits("bfloat16", "cpu", "dense")
+        card16 = logits("bfloat16", "cuda", "tda")
+        for step, mask in live.items():
+            def sel(a):
+                return a if mask is None else a[mask]
+            gap_cpu = float(np.abs(sel(cpu16[step]) - sel(ref32[step])).max())
+            gap_card = float(np.abs(sel(card16[step])
+                                    - sel(ref32[step])).max())
+            ratio = gap_card / gap_cpu if gap_cpu > 0 else float("inf")
+            out[f"{arch}:{step}"] = {
+                "card_bf16_vs_cpu_f32": gap_card,
+                "cpu_bf16_vs_cpu_f32": gap_cpu, "ratio": ratio,
+                "card_bf16_vs_cpu_bf16": float(np.abs(
+                    sel(card16[step]) - sel(cpu16[step])).max())}
+            if not (np.isfinite(card16[step]).all()
+                    and ratio <= BF16_FACTOR):
+                fail(f"bf16 logits {arch} {step}: card gap {gap_card} over "
+                     f"the CPU's bf16 gap {gap_cpu} = {ratio} (limit "
+                     f"{BF16_FACTOR})")
+    line("bf16_logits", seconds=round(time.perf_counter() - t0, 3),
+         limit_ratio=BF16_FACTOR, **out)
+
+
+# The ring serve: starcoder2-15b at its published widths (profile_serve.
+# ring_config, RING_ENGINE_KW, ring_workload); RING_LAYERS cuts its depth
+# when the script's time limit forces it (None: all 40 layers).
+RING_LAYERS = None
+RING_COUNTERS = ("steps", "mixed_steps", "decoded_tokens",
+                 "kv_blocks_visited", "kv_blocks_dense", "prefix_hit_ratio",
+                 "pages_shared", "preemptions")
+
+
+def ring_counters(eng, summ):
+    """The ring serve's host counters: RING_COUNTERS, the K/V tokens read
+    per attention layer by ring (the K/V bytes the engine prices, over its
+    bytes per token and its layers), the K/V token writes and the pages
+    copied on write."""
+    st = eng.decode_stats
+    per_layer = st["kv_bytes_per_token"] * max(st["decoded_tokens"], 1) \
+        / (eng._kv_token_bytes * eng.model.cfg.n_layers)
+    return dict({k: st[k] for k in RING_COUNTERS},
+                kv_tokens_read_per_layer={str(eng.slots.width): round(
+                    per_layer)},
+                kv_token_writes=summ["kv_token_writes"],
+                pages_copied=summ["pages_copied"])
+
+
+def phase_ring_serve(torch, np):
+    """starcoder2-15b at its published widths (RING_LAYERS: the depth),
+    bf16 weights from seed 0, served through the default EngineConfig
+    (mixed, paged, sharing on) over sliding-window ring lanes of 4096
+    tokens: ``profile_serve.ring_workload`` (12 greedy requests, short
+    prompts, prompts that cross the window while decoding, two of them
+    sharing a 2048-token prefix, prompts that wrap inside their chunks;
+    token ids below 256). 12/12 ``ok`` with serve_run's launch checks,
+    one ring class of 4096 positions holding at most 32 pages per slot,
+    pages shared and at least one ring copy-on-write, and every host
+    counter (``ring_counters``) equal to the port's CPU run of the same
+    workload on starcoder2 smoke with a window of 4096, float32. Reports
+    tok/s, TTFT p50/p99 and decode-step ms with the card's name and power
+    limit. Returns the serve's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import (RING_ENGINE_KW,
+                                                  ring_config, ring_workload)
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig
+    t0 = time.perf_counter()
+    kw = RING_ENGINE_KW
+
+    def traffic(n):
+        return ring_workload(256, n)
+
+    scfg = get_config("starcoder2-15b", "smoke", dtype="float32",
+                      sliding_window=4096)
+    smodel = Model(scfg, device="cpu")
+    eng = Engine(smodel, smodel.init(seed=0), config=EngineConfig(**kw))
+    warm, up_front, arrivals, lengths = traffic(kw["max_new_tokens"])
+    eng.submit(warm)
+    eng.run()
+    for r in up_front:
+        eng.submit(r)
+    copied0 = eng.slots.pages_copied
+    done = eng.run(arrivals=arrivals)
+    if len(done) != len(up_front) + len(arrivals) or any(
+            r.status != "ok" for r in done):
+        fail("ring_serve on the CPU: not every request ok")
+    eng.slots.pool.check_invariants()
+    st = eng.decode_stats
+    cpu = ring_counters(eng, {
+        "kv_token_writes": st["prefill_chunk_tokens"] + st["decoded_tokens"]
+        + eng.page_size * (eng.slots.pages_copied - copied0),
+        "pages_copied": eng.slots.pages_copied - copied0})
+    cpu_s = time.perf_counter() - t0
+    del eng, smodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    cfg = ring_config(RING_LAYERS)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    reduced = {"n_layers": f"40 -> {cfg.n_layers} (depth only)"} \
+        if cfg.n_layers != 40 else {}
+    summ, launches, _, eng = serve_run(
+        torch, np, model, params, kw, traffic=traffic, reduced=reduced,
+        prefix_share=True)
+    pool = eng.slots.pool
+    classes = {w: tuple(c.table.shape) for w, c in pool.classes.items()}
+    if list(classes) != [cfg.sliding_window] or \
+            classes[cfg.sliding_window][1] != cfg.sliding_window \
+            // kw["page_size"]:
+        fail(f"ring_serve: page classes {classes}, want one ring of "
+             f"{cfg.sliding_window} positions in 32 pages")
+    got = ring_counters(eng, summ)
+    if got != cpu:
+        fail(f"ring_serve: host counters {got} != the CPU smoke run's {cpu}")
+    if not (got["pages_shared"] > 0 and got["pages_copied"] > 0):
+        fail(f"ring_serve: no shared prefix or no ring copy-on-write ({got})")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    line("ring_serve", seconds=round(time.perf_counter() - t0, 3),
+         cpu_smoke_s=cpu_s, init_s=init_s, card=smi,
+         page_classes=classes, host_counters_equal_cpu_smoke=True,
+         host_counters=got, prompt_lengths=lengths.tolist(),
+         **{k: v for k, v in summ.items() if k != "launches"},
+         launches={k: v for k, v in launches.items() if v})
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2381,6 +2856,7 @@ def main():
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
     table_launches = timed("kernel_table", phase_kernel_table, torch)
     timed("tokens", phase_tokens, torch)
+    timed("bf16_logits", phase_bf16_logits, torch, np)
     timed("sampler", phase_sampler, torch, np)
     dense, runs, model, params = timed("serve", phase_serve, torch, np,
                                        full_cfg, engine_kw)
@@ -2393,6 +2869,7 @@ def main():
     del model, params
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
+    rlaunches = timed("ring_serve", phase_ring_serve, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
@@ -2407,7 +2884,11 @@ def main():
               "tda_paged_decode_attention.int8": (
                   "paged_int8", "tda_paged_decode_attention")}
     for r in rows:
-        if r["name"] in ("dmm_matmul", "smm_matmul"):
+        if r["name"] in ("tda_paged_decode_attention.g12",
+                         "tda_mixed_attention.g12"):
+            r.update(launches=rlaunches[r["name"].split(".")[0]],
+                     launches_from="serve:ring")
+        elif r["name"] in ("dmm_matmul", "smm_matmul"):
             r.update(launches=claunches[r["name"]],
                      launches_from="compressed_serve",
                      body_launches={k: v for k, v in claunches.items()

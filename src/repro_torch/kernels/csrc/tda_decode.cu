@@ -23,11 +23,12 @@ struct LaneAddr {
 // ks, vs (B, S, Hkv) f32 (quant = 1); bounds (B, 2) int32 [lo, hi);
 // table: null (exact exp) or the 64-entry f32 LUT, whose blocks are bk
 // positions aligned at multiples of bk (the reference's min(block_k, S));
-// ws: ceil(S / split) * B * Hq * (D + 2) f32 and counters: B * Hkv int32,
-// zero (both may be null with one split); out (B, Hq, D) f32. split: the
-// positions of a split (>= S with a table). dtype: 0 = float32,
-// 1 = bfloat16 (q's type). Requires Hq % Hkv == 0, Hq / Hkv <= 8, D <= 128
-// and, with a table, 1 <= bk <= 256 (the wrapper checks).
+// ws: ceil(S / split) * B * Hq * (D + 2) f32 and counters:
+// B * Hkv * ceil(Hq / Hkv / 8) int32, zero (both may be null with one
+// split); out (B, Hq, D) f32. split: the positions of a split (>= S with a
+// table). dtype: 0 = float32, 1 = bfloat16 (q's type). Requires
+// Hq % Hkv == 0, D <= 128 and, with a table, 1 <= bk <= 256 (the wrapper
+// checks); groups above 8 rows run in group tiles.
 extern "C" int tda_decode(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* bounds,
                           const void* table, void* ws, void* counters,

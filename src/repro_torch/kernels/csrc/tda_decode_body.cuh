@@ -12,7 +12,7 @@
 // only supply that functor and a C entry point.
 //
 // One query token per slot attends the lane's [lo, hi); softmax in f32;
-// GQA (G = Hq / Hkv <= 8 query rows per kv head, any G); output zeros when
+// GQA (any G = Hq / Hkv query rows per kv head); output zeros when
 // hi <= lo.
 //
 // What bounds it on this card: bytes. Each visited key/value element (2
@@ -56,7 +56,17 @@
 //      never cross a page), an int8 scale once per (key, head) row.
 //      Elements are converted to f32 on use. Rows whose bytes are no
 //      multiple of 16 fall back to element copies.
-//   4. CUDA cores, a warp per key group. A warp scores 16 keys at once, two
+//   4. Groups above kMaxG = 8 rows are tiled. A block holds the query rows
+//      of one group tile: ceil(G / 8) tiles of ceil(G / tiles) rows each
+//      (G = 12 at starcoder2-15b: two tiles of 6; G = 10 at
+//      recurrentgemma-2b: two of 5), the grid's y axis runs over (kv head,
+//      tile), and each tile reads the same K/V split, which the second tile
+//      finds in L2. A tile is the G <= 8 body unchanged (one tile there,
+//      the same code, registers and shared memory); its partials, counter
+//      and merge are the tile's own. Holding all G rows in one block would
+//      double the per-thread accumulators (acc[G][4]) and the q and p
+//      buffers at G = 16, past the 128-thread block's register budget.
+//   5. CUDA cores, a warp per key group. A warp scores 16 keys at once, two
 //      lanes a key, each lane half of D against the G query rows held in
 //      shared memory as f32 (read as broadcasts); one shuffle joins the
 //      halves. The warp's online softmax then takes the group's max and
@@ -226,11 +236,13 @@ __device__ __forceinline__ void stage_rows(TKV* dst, const TKV* __restrict__ src
 // rows) and `size_t row(int b, int p) const` (the token row of lane
 // position p of slot b: element (row * Hkv + h) * D + d of k/v, scale
 // row * Hkv + h).
-// Grid (splits, Hkv, B), nstage * kStageBytes<TKV> bytes of dynamic shared
-// memory; split: positions a split holds (kLut: >= the lane width, one
-// split). ws: the splits' partials, acc (splits, B, Hq, D) then (m, l)
-// (splits, B, Hq, 2), f32; counters: B * Hkv ints, 0 between launches;
-// both may be null with one split. kLut: table (lut::kSize f32) and bk
+// Grid (splits, Hkv * tiles, B), nstage * kStageBytes<TKV> bytes of
+// dynamic shared memory; a block's y index is h * tiles + t (group tile t
+// of kv head h, tile_rows rows from row t * tile_rows of the group); split:
+// positions a split holds (kLut: >= the lane width, one split). ws: the
+// splits' partials, acc (splits, B, Hq, D) then (m, l) (splits, B, Hq, 2),
+// f32; counters: B * Hkv * tiles ints, 0 between launches; both may be
+// null with one split. kLut: table (lut::kSize f32) and bk
 // (the LUT-mode block, <= kMaxBk) are read; otherwise ignored.
 template <typename TQ, typename TKV, bool kLut, typename Addr>
 __global__ void __launch_bounds__(kThreads)
@@ -240,7 +252,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
               const float* __restrict__ table, float* __restrict__ ws,
               int* __restrict__ counters, float* __restrict__ out, int Hq,
               int Hkv, int D, float scale, int bk, int split, int vec,
-              int nstage, Addr addr) {
+              int nstage, int tiles, int tile_rows, Addr addr) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int kTile = kTileKeys<TKV>;
   constexpr int kS = kStride<TKV>;
@@ -255,9 +267,13 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   __shared__ float m_s[kWarps][kMaxG], l_s[kWarps][kMaxG], a_s[kMaxG];
   __shared__ int last_s;
 
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, h = blockIdx.y / tiles, b = blockIdx.z;
   const int B = gridDim.z, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int G = Hq / Hkv;
+  // This block's query rows: the group tile's, rows [g0, g0 + G) of kv
+  // head h's group (all of it when tiles == 1).
+  const int g0 = (blockIdx.y % tiles) * tile_rows;
+  const int G = min(tile_rows, Hq / Hkv - g0);
+  const int row_h = h * (Hq / Hkv) + g0;  // first query row of the tile
   const int limit = addr.limit(), seg = addr.seg();
   // The split's first row, looked up while the bounds load.
   const int pa = min(sp * split, max(limit - 1, 0));
@@ -266,7 +282,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int hi = min(bounds[2 * b + 1], limit);
   const int first = lo / split;
   const int n_live = hi > lo ? (hi - 1) / split - first + 1 : 0;
-  float* o = out + (static_cast<size_t>(b) * Hq + h * G) * D;
+  float* o = out + (static_cast<size_t>(b) * Hq + row_h) * D;
   if (n_live == 0) {  // never attended: zeros, from split 0
     if (sp == 0) {
       for (int i = tid; i < G * D; i += kThreads) o[i] = 0.f;
@@ -288,7 +304,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   for (int i = tid; i < kMaxG * kMaxD; i += kThreads) {
     const int g = i / kMaxD, d = i - g * kMaxD;
     q_s[g][d / kHalf][d % kHalf] =
-        g < G && d < D ? to_f32(q[(static_cast<size_t>(b) * Hq + h * G + g) * D + d])
+        g < G && d < D ? to_f32(q[(static_cast<size_t>(b) * Hq + row_h + g) * D + d])
                        : 0.f;
   }
   float acc[kMaxG][kPerLane];
@@ -531,17 +547,19 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       if (n_live == 1) {
         o[i] = x / fmaxf(y, kEps);
       } else {
-        const size_t row = sp * step + static_cast<size_t>(b) * Hq + h * G + g;
+        const size_t row = sp * step + static_cast<size_t>(b) * Hq + row_h + g;
         ws_acc[row * D + d] = x;
         if (d == 0) ws_ml[2 * row] = mb, ws_ml[2 * row + 1] = y;
       }
     }
     if (n_live == 1) return;
-    // The last live split of this (slot, head) to finish merges them all.
+    // The last live split of this (slot, head, tile) to finish merges
+    // them all.
+    int* counter = &counters[static_cast<size_t>(b) * gridDim.y + blockIdx.y];
     __threadfence();
     __syncthreads();
     if (tid == 0) {
-      last_s = atomicAdd(&counters[b * Hkv + h], 1) == n_live - 1;
+      last_s = atomicAdd(counter, 1) == n_live - 1;
     }
     __syncthreads();
     if (!last_s) return;
@@ -550,7 +568,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     // and row, and l*; then the accumulators in split order.
     float* w_s = reinterpret_cast<float*>(dyn_s);  // [split][g]
     float* lw_s = w_s + kMaxSplits * kMaxG;
-    const size_t row0 = static_cast<size_t>(b) * Hq + h * G;
+    const size_t row0 = static_cast<size_t>(b) * Hq + row_h;
     for (int i = tid; i < n_live * G; i += kThreads) {
       const int j = i / G, g = i - j * G;
       const size_t row = (first + j) * step + row0 + g;
@@ -590,7 +608,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int u = 0; u < kOut; ++u) {
       if (gu[u] < G) o[tid + u * kThreads] = x[u] / fmaxf(a_s[gu[u]], kEps);
     }
-    if (tid == 0) counters[b * Hkv + h] = 0;  // ready for the next launch
+    if (tid == 0) *counter = 0;  // ready for the next launch
   }
 }
 
@@ -599,14 +617,15 @@ int launch_kernel(dim3 grid, int nstage, cudaStream_t s, const TQ* q,
                   const TKV* k, const TKV* v, const float* ks, const float* vs,
                   const int* bounds, const float* table, float* ws,
                   int* counters, float* out, int Hq, int Hkv, int D,
-                  float scale, int bk, int split, int vec, const Addr& addr) {
+                  float scale, int bk, int split, int vec, int tiles,
+                  int tile_rows, const Addr& addr) {
   auto* kern = decode_kernel<TQ, TKV, kLut, Addr>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * kStageBytes<TKV>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kern<<<grid, kThreads, nstage * kStageBytes<TKV>, s>>>(
       q, k, v, ks, vs, bounds, table, ws, counters, out, Hq, Hkv, D, scale,
-      bk, split, vec, nstage, addr);
+      bk, split, vec, nstage, tiles, tile_rows, addr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,7 +640,11 @@ int launch_typed(const void* q, const void* k, const void* v, const float* ks,
   if (nsplit > kMaxSplits || (nsplit > 1 && (!ws || !counters))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(nsplit, Hkv, B);
+  // Group tiles of at most kMaxG rows, as even as they come.
+  const int G = Hq / Hkv;
+  const int tiles = (G + kMaxG - 1) / kMaxG;
+  const int tile_rows = (G + tiles - 1) / tiles;
+  const dim3 grid(nsplit, Hkv * tiles, B);
   const TQ* qt = static_cast<const TQ*>(q);
   const TKV* kt = static_cast<const TKV*>(k);
   const TKV* vt = static_cast<const TKV*>(v);
@@ -635,19 +658,21 @@ int launch_typed(const void* q, const void* k, const void* v, const float* ks,
   if (table) {
     return launch_kernel<TQ, TKV, true, Addr>(
         grid, nstage, s, qt, kt, vt, ks, vs, bounds, table, ws, counters, out,
-        Hq, Hkv, D, scale, bk, split, vec, addr);
+        Hq, Hkv, D, scale, bk, split, vec, tiles, tile_rows, addr);
   }
   return launch_kernel<TQ, TKV, false, Addr>(
       grid, nstage, s, qt, kt, vt, ks, vs, bounds, table, ws, counters, out,
-      Hq, Hkv, D, scale, bk, split, vec, addr);
+      Hq, Hkv, D, scale, bk, split, vec, tiles, tile_rows, addr);
 }
 
-// Launch ceil(width / split) splits for each (kv head, slot). dtype: q's
+// Launch ceil(width / split) splits for each (kv head, group tile, slot),
+// ceil(G / 8) group tiles per kv head. dtype: q's
 // type, 0 = float32, 1 = bfloat16; quant: 0 = k/v in q's type, 1 = int8
 // codes with f32 scales ks/vs; table: null for the exact exp, else the
 // 64-entry LUT with blocks of bk positions (1 <= bk <= kMaxBk) and then
 // split >= the lane width; ws, counters: the workspace and zeroed counters
-// (null allowed with one split). At most kMaxSplits splits. Returns
+// (null allowed with one split; B * Hkv * ceil(G / 8) counters). At most
+// kMaxSplits splits. Returns
 // cudaGetLastError() after the launch.
 template <typename Addr>
 int launch_decode(const void* q, const void* k, const void* v, const void* ks,

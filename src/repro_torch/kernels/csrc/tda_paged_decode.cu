@@ -29,11 +29,12 @@ struct PagedAddr {
 // ks, vs (P, ps, Hkv) f32 (quant = 1); bounds (B, 2) int32 [lo, hi);
 // bt (B, nblk) int32; table: null (exact exp) or the 64-entry f32 LUT, one
 // page per LUT-mode block; ws: ceil(nblk ps / split) * B * Hq * (D + 2) f32
-// and counters: B * Hkv int32, zero (both may be null with one split); out
-// (B, Hq, D) f32. split: the positions of a split, a divisor or a multiple
-// of ps (>= nblk ps with a table). dtype: 0 = float32, 1 = bfloat16 (q's
-// type). Requires Hq % Hkv == 0, Hq / Hkv <= 8, D <= 128 and, with a
-// table, ps <= 256 (the wrapper checks).
+// and counters: B * Hkv * ceil(Hq / Hkv / 8) int32, zero (both may be null
+// with one split); out (B, Hq, D) f32. split: the positions of a split, a
+// divisor or a multiple of ps (>= nblk ps with a table). dtype:
+// 0 = float32, 1 = bfloat16 (q's type). Requires Hq % Hkv == 0, D <= 128
+// and, with a table, ps <= 256 (the wrapper checks); groups above 8 rows
+// run in group tiles.
 extern "C" int tda_paged_decode(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* bounds, const void* bt,

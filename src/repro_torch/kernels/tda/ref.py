@@ -26,6 +26,9 @@ import torch
 from repro_torch.kernels.afu.ref import lut_exp
 
 NEG_INF = -1e30
+# Scores per (slot, kv head, group row) one block of the mixed step's plain
+# version holds: query columns x (lane + chunk) keys.
+_MIXED_SCORES = 1 << 22
 
 __all__ = ["decode_attention_reference", "mixed_attention_reference",
            "decode_attention_lut", "mixed_attention_lut", "block_stats"]
@@ -116,7 +119,10 @@ def mixed_attention_reference(
     causal in-row chunk (``i <= j``, ``i < n_new``). int8 lane codes
     (``k_scale``/``v_scale`` given) are dequantized in f32 first; the chunk
     is fp. Columns ``j >= n_new`` are garbage the caller ignores; rows with
-    no valid key at all return zeros. Returns f32 ``(B, S, Hq, D)``."""
+    no valid key at all return zeros. Returns f32 ``(B, S, Hq, D)``. Query
+    columns go through in blocks of at most ``_MIXED_SCORES // (W + S)``
+    (a single block at test sizes), so the score tensor stays bounded at
+    long lanes and chunks."""
     B, S, Hq, D = q.shape
     W, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -124,16 +130,21 @@ def mixed_attention_reference(
     ci = _rows(cache_index, B, dev)
     nn = _rows(n_new, B, dev)
     cache_valid, row_valid = _mixed_masks(ci, nn, S, W, ring, window)
-    qg = q.float().reshape(B, S, Hkv, G, D)
     kf, vf = _dequant(k, k_scale), _dequant(v, v_scale)
-    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) / math.sqrt(D)
-    s_r = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_row.float()) / math.sqrt(D)
-    s_c = torch.where(cache_valid[:, None, None], s_c, NEG_INF)
-    s_r = torch.where(row_valid[:, None, None], s_r, NEG_INF)
-    p = torch.softmax(torch.cat([s_c, s_r], dim=-1), dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", p[..., :W], vf)
-    o = o + torch.einsum("bhgqk,bkhd->bhgqd", p[..., W:], v_row.float())
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+    krf, vrf = k_row.float(), v_row.float()
+    o = torch.empty((B, S, Hq, D), dtype=torch.float32, device=dev)
+    step = max(1, _MIXED_SCORES // (W + S))
+    for a in range(0, S, step):
+        b = min(a + step, S)
+        qg = q[:, a:b].float().reshape(B, b - a, Hkv, G, D)
+        s_c = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) / math.sqrt(D)
+        s_r = torch.einsum("bqhgd,bkhd->bhgqk", qg, krf) / math.sqrt(D)
+        s_c = torch.where(cache_valid[:, None, None, a:b], s_c, NEG_INF)
+        s_r = torch.where(row_valid[:, None, None, a:b], s_r, NEG_INF)
+        p = torch.softmax(torch.cat([s_c, s_r], dim=-1), dim=-1)
+        ob = torch.einsum("bhgqk,bkhd->bhgqd", p[..., :W], vf)
+        ob = ob + torch.einsum("bhgqk,bkhd->bhgqd", p[..., W:], vrf)
+        o[:, a:b] = ob.permute(0, 3, 1, 2, 4).reshape(B, b - a, Hq, D)
     dead = (ci <= 0) & (nn <= 0)                                 # (B, 1)
     return torch.where(dead[:, :, None, None], 0.0, o)
 

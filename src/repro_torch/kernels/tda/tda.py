@@ -18,9 +18,11 @@ row chunk as one more block in the mixed step).
 The two decode kernels split each lane's key axis across blocks
 (flash-decoding) as ``decode_split_plan`` says, and merge the splits'
 partials in the same launch; the wrappers hand them a workspace
-(``torch.empty``) and per-(slot, kv head) counters, zeroed once per device
-and reset by the kernel itself after each merge. With a LUT table the plan
-has one split per lane: the LUT result depends on the block order.
+(``torch.empty``) and per-(slot, kv head, group tile) counters, zeroed once
+per device and reset by the kernel itself after each merge. With a LUT
+table the plan has one split per lane: the LUT result depends on the block
+order. A GQA group of any size is served: groups above ``MAX_GROUP`` rows
+run as ``group_tiles`` blocks per kv head, each over the same splits.
 
 ``VARIANT_LAUNCHES`` counts kernel launches by variant (``name``,
 ``name.int8``, ``name.lut``, ``name.int8.lut``) and ``LAUNCHES`` reads
@@ -45,7 +47,8 @@ from repro_torch.kernels.tda.ref import (
 )
 
 __all__ = ["tda_decode_attention", "tda_paged_decode_attention",
-           "tda_mixed_attention", "decode_split_plan", "LAUNCHES",
+           "tda_mixed_attention", "decode_split_plan", "group_tiles",
+           "LAUNCHES",
            "VARIANT_LAUNCHES", "reset_launch_counts"]
 
 _KERNELS = ("tda_decode_attention", "tda_paged_decode_attention",
@@ -74,7 +77,7 @@ class _KernelLaunches(Mapping):
 
 
 LAUNCHES = _KernelLaunches()
-MAX_GROUP = 8     # query rows per kv head the decode kernels hold
+MAX_GROUP = 8     # query rows of one decode block (a group tile)
 MAX_HEAD_DIM = 128
 MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
 SPLIT_BASE = 64   # positions of a decode split, page-aligned, at least
@@ -107,18 +110,26 @@ def decode_split_plan(width: int, page_size: Optional[int] = None,
     return L
 
 
+def group_tiles(Hq: int, Hkv: int) -> int:
+    """Blocks per kv head of the decode kernels: the GQA group's ``Hq //
+    Hkv`` query rows in tiles of at most ``MAX_GROUP`` rows (as even as
+    they come: G = 12 is two tiles of 6). One tile for G <= 8."""
+    return -(-(Hq // Hkv) // MAX_GROUP)
+
+
 def _split_buffers(q, Hkv: int, width: int, split: int):
     """The split kernels' workspace (partials of every split: acc, then m
-    and l) and counters, as pointers, and the workspace tensor; none with
-    one split. The counters are shared by every launch on the device: the
-    kernels run on one stream, in order, and leave them at 0."""
+    and l) and counters (one per slot, kv head and group tile), as
+    pointers, and the workspace tensor; none with one split. The counters
+    are shared by every launch on the device: the kernels run on one
+    stream, in order, and leave them at 0."""
     B, Hq, D = q.shape
     nsplit = -(-max(width, 1) // split)
     if nsplit == 1:
         return 0, 0, None
     ws = torch.empty(nsplit * B * Hq * (D + 2), dtype=torch.float32,
                      device=q.device)
-    cnt = merge_counters(q.device, B * Hkv)
+    cnt = merge_counters(q.device, B * Hkv * group_tiles(Hq, Hkv))
     return ws.data_ptr(), cnt.data_ptr(), ws
 
 
@@ -199,12 +210,14 @@ def _table(name: str, table, q, block: int) -> int:
     return table.data_ptr()
 
 
-def _heads(name: str, Hq: int, Hkv: int, D: int, max_group: int) -> None:
+def _heads(name: str, Hq: int, Hkv: int, D: int) -> None:
+    """Any GQA group (``Hq`` a multiple of ``Hkv``), head dim up to
+    ``MAX_HEAD_DIM``."""
     if Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if Hq // Hkv > max_group or not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: needs Hq/Hkv <= {max_group} and head "
-                         f"dim <= {MAX_HEAD_DIM}, got G={Hq // Hkv}, D={D}")
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: needs head dim <= {MAX_HEAD_DIM}, got "
+                         f"D={D}")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -251,7 +264,7 @@ def tda_decode_attention(q, k, v, bounds, k_scale=None, v_scale=None,
         raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
                          f"{tuple(bounds.shape)}")
-    _heads(name, Hq, Hkv, D, MAX_GROUP)
+    _heads(name, Hq, Hkv, D)
     tp = _table(name, lut_table, q, bk)
     split = decode_split_plan(S, lut=bool(tp))
     wsp, cntp, ws = _split_buffers(q, Hkv, S, split)
@@ -294,7 +307,7 @@ def tda_paged_decode_attention(q, k, v, bounds, block_table, k_scale=None,
         raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} bounds"
                          f"{tuple(bounds.shape)} bt{tuple(block_table.shape)}")
-    _heads(name, Hq, Hkv, D, MAX_GROUP)
+    _heads(name, Hq, Hkv, D)
     tp = _table(name, lut_table, q, ps)
     nblk = block_table.shape[1]
     split = decode_split_plan(nblk * ps, ps, lut=bool(tp))
@@ -354,7 +367,7 @@ def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
                          f"k{tuple(k.shape)} k_row{tuple(k_row.shape)} "
                          f"bounds{tuple(bounds.shape)} "
                          f"bt{tuple(block_table.shape)}")
-    _heads(name, Hq, Hkv, D, Hq)
+    _heads(name, Hq, Hkv, D)
     tp = _table(name, lut_table, q, max(ps, S))
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load

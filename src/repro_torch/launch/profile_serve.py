@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
       [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]] \\
-      [--sampled]
+      [--sampled] [--arch starcoder2-15b [--n-layers N]]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -28,7 +28,13 @@ profiles :func:`shared_workload` (system-prompt traffic) through the
 default ``EngineConfig`` (prefix sharing on), ``--pool-frac`` cutting the
 page pool as ``chip_smoke.py``'s shared phase does. ``--sampled`` serves
 with seeded sampling (:data:`SAMPLED`: temperature 0.8, top-k 50) instead
-of greedy decoding. Every step also reports its token choice alone
+of greedy decoding. ``--arch starcoder2-15b`` profiles the ring serve
+instead (:func:`ring_config`, :data:`RING_ENGINE_KW`,
+:func:`ring_workload`: starcoder2-15b at its published widths with bf16
+weights, sliding-window ring lanes of 4096 tokens, the default
+``EngineConfig`` with prefix sharing, long-context traffic that wraps the
+rings), as ``chip_smoke.py``'s ring_serve phase serves it; ``--n-layers``
+cuts its depth. Every step also reports its token choice alone
 (``choose_*``: the kernels launched inside ``Engine._choose``, the argmax
 of a greedy step or the sampler of a sampled one), found through the
 profiler's op tree. Needs a CUDA device.
@@ -44,8 +50,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ENGINE_KW", "SAMPLED", "SYSTEM_PROMPT", "serve_config",
-           "compressed_config", "workload", "shared_workload", "profile_run",
+__all__ = ["ENGINE_KW", "SAMPLED", "SYSTEM_PROMPT", "RING_ENGINE_KW",
+           "RING_PREFIX", "serve_config", "compressed_config", "ring_config",
+           "workload", "shared_workload", "ring_workload", "profile_run",
            "range_kernels", "main"]
 
 # The full-width serve's engine settings: paged lanes of 128-token pages
@@ -56,6 +63,15 @@ SYSTEM_PROMPT = 256  # tokens: two full 128-token pages
 # The sampled serve's engine-wide sampling (``--sampled``, chip_smoke.py's
 # sampled_serve phase).
 SAMPLED = dict(temperature=0.8, top_k=50)
+
+# The ring serve (``--arch starcoder2-15b``, chip_smoke.py's ring_serve
+# phase): 8 slots whose lanes clamp to starcoder2's window of 4096 tokens
+# (32 pages of 128), chunks of at most 2048 prompt tokens a step, 32 new
+# tokens; max_len 5120 admits prompts of up to 10240 tokens (cache_len
+# 10272), so the window, not the cache, sizes the lanes.
+RING_ENGINE_KW = dict(max_len=5120, max_new_tokens=32, num_slots=8,
+                      page_size=128, prefill_budget=2048)
+RING_PREFIX = 2048  # tokens two of the window-crossing prompts share
 
 _KINDS = {"mixed": "_run_mixed", "decode": "_run_decode",
           "prefill": "_prefill_admission"}
@@ -84,6 +100,55 @@ def compressed_config():
     compressed streams by ``chip_smoke.py``'s compressed phase."""
     from repro_torch.configs import get_config
     return get_config("qwen2.5-32b", "full", factorized=True, n_layers=8)
+
+
+def ring_config(n_layers=None):
+    """starcoder2-15b at its published widths (d_model 6144, 48 q / 4 kv
+    heads of 128, d_ff 24576, vocab 49152, window 4096, rope_theta 1e5)
+    with bf16 weights (``param_dtype``: the 40 layers' ~16 B parameters
+    take ~32 GB); ``n_layers`` cuts the depth."""
+    from repro_torch.configs import get_config
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    return get_config("starcoder2-15b", "full", param_dtype="bfloat16",
+                      **over)
+
+
+def ring_workload(vocab: int, max_new: int, seed: int = 0):
+    """Long-context code completion over ring lanes of 4096 tokens: a
+    300-token warm-up request, then 12 greedy requests. Four short
+    prompts in [256, 1024] never wrap; four in [4066, 4090] cross the
+    window while decoding ``max_new`` = 32 tokens, and two of these share a
+    :data:`RING_PREFIX`-token prefix: the first is submitted up front, the
+    second arrives at tick 3, after the first has published its prompt's
+    pages, so it maps the shared pages and a ring that wraps into them
+    copies one; four in [4200, 5000] wrap inside their prompt chunks. Seven
+    requests up front, the other five at ticks 3, 4, 6, 8, 10. Token ids
+    below ``vocab`` (pass 256 to serve the same prompts on the CPU smoke
+    config). Returns ``(warmup, up_front, arrivals, prompt_lengths)``."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+
+    def toks(n):
+        return rng.integers(0, vocab, size=int(n)).astype(np.int32)
+
+    warm = Request(rid=-1, prompt=toks(300), max_new_tokens=4)
+    short = rng.integers(256, 1025, size=4)
+    cross = rng.integers(4066, 4091, size=4)
+    wrap = rng.integers(4200, 5001, size=4)
+    prefix = toks(RING_PREFIX)
+    prompts = {
+        "cross0": np.concatenate([prefix, toks(cross[0] - RING_PREFIX)]),
+        "cross1": np.concatenate([prefix, toks(cross[1] - RING_PREFIX)]),
+        "cross2": toks(cross[2]), "cross3": toks(cross[3]),
+        **{f"short{i}": toks(n) for i, n in enumerate(short)},
+        **{f"wrap{i}": toks(n) for i, n in enumerate(wrap)}}
+    order = ["cross0", "wrap0", "short0", "short1", "wrap1", "cross2",
+             "short2", "cross1", "short3", "wrap2", "wrap3", "cross3"]
+    reqs = [Request(rid=i, prompt=prompts[k], max_new_tokens=max_new)
+            for i, k in enumerate(order)]
+    arrivals = [(t, r) for t, r in zip((3, 4, 6, 8, 10), reqs[7:])]
+    lengths = np.array([len(r.prompt) for r in reqs])
+    return warm, reqs[:7], arrivals, lengths
 
 
 def workload(vocab: int, max_new: int, seed: int = 0):
@@ -267,11 +332,21 @@ def main(argv=None):
     ap.add_argument("--shared", action="store_true")
     ap.add_argument("--pool-frac", type=float, default=1.0)
     ap.add_argument("--sampled", action="store_true")
+    ap.add_argument("--arch", default="qwen2.5-32b",
+                    choices=("qwen2.5-32b", "starcoder2-15b"))
+    ap.add_argument("--n-layers", type=int, default=None)
     args = ap.parse_args(argv)
-    cfg = compressed_config() if args.compressed else serve_config()
+    ring = args.arch == "starcoder2-15b"
+    if ring and (args.compressed or args.shared):
+        ap.error("--arch starcoder2-15b profiles the ring serve: it takes "
+                 "neither --compressed nor --shared")
+    if ring:
+        cfg = ring_config(args.n_layers)
+    else:
+        cfg = compressed_config() if args.compressed else serve_config()
     if args.kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
-    kw = ENGINE_KW
+    kw = RING_ENGINE_KW if ring else ENGINE_KW
     model = Model(cfg)
     params = model.init(seed=0)
     wsb = None
@@ -280,14 +355,16 @@ def main(argv=None):
             project_wd_leaves(params, cfg.factorization))
         wsb = stats["weight_stream_bits"]
     eng = Engine(model, params, config=EngineConfig(
-        prefix_share=args.shared, pool_frac=args.pool_frac,
+        prefix_share=args.shared or ring, pool_frac=args.pool_frac,
         weight_stream_bits=wsb, paged=not args.contiguous,
         mixed=False if args.serialized else None,
         **(SAMPLED if args.sampled else {}), **kw))
     del params
 
     def traffic():
-        if args.shared:  # token ids of the smoke vocabulary, as chip_smoke
+        if ring:  # token ids of the smoke vocabulary, as chip_smoke
+            return ring_workload(256, kw["max_new_tokens"])
+        if args.shared:
             return shared_workload(256, kw["max_new_tokens"])
         return workload(cfg.vocab_size, kw["max_new_tokens"])
 
@@ -303,7 +380,7 @@ def main(argv=None):
     eng.run(arrivals=arrivals)
     plain_ms = {k: float(np.mean(v)) if v else 0.0
                 for k, v in eng.decode_stats["step_ms"].items()}
-    if args.shared:
+    if args.shared or ring:
         eng.slots.pool.drop_prefix_cache()
     _, up_front, arrivals, _ = traffic()
     prof = profile_run(eng, up_front, arrivals, plain_ms)

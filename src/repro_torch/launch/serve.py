@@ -3,10 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       [--variant full] [--n-layers 8] [--requests 8] [--max-len 64] \\
       [--max-new 8] [--serialized] [--contiguous] [--kv-quant] \\
-      [--device cuda]
+      [--param-dtype bfloat16] [--device cuda]
 
-The reference launcher's flags, plus ``--n-layers`` (cut the depth: the
-full 64-layer qwen2.5-32b does not fit one 80 GB card with f32 params),
+Every dense attention stack the port serves: qwen2.5-32b, yi-34b,
+qwen1.5-4b and starcoder2-15b (LayerNorm, GELU, sliding-window ring
+lanes). The reference launcher's flags, plus ``--n-layers`` (cut the
+depth: the full 64-layer qwen2.5-32b does not fit one 80 GB card with f32
+params), ``--param-dtype`` (``bfloat16`` halves the weights: starcoder2-15b
+at full depth, ~16 B parameters, fits one 80 GB card so),
 the engine's lanes and prefill (``--serialized``: packed / chunked prefill
 sweeps instead of mixed steps; ``--contiguous``: contiguous lanes instead
 of page pools; ``--kv-quant``: int8 K/V lanes — the last two imply the
@@ -50,6 +54,7 @@ def main(argv=None):
     ap.add_argument("--serialized", action="store_true")
     ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--param-dtype", default=None)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     if args.ckpt:
@@ -59,6 +64,8 @@ def main(argv=None):
     over = {} if args.n_layers is None else {"n_layers": args.n_layers}
     if args.kv_quant:
         over["kv_quant"] = True
+    if args.param_dtype:
+        over["param_dtype"] = args.param_dtype
     cfg = get_config(args.arch, args.variant, **over)
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)

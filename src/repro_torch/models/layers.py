@@ -1,9 +1,11 @@
 """Shared neural layers (``repro.models.layers``, the serving-path parts):
-norms, RoPE, the plain flash (prefill) attention, the int8 KV codec, the
-attention block (prefill, contiguous decode, paged decode and the mixed
-step), the dense decode attention, the SwiGLU FFN, embeddings and logits,
-and the init of the attention and FFN linears (dense or factorized through
-the family dictionaries).
+norms (RMSNorm, LayerNorm with bias), RoPE, the plain flash (prefill)
+attention, the int8 KV codec, the attention block (prefill, contiguous
+decode, paged decode and the mixed step; full or sliding-window ring
+lanes), the dense decode attention, the FFN (SwiGLU, GeGLU or plain tanh
+GELU), embeddings and logits, and the init of the norms and of the
+attention and FFN linears (dense or factorized through the family
+dictionaries).
 
 Layouts match the reference at every public function: ``w`` is ``(d_in,
 d_out)``, activations ``(B, S, d)``, queries ``(B, S, Hq, D)``, contiguous
@@ -33,10 +35,21 @@ from repro_torch.models.common import ModelConfig
 
 NEG_INF = -1e30
 
-__all__ = ["apply_norm", "rope_tables", "apply_rope", "flash_attention",
+__all__ = ["init_norm", "apply_norm", "rope_tables", "apply_rope", "flash_attention",
            "kv_quantize", "kv_dequantize", "decode_attention",
            "init_attention", "attention_block", "init_ffn", "ffn_block",
            "embed_tokens", "lm_logits", "NEG_INF"]
+
+
+def init_norm(cfg: ModelConfig, lead=(),
+              device=None) -> Dict[str, torch.Tensor]:
+    """Unit ``scale`` (and, for ``norm="layernorm"``, a zero ``bias``) of
+    ``d_model`` entries with leading dims ``lead``, in the params dtype."""
+    shape = tuple(lead) + (cfg.d_model,)
+    p = {"scale": torch.ones(shape, dtype=cfg.params_dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=cfg.params_dtype, device=device)
+    return p
 
 
 def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -185,6 +198,17 @@ def _kv_leaves(k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _ring_layout(t: torch.Tensor, ring: int) -> torch.Tensor:
+    """A prefill's last ``ring`` positions in canonical ring phase (the
+    reference's ``ring_layout``): position ``p`` of the row lands at lane
+    position ``p % ring``, the phase of decode's write pointer
+    ``cache_index % ring``, so the first decoded token overwrites the
+    oldest cached one."""
+    if t.shape[1] <= ring:
+        return t
+    return torch.roll(t[:, -ring:], t.shape[1] % ring, dims=1)
+
+
 def init_attention(g: torch.Generator, cfg: ModelConfig,
                    bank: Optional[DictionaryBank], lead=(),
                    prefix: str = "attn") -> Dict:
@@ -224,15 +248,19 @@ def attention_block(
     """GQA attention with RoPE, in the four forms the serving paths take:
 
     * **prefill** (no ``cache_index``): :func:`flash_attention` over the
-      unquantized K/V with segment ids, then, when ``cache`` is given, the
-      K/V (int8 codes and scales with ``kv_quant``) written at lane
-      positions ``[0, S)`` of contiguous caches ``(L, B, S_max, Hkv, D)``.
+      unquantized K/V with segment ids (and the sliding window), then,
+      when ``cache`` is given, the K/V (int8 codes and scales with
+      ``kv_quant``) written at lane positions ``[0, S)`` of contiguous
+      caches ``(L, B, S_max, Hkv, D)``; a ring cache narrower than ``S``
+      (``init_cache(..., ring=True)`` of a windowed stack) takes the last
+      ``ring`` positions in canonical ring phase.
       With ``prefix_kv`` (a suffix prefill over a shared prefix) the keys
       are [prefix ∥ suffix]: the suffix queries, at absolute
       ``positions``, sit at the end of the key axis and see the whole
       valid prefix (``len``; rotated when it was written, so it takes no
       RoPE here) and their causal suffix; the cache receives the suffix
-      only;
+      only (no window: a ring lane shares a prefix only while the whole
+      sequence fits it);
     * **contiguous decode** (``cache_index``, no ``pages``, S == 1): the
       token is written at ``(b, cache_index[b])`` for the rows in
       ``slot_mask``, then attended;
@@ -243,6 +271,13 @@ def attention_block(
       cache_index + n_new)``; queries attend the PRE-write lane plus the
       causal in-row chunk, and only then does the chunk scatter into the
       pool.
+
+    With ``cfg.sliding_window`` the lanes are rings of ``ring`` positions
+    (the cache's width, or ``pages["width"]``): decode writes at
+    ``cache_index % ring`` and attends the lane's ``[0, min(cache_index +
+    1, ring))`` (canonical ring phase: every resident position is inside
+    the window); the mixed step passes the ring and the window to its
+    attention.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -260,11 +295,13 @@ def attention_block(
         k = apply_rope(k, cos, sin)
 
     quant = cache is not None and "k_scale" in cache
+    window = cfg.sliding_window
     impl = resolve_decode_attn(cfg.decode_attn, x.device)
     if cache_index is None:
         if prefix_kv is None:
-            o = flash_attention(q, k, v, causal=cfg.causal, seg_q=seg_ids,
-                                seg_kv=seg_ids, chunk=cfg.attn_chunk)
+            o = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                seg_q=seg_ids, seg_kv=seg_ids,
+                                chunk=cfg.attn_chunk)
         else:
             pk, pv = prefix_kv["k"].to(dt), prefix_kv["v"].to(dt)
             sq = seg_ids if seg_ids is not None else torch.ones(
@@ -277,8 +314,11 @@ def attention_block(
                                 seg_q=sq, seg_kv=torch.cat([pseg, sq], 1),
                                 chunk=cfg.attn_chunk)
         if cache is not None:
-            for name, t in _kv_leaves(k, v, quant).items():
-                cache[name][layer_idx, :, :S] = t.to(cache[name].dtype)
+            ring = cache["k"].shape[2]
+            for name, t in _kv_leaves(_ring_layout(k, ring),
+                                      _ring_layout(v, ring), quant).items():
+                cache[name][layer_idx, :, :t.shape[1]] = \
+                    t.to(cache[name].dtype)
         return lin("wo", o.reshape(B, S, cfg.n_heads * hd), "attn_o")
 
     ci = cache_index.reshape(-1).to(torch.int64).expand(B)
@@ -297,7 +337,7 @@ def attention_block(
             ci = torch.where(sm, ci, 0)
             nn = torch.where(sm, nn, 0)  # inert row: attends, writes nothing
         o = fused_mixed_attention(q, kpool, vpool, k, v, ci, nn,
-                                  block_table=bt, ring=ringw,
+                                  block_table=bt, ring=ringw, window=window,
                                   use_kernel=impl == "tda")
         # Chunk scatter AFTER attention: token j lands at lane position
         # (ci + j) % ringw; only the last min(n_new, ringw) columns write
@@ -318,24 +358,28 @@ def attention_block(
     if pages is not None:
         ps = pages["page_size"]
         bt = pages["bt"]
+        ring = pages["width"]
         P = lanes["k"].shape[0]
-        page = torch.gather(bt.long(), 1, (ci // ps)[:, None])[:, 0]
-        phys = page * ps + ci % ps
+        pos = ci if window is None else ci % ring
+        page = torch.gather(bt.long(), 1, (pos // ps)[:, None])[:, 0]
+        phys = page * ps + pos % ps
         if slot_mask is not None:
             phys = torch.where(slot_mask.reshape(-1), phys, P * ps)
         for name, t in new.items():
             _write_pool(lanes[name], phys, t)
     else:
-        # In place at (b, cache_index[b]) for the writable rows; an index
-        # past the lane writes nothing, as the reference's one-hot select.
-        # Other rows write their own value back (one distinct position per
-        # row, and no host sync to find the writable ones).
-        W = lanes["k"].shape[1]
-        keep = (ci >= 0) & (ci < W)
+        # In place at (b, cache_index[b]) — ring lanes: cache_index % ring —
+        # for the writable rows; an index past the lane writes nothing, as
+        # the reference's one-hot select. Other rows write their own value
+        # back (one distinct position per row, and no host sync to find the
+        # writable ones).
+        ring = lanes["k"].shape[1]
+        slot = ci if window is None else ci % ring
+        keep = (slot >= 0) & (slot < ring)
         if slot_mask is not None:
             keep &= slot_mask.reshape(-1)
         rows = torch.arange(B, device=x.device)
-        pos = torch.clamp(ci, 0, W - 1)
+        pos = torch.clamp(slot, 0, ring - 1)
         for name, t in new.items():
             lane = lanes[name]
             old = lane[rows, pos]
@@ -344,6 +388,8 @@ def attention_block(
     if slot_mask is not None:
         ci = torch.where(slot_mask.reshape(-1), ci, -1)
     hi = ci + 1  # inactive rows: hi == 0, nothing attended
+    if window is not None:  # ring: every resident position is in the window
+        hi = torch.clamp(hi, max=ring)
     bt = pages["bt"] if pages is not None else None
     if impl == "tda":
         o = fused_decode_attention(q, lanes["k"], lanes["v"], hi,
@@ -367,27 +413,38 @@ def attention_block(
 def init_ffn(g: torch.Generator, cfg: ModelConfig,
              bank: Optional[DictionaryBank], lead=(),
              prefix: str = "ffn") -> Dict:
-    """SwiGLU ``w_up``/``w_down``/``w_gate`` with leading dims ``lead``,
-    each dense or factorized through its ``{prefix}_*`` dictionary."""
+    """``w_up``/``w_down`` (and ``w_gate`` for the gated ``swiglu`` and
+    ``geglu``) with leading dims ``lead``, each dense or factorized through
+    its ``{prefix}_*`` dictionary."""
     d, f, fcfg = cfg.d_model, cfg.d_ff, cfg.factorization
     kw = dict(dtype=cfg.params_dtype, lead=lead)
-    return {"w_up": init_linear(g, d, f, fcfg, bank, f"{prefix}_up", **kw),
-            "w_down": init_linear(g, f, d, fcfg, bank, f"{prefix}_down", **kw),
-            "w_gate": init_linear(g, d, f, fcfg, bank, f"{prefix}_gate", **kw)}
+    p = {"w_up": init_linear(g, d, f, fcfg, bank, f"{prefix}_up", **kw),
+         "w_down": init_linear(g, f, d, fcfg, bank, f"{prefix}_down", **kw)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = init_linear(g, d, f, fcfg, bank, f"{prefix}_gate",
+                                  **kw)
+    return p
 
 
 def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
               dicts: Optional[Dict] = None) -> torch.Tensor:
-    """SwiGLU FFN: ``w_down(silu(w_gate x) * w_up x)``."""
+    """``w_down(h)`` with ``h = silu(w_gate x) * w_up x`` (``swiglu``),
+    ``gelu(w_gate x) * w_up x`` (``geglu``) or ``gelu(w_up x)`` (``gelu``);
+    the GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
     dt = cfg.compute_dtype
-    if cfg.act != "swiglu":
-        raise ValueError(f"only the swiglu FFN is ported, got {cfg.act!r}")
+    if cfg.act not in ("swiglu", "geglu", "gelu"):
+        raise ValueError(f"unknown FFN activation {cfg.act!r}")
 
     def lin(name, inp, fam):
         return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
 
     up = lin("w_up", x, "ffn_up")
-    h = F.silu(lin("w_gate", x, "ffn_gate")) * up
+    if cfg.act == "swiglu":
+        h = F.silu(lin("w_gate", x, "ffn_gate")) * up
+    elif cfg.act == "geglu":
+        h = F.gelu(lin("w_gate", x, "ffn_gate"), approximate="tanh") * up
+    else:
+        h = F.gelu(up, approximate="tanh")
     return lin("w_down", h, "ffn_down")
 
 

@@ -1,5 +1,6 @@
 """The composable model (``repro.models.transformer``): embeds -> block
-stack -> norm -> logits, for uniform dense attention stacks.
+stack -> norm -> logits, for uniform dense attention stacks (RMSNorm or
+LayerNorm, SwiGLU, GeGLU or GELU, full or sliding-window attention).
 
 The reference's ``lax.scan`` over layers is a Python loop here. Parameters
 are nested dicts of tensors in the reference's layout (uniform stacks carry
@@ -39,15 +40,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise UnsupportedConfigError(
             f"{cfg.name}: external embeddings / multi-codebook logits come "
             "with a later slice (ROADMAP Queue 1 item 10)")
-    if cfg.sliding_window is not None:
+    if cfg.learned_pos:
         raise UnsupportedConfigError(
-            f"{cfg.name}: sliding-window ring lanes come with a later slice "
-            "(ROADMAP Queue 1 item 8)")
-    if cfg.act != "swiglu" or cfg.norm != "rmsnorm" or cfg.learned_pos:
+            f"{cfg.name}: learned positions come with the paper models "
+            "(ROADMAP Queue 1 item 12)")
+    if cfg.act not in ("swiglu", "geglu", "gelu") \
+            or cfg.norm not in ("rmsnorm", "layernorm"):
         raise UnsupportedConfigError(
-            f"{cfg.name}: only the rmsnorm + swiglu + RoPE block is ported "
-            f"(got act={cfg.act!r}, norm={cfg.norm!r}); the others come "
-            "with a later slice (ROADMAP Queue 1 item 3)")
+            f"{cfg.name}: unknown block (act={cfg.act!r}, "
+            f"norm={cfg.norm!r})")
 
 
 def _tree_map(fn, tree):
@@ -110,9 +111,9 @@ class Model:
         """Random parameters in the reference's layout and distributions
         (``w ~ N(0, 1/d_in)``; factorized: dictionaries ``N(0, 1/d_in)``
         under ``params["dicts"]`` and per-layer ``wd ~ N(0, 1/r)``; zero
-        biases, unit norm scales, embeddings ``N(0, 0.02^2)``, head ``N(0,
-        1/d)``), drawn on ``self.device`` from a ``torch.Generator`` seeded
-        with ``seed``."""
+        biases, unit norm scales (LayerNorm: zero norm biases), embeddings
+        ``N(0, 0.02^2)``, head ``N(0, 1/d)``), drawn on ``self.device`` from
+        a ``torch.Generator`` seeded with ``seed``."""
         cfg = self.cfg
         g = torch.Generator(device=self.device).manual_seed(seed)
         dt, dev, Ln, d = cfg.params_dtype, self.device, cfg.n_layers, \
@@ -124,19 +125,16 @@ class Model:
             return torch.empty(shape, dtype=dt, device=dev).normal_(
                 0.0, std, generator=g)
 
-        def ones():
-            return {"scale": torch.ones((Ln, d), dtype=dt, device=dev)}
-
         layers = {
-            "norm1": ones(),
+            "norm1": L.init_norm(cfg, (Ln,), dev),
             "attn": L.init_attention(g, cfg, bank, lead=(Ln,)),
-            "norm2": ones(),
+            "norm2": L.init_norm(cfg, (Ln,), dev),
             "ffn": L.init_ffn(g, cfg, bank, lead=(Ln,)),
         }
         params: Dict[str, Any] = {
             "embed": {"tok": normal((cfg.vocab_size, d), 0.02)},
             "layers": layers,
-            "final_norm": {"scale": torch.ones((d,), dtype=dt, device=dev)},
+            "final_norm": L.init_norm(cfg, (), dev),
             "lm_head": {} if cfg.tie_embeddings
             else {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))},
         }
@@ -178,18 +176,29 @@ class Model:
     # caches / steps
     # ------------------------------------------------------------------
 
-    def _block_ring(self, kind: str, max_len: int) -> int:
-        """Sequence capacity of one attention lane (no window in this
-        slice, so always ``max_len``)."""
-        return max_len
-
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zero contiguous caches ``(L, batch, max_len, Hkv, D)`` in the
-        compute dtype, or, with ``kv_quant``, int8 codes plus f32
-        ``k_scale``/``v_scale`` ``(L, batch, max_len, Hkv)``. (The page
-        pools of the slot table are ``init_cache(num_pages, page_size)``.)"""
+    def _block_ring(self, kind: str, max_len: int, ring: bool = True) -> int:
+        """Sequence capacity of one attention lane: the window (the
+        ``local`` kind's ``local_window``, else ``sliding_window``) clamps
+        it to a ring of ``min(window, max_len)`` positions unless
+        ``ring=False`` (full-length caches: the engine's prefill, whose
+        lane gather must address every row position)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+        window = cfg.local_window if kind == "local" else cfg.sliding_window
+        if window is None or not ring:
+            return max_len
+        return min(window, max_len)
+
+    def init_cache(self, batch: int, max_len: int,
+                   ring: bool = True) -> Dict[str, torch.Tensor]:
+        """Zero contiguous caches ``(L, batch, width, Hkv, D)`` in the
+        compute dtype, or, with ``kv_quant``, int8 codes plus f32
+        ``k_scale``/``v_scale`` ``(L, batch, width, Hkv)``; ``width`` is
+        :meth:`_block_ring` of ``max_len`` (the ring of a windowed stack
+        with ``ring=True``). (The page pools of the slot table are
+        ``init_cache(num_pages, page_size, ring=False)``.)"""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, self._block_ring("attn", max_len, ring),
+                 cfg.kv_heads, cfg.head_dim)
 
         def zeros(shp, dt):
             return torch.zeros(shp, dtype=dt, device=self.device)
@@ -204,7 +213,7 @@ class Model:
 
     def cache_lane_specs(self) -> Dict[str, str]:
         """Per-leaf lane kinds of :meth:`init_cache`: every leaf is a
-        per-token ``"kv"`` lane."""
+        per-token ``"kv"`` lane (full, or a ring of the window)."""
         return {name: "kv" for name in (
             ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant
             else ("k", "v"))}
@@ -268,8 +277,10 @@ class Model:
 
     def prefill(self, params: Dict, batch: Dict, *,
                 max_len: int = 0) -> Tuple[torch.Tensor, Any]:
-        """Forward that fills fresh caches of ``max(max_len, S)`` positions;
-        returns the last position's logits ``(B, 1, V)`` and the caches."""
+        """Forward that fills fresh caches of ``max(max_len, S)`` positions
+        (rings of the window for a windowed stack, the prompt's last ring
+        positions in canonical ring phase); returns the last position's
+        logits ``(B, 1, V)`` and the caches."""
         B, S = batch["inputs"].shape
         caches = self.init_cache(B, max(max_len, S))
         h, caches = self.hidden(params, batch, caches=caches)

@@ -18,7 +18,8 @@ from repro_torch.serve.pages import FleetPrefixIndex, PagePool  # noqa: F401
 from repro_torch.serve.sampling import (SamplingParams,  # noqa: F401
                                         sample_tokens, sample_tokens_batch)
 from repro_torch.serve.scheduler import (TERMINAL_STATUSES,  # noqa: F401
-                                         Admission, Request, Scheduler)
+                                         Admission, DynamicBatcher, Request,
+                                         Scheduler)
 
 __all__ = [
     "Engine",

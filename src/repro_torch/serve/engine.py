@@ -68,6 +68,20 @@ publishes mirror full prefix pages to its host tier, probes restore
 fleet-only pages into the local pool first. The only reference option the
 port still refuses is ``mesh`` (ROADMAP Queue 1 item 11).
 
+**Sliding-window stacks** (starcoder2): each attention lane is a ring of
+``min(window, cache_len)`` positions in canonical ring phase; prefill
+sweeps fill full-length caches (``init_cache(..., ring=False)``) so the
+lane gather can address every row position. A ring lane that wraps into
+a shared page copies it first (copy-on-write), and a prompt longer than
+its ring neither shares, publishes nor restores fleet pages: its lane is
+not a function of the prompt's prefix.
+
+**Construction**: ``Engine(model, params, config=EngineConfig(...))``; the
+reference's legacy per-knob keyword arguments (``Engine(model, params,
+max_len=64)``) still build the same ``EngineConfig`` behind a one-time
+``DeprecationWarning``, and ``TypeError`` when mixed with ``config=`` or
+unknown.
+
 **Estimated HBM traffic** (``weight_bytes_per_token``,
 ``kv_bytes_per_token``, ``bytes_per_token``), as the reference reports it:
 every step streams the whole weight set once — ``weight_stream_bits``
@@ -81,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,6 +115,36 @@ from repro_torch.serve.scheduler import (TERMINAL_STATUSES, Admission,
                                          Request, Scheduler)
 
 __all__ = ["Engine", "EngineConfig", "StepResult"]
+
+# The legacy per-knob construction surface warns once per process.
+_LEGACY_KWARGS_WARNED = False
+
+
+def _resolve_engine_config(config: Optional[EngineConfig],
+                           legacy: Dict) -> EngineConfig:
+    """``config``, or an ``EngineConfig`` of the legacy per-knob kwargs
+    (never both; unknown names raise ``TypeError``), as the reference's
+    ``_resolve_engine_config``."""
+    global _LEGACY_KWARGS_WARNED
+    if not legacy:
+        return config if config is not None else EngineConfig()
+    if config is not None:
+        raise TypeError(
+            "pass either config=EngineConfig(...) or the legacy per-knob "
+            f"kwargs, not both (got config plus {sorted(legacy)})")
+    names = {f.name for f in dataclasses.fields(EngineConfig)}
+    unknown = sorted(set(legacy) - names)
+    if unknown:
+        raise TypeError(f"Engine() got unexpected keyword arguments "
+                        f"{unknown}; see EngineConfig for the serving "
+                        "knobs (mesh/faults/fleet stay Engine kwargs)")
+    if not _LEGACY_KWARGS_WARNED:
+        warnings.warn(
+            "Engine's per-knob kwargs are deprecated; pass "
+            "config=EngineConfig(...) instead", DeprecationWarning,
+            stacklevel=3)
+        _LEGACY_KWARGS_WARNED = True
+    return EngineConfig(**legacy)
 
 
 @dataclasses.dataclass
@@ -141,12 +186,12 @@ class _RunState:
 
 class Engine:
     def __init__(self, model, params, config: Optional[EngineConfig] = None,
-                 *, mesh=None, faults=None, fleet=None):
+                 *, mesh=None, faults=None, fleet=None, **legacy):
+        cfg_e = _resolve_engine_config(config, legacy)
         if mesh is not None:
             raise UnsupportedConfigError(
                 "Engine(mesh=...) comes with a later slice of the port "
                 "(ROADMAP Queue 1 item 11)")
-        cfg_e = config if config is not None else EngineConfig()
         traits = cfg_e.validate(model.cfg)
         self.config = cfg_e
         self.device = model.device
@@ -193,6 +238,15 @@ class Engine:
         self._chunk_width = max(1, min(self.max_len,
                                        cfg_e.prefill_budget or self.max_len))
         self._width = self.slots.width
+        # Attention layers per lane ring, for the blocks-visited and K/V
+        # byte accounting (one ring per window among the layers).
+        self._ring_layers: Dict[int, int] = {}
+        for i in range(model.cfg.n_layers):
+            kind = model.cfg.block_kind(i)
+            if kind in ("attn", "local"):
+                ring = model._block_ring(kind, self.cache_len)
+                self._ring_layers[ring] = self._ring_layers.get(ring, 0) + 1
+        self._attn_rings = sorted(self._ring_layers)
         # Weights: every step streams the full weight set once, priced at
         # the audited `weight_stream_bits` or at the in-memory width of the
         # params as passed (before `prepare`'s compute-dtype copy).
@@ -466,14 +520,17 @@ class Engine:
         return {"bt": bt, "width": self._width, "page_size": self.page_size}
 
     def _count_blocks(self, st: _RunState, hi: np.ndarray) -> None:
-        bs = block_stats(np.where(self.slots.active,
-                                  np.minimum(hi, self._width), 0),
-                         self._width, min(self._block_k, self._width))
-        st.blocks_visited += bs["visited"]
-        st.blocks_dense += bs["dense"]
-        # visited blocks x tokens per block, once per attention layer
-        st.kv_bytes += (bs["visited"] * min(self._block_k, self._width)
-                        * self.model.cfg.n_layers * self._kv_token_bytes)
+        """The predicated attention's kv blocks over each active lane's
+        occupancy ``hi`` clamped to its ring, one term per ring; K/V bytes:
+        visited blocks x tokens per block, once per layer of that ring."""
+        for ring in self._attn_rings:
+            bk = min(self._block_k, ring)
+            bs = block_stats(np.where(self.slots.active,
+                                      np.minimum(hi, ring), 0), ring, bk)
+            st.blocks_visited += bs["visited"]
+            st.blocks_dense += bs["dense"]
+            st.kv_bytes += (bs["visited"] * bk * self._ring_layers[ring]
+                            * self._kv_token_bytes)
 
     def _mixed_step(self, st: _RunState, active_ix: np.ndarray) -> None:
         """Pack up to ``prefill_budget`` fresh prompt tokens (chunk rows,
@@ -1176,7 +1233,8 @@ class Engine:
         if adm.shared_prefix:
             pk, pv = self.slots.gather_prefix(ids)
             prefix_kv = {"k": pk, "v": pv, "len": self._tensor(plen)}
-        caches = self._dmodel.init_cache(*tokens.shape)
+        # Full-length caches: the lane gather addresses every row position.
+        caches = self._dmodel.init_cache(*tokens.shape, ring=False)
         h, caches = self._dmodel.hidden(
             self.params, {"inputs": self._tensor(tokens),
                           "positions": self._tensor(positions),

@@ -1,13 +1,18 @@
 """Slot table over per-request KV lanes (``repro.serve.kv_slots``, the
 attention-lane parts).
 
-``num_slots`` lanes of ``cache_len`` tokens live either in **contiguous**
-caches (``Model.init_cache(num_slots, cache_len)``: ``(L, num_slots,
-cache_len, Hkv, D)`` leaves) or, with ``page_size``, in **page pools**
-(``Model.init_cache(num_pages, page_size)``: ``(L, P, page_size, Hkv, D)``)
-addressed through :class:`~repro_torch.serve.pages.PagePool` block
-tables. int8 lanes (``kv_quant``) carry ``k_scale``/``v_scale`` leaves of
-the same layout without the last axis, which move with their codes.
+``num_slots`` lanes live either in **contiguous** caches
+(``Model.init_cache(num_slots, cache_len)``: ``(L, num_slots, width, Hkv,
+D)`` leaves) or, with ``page_size``, in **page pools**
+(``Model.init_cache(num_pages, page_size, ring=False)``: ``(L, P,
+page_size, Hkv, D)``) addressed through
+:class:`~repro_torch.serve.pages.PagePool` block tables. A leaf's lane
+``width`` (``widths``) is ``cache_len``, or the ring of a sliding-window
+stack, ``min(window, cache_len)``: a request's last ``min(len, width)``
+tokens sit in **canonical ring phase** (token ``t`` at lane position ``t %
+width``), the phase of decode's write pointer. int8 lanes (``kv_quant``)
+carry ``k_scale``/``v_scale`` leaves of the same layout without the last
+axis, which move with their codes.
 
 The mixed-step engine ``claim``\\ s a slot and writes prompt chunks straight
 into its lane; the phase-serialized engine prefills admissions into a
@@ -58,14 +63,19 @@ class SlotKVCache:
         self.specs = model.cache_lane_specs()
         self.dtype = model.cfg.compute_dtype
         self.pages_copied = 0  # copy-on-write pages copied (copy_pages)
-        self.width = model._block_ring("attn", cache_len)
+        # Per-leaf logical lane width: every leaf of a uniform stack is an
+        # attention lane of the same ring, so the pool has one width class.
+        self.widths = {name: model._block_ring("attn", cache_len)
+                       for name in self.specs}
+        self.width = next(iter(self.widths.values()))
         self.pool: Optional[PagePool] = None
         if page_size is not None:
-            self.pool = PagePool([self.width], num_slots, page_size,
-                                 pool_frac=pool_frac, page_cap=page_cap,
-                                 device=self.device)
+            self.pool = PagePool(sorted(set(self.widths.values())), num_slots,
+                                 page_size, pool_frac=pool_frac,
+                                 page_cap=page_cap, device=self.device)
             self.caches = model.init_cache(
-                self.pool.classes[self.width].num_pages, page_size)
+                self.pool.classes[self.width].num_pages, page_size,
+                ring=False)
         else:
             self.caches = model.init_cache(num_slots, cache_len)
         self.active = np.zeros(num_slots, bool)
@@ -81,23 +91,28 @@ class SlotKVCache:
     # -- lane copies ---------------------------------------------------
 
     def _gather_lanes(self, src: torch.Tensor, rows, starts, lengths,
-                      out_width: int, offs=None
+                      width: int, out_width: int, offs=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Assignment j's segment out of ``src`` (L, R, W_src, ...) as a
-        lane: lane position ``p`` holds row position ``starts[j] + p -
-        offs[j]``, valid for ``offs[j] <= p < min(lengths[j], width)``
-        (lanes hold whole sequences: no window, so no ring phase). With an
-        offset, ``lengths`` is the lane's total depth and the row holds only
-        the suffix ``[offs, lengths)``; positions below ``offs`` live in
-        shared pages. Returns ``(lanes (L, J, out_width, ...) with zeros at
-        invalid positions, valid (J, out_width))``."""
+        """Assignment j's segment out of ``src`` (L, R, W_src, ...) in
+        canonical ring phase: lane position ``p`` holds token ``base + ((p
+        - base) % width)``, ``base = max(lengths[j] - width, 0)``, read from
+        row position ``starts[j] + token - offs[j]``; valid for ``offs[j]
+        <= p < min(lengths[j], width)`` (a lane no longer than ``width``
+        holds token ``p`` at ``p``). With an offset, ``lengths`` is the
+        lane's total depth and the row holds only the suffix ``[offs,
+        lengths)``; positions below ``offs`` live in shared pages (sharing
+        needs an unwrapped lane, so ``base`` is 0 there). Returns ``(lanes
+        (L, J, out_width, ...) with zeros at invalid positions, valid (J,
+        out_width))``."""
         wsrc = src.shape[2]
         if offs is None:
             offs = torch.zeros_like(lengths)
         p = torch.arange(out_width, device=src.device)
-        valid = (p[None, :] < torch.clamp(lengths, max=self.width)[:, None]) \
+        base = torch.clamp(lengths - width, min=0)[:, None]
+        tok = base + torch.remainder(p[None, :] - base, width)
+        valid = (p[None, :] < torch.clamp(lengths, max=width)[:, None]) \
             & (p[None, :] >= offs[:, None])
-        idx = torch.clamp(starts[:, None] + p[None, :] - offs[:, None], 0,
+        idx = torch.clamp(starts[:, None] + tok - offs[:, None], 0,
                           wsrc - 1)
         lanes = src[:, rows[:, None], idx]
         vshape = (1,) + tuple(valid.shape) + (1,) * (lanes.dim() - 3)
@@ -113,8 +128,9 @@ class SlotKVCache:
         (``slot == num_slots``) are dropped."""
         keep = slots < self.num_slots
         for name, dst in self.caches.items():
+            w = self.widths[name]
             lanes, _ = self._gather_lanes(src_caches[name], rows, starts,
-                                          lengths, self.cache_len)
+                                          lengths, w, w)
             dst[:, slots[keep]] = lanes[:, keep].to(dst.dtype)
 
     def _copy_lane_paged(self, src_caches, slots, rows, starts, lengths,
@@ -125,12 +141,14 @@ class SlotKVCache:
         stay byte-identical), FREE entries and the all-FREE sentinel row
         that padding entries index fall out of bounds and are dropped."""
         ps = self.page_size
-        bt = self.pool.device_tables()[self.width]  # sentinel row last
-        W = bt.shape[1] * ps  # page-quantized width (tail never read)
-        flat = paged_flat_positions(bt[slots.long()], ps)  # (J, W)
+        tables = self.pool.device_tables()  # sentinel row last
         for name, dst in self.caches.items():
+            w = self.widths[name]
+            bt = tables[w]
+            W = bt.shape[1] * ps  # page-quantized width (tail never read)
+            flat = paged_flat_positions(bt[slots.long()], ps)  # (J, W)
             lanes, valid = self._gather_lanes(src_caches[name], rows, starts,
-                                              lengths, W, offs)
+                                              lengths, w, W, offs)
             P = dst.shape[1]
             pos = torch.where(valid, flat, P * ps)
             keep = (pos >= 0) & (pos < P * ps)

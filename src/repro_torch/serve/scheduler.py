@@ -9,6 +9,9 @@
   max_len`` tokens.
 * :meth:`Scheduler.next_mixed` (the mixed-step engine) pops requests for
   chunk-granular admission.
+* :meth:`Scheduler.next_batch`, the drain interface of the absorbed
+  ``DynamicBatcher`` (kept as an alias): one packed batch of queue-head
+  short prompts, or one long prompt's chunks.
 
 Both stop at the first queue head that a page-budget ``reserve`` callback
 refuses (head-blocking, never skip-ahead), so admission order is
@@ -21,7 +24,7 @@ suffix sweep. The row-per-request layout of recurrent stacks
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,7 +33,8 @@ from repro_torch.core.packing import (PackedBatch, PackingPolicy,
                                       chunk_prompt, pack_requests)
 from repro_torch.serve.sampling import SamplingParams
 
-__all__ = ["Request", "Admission", "Scheduler", "TERMINAL_STATUSES"]
+__all__ = ["Request", "Admission", "Scheduler", "DynamicBatcher",
+           "TERMINAL_STATUSES"]
 
 TERMINAL_STATUSES = ("ok", "rejected", "shed", "timed_out", "failed",
                      "cancelled")
@@ -191,3 +195,31 @@ class Scheduler:
             req = self.queue.pop(0)
             out.append((req, probe(req) if probe is not None else 0))
         return out
+
+    def next_batch(self) -> Optional[Dict]:
+        """Drain-style batches (the absorbed ``DynamicBatcher`` API): the
+        queue head's contiguous run of short prompts packed together (at
+        most ``max_rows`` rows; ``packed`` a :class:`PackedBatch`), or a
+        long head prompt alone (``packed`` None, its ``chunks``); None on
+        an empty queue."""
+        if not self.queue:
+            return None
+        if len(self.queue[0].prompt) > self.policy.max_len:
+            adm = self.next_admissions(1)[0]
+            return {"requests": adm.requests, "packed": None,
+                    "chunks": adm.chunks, "utilization": adm.utilization}
+        take: List[Request] = []
+        limit = self.max_rows * self.policy.max_per_row
+        while (self.queue and len(take) < limit
+               and len(self.queue[0].prompt) <= self.policy.max_len):
+            take.append(self.queue.pop(0))
+        packed = pack_requests([r.prompt for r in take], self.policy)
+        while packed.rows > self.max_rows and len(take) > 1:
+            self.queue.insert(0, take.pop())
+            packed = pack_requests([r.prompt for r in take], self.policy)
+        util = float((packed.segment_ids > 0).mean())
+        return {"requests": take, "packed": packed, "utilization": util}
+
+
+# The absorbed DynamicBatcher's name, kept as an alias (submit/next_batch).
+DynamicBatcher = Scheduler

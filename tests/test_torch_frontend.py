@@ -346,6 +346,40 @@ def test_per_request_sampling_matches_engine_wide(fm):
     assert outs["repro_torch"] == outs["repro"]
 
 
+def test_legacy_kwargs_warn_once_and_match_config(fm, monkeypatch):
+    """The reference's test of the same name: the legacy per-knob kwargs
+    build the same EngineConfig behind one DeprecationWarning per process,
+    and serve the reference Engine's tokens."""
+    import warnings
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve import engine as engine_mod
+    monkeypatch.setattr(engine_mod, "_LEGACY_KWARGS_WARNED", False)
+    m, params = fm[1]["repro_torch"]
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        legacy = Engine(m, params, **ECFG)
+        Engine(m, params, max_len=64, num_slots=4)  # no second warning
+    deprecations = [x for x in w
+                    if issubclass(x.category, DeprecationWarning)]
+    assert len(deprecations) == 1
+    assert "EngineConfig" in str(deprecations[0].message)
+    assert legacy.config == EngineConfig(**ECFG)
+    got = _outputs(legacy.run(arrivals=_trace("repro_torch",
+                                              fm[0].vocab_size)))
+    assert got == _ref_run(fm, True)
+
+
+def test_config_and_legacy_kwargs_are_exclusive(fm):
+    """``config=`` beside a knob, and an unknown knob, raise TypeError as
+    in the reference."""
+    from repro_torch.serve import Engine, EngineConfig
+    m, params = fm[1]["repro_torch"]
+    with pytest.raises(TypeError, match="config"):
+        Engine(m, params, config=EngineConfig(**ECFG), max_len=64)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        Engine(m, params, max_lenn=64)
+
+
 def test_public_surface_is_the_references():
     import repro.serve as ref
     import repro_torch.serve as serve

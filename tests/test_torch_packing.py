@@ -142,3 +142,57 @@ def test_scheduler_refuses_sharing_and_row_layout():
     with pytest.raises(ValueError):
         Scheduler(max_len=8, max_prompt_len=4).submit(
             Request(rid=1, prompt=np.arange(5, dtype=np.int32)))
+
+
+def test_dynamic_batcher_accepts_long_prompts():
+    """The reference's ``test_dynamic_batcher_accepts_long_prompts``: the
+    ``DynamicBatcher`` alias takes a prompt past ``max_len`` and drains it
+    as one chunked batch, then None."""
+    from repro_torch.serve import DynamicBatcher, Scheduler
+    from repro_torch.serve.scheduler import Request
+    assert DynamicBatcher is Scheduler
+    b = DynamicBatcher(max_len=16)
+    long_prompt = np.arange(40, dtype=np.int32)
+    b.submit(Request(rid=0, prompt=long_prompt))
+    batch = b.next_batch()
+    assert batch["packed"] is None
+    assert len(batch["chunks"]) == 3
+    np.testing.assert_array_equal(np.concatenate(batch["chunks"]),
+                                  long_prompt)
+    assert b.next_batch() is None
+
+
+@pytest.mark.parametrize("max_len,max_rows", [(16, 8), (16, 1), (32, 2)])
+def test_next_batch_matches_reference(max_len, max_rows):
+    """Drain-style batches of the reference's ``next_batch``: the head's
+    run of short prompts packed (rows beyond ``max_rows`` handed back to
+    the queue head), a long head prompt alone in chunks; batch by batch,
+    with the queue left over."""
+    from repro.serve import DynamicBatcher as JBatcher
+    from repro.serve.scheduler import Request as JRequest
+    from repro_torch.serve import DynamicBatcher
+    from repro_torch.serve.scheduler import Request
+
+    def summary(b):
+        if b is None:
+            return None
+        body = ([tuple(s) for s in b["packed"].request_slots]
+                if b["packed"] is not None
+                else [c.tolist() for c in b["chunks"]])
+        return [r.rid for r in b["requests"]], body, b["utilization"]
+
+    rng = np.random.default_rng(max_len + max_rows)
+    for trial in range(8):
+        lengths = rng.integers(1, 3 * max_len, size=int(rng.integers(1, 20)))
+        jb = JBatcher(max_len=max_len, max_rows=max_rows)
+        tb = DynamicBatcher(max_len=max_len, max_rows=max_rows)
+        for r in _queue(JRequest, lengths, trial):
+            jb.submit(r)
+        for r in _queue(Request, lengths, trial):
+            tb.submit(r)
+        while True:
+            want, got = jb.next_batch(), tb.next_batch()
+            assert summary(got) == summary(want)
+            assert [r.rid for r in tb.queue] == [r.rid for r in jb.queue]
+            if want is None:
+                break

@@ -262,7 +262,12 @@ def test_wrappers_refuse_bad_inputs_on_cuda_only_path():
         tda._check("x", (tp.t(q),), (tp.t(q), tp.t(k, dtype=torch.float64)),
                    ())
     with pytest.raises(ValueError):
-        tda._heads("x", 40, 4, 128, tda.MAX_GROUP)  # G = 10 > 8
+        tda._heads("x", 40, 6, 128)  # Hq no multiple of Hkv
+    with pytest.raises(ValueError):
+        tda._heads("x", 48, 4, 256)  # head dim past MAX_HEAD_DIM
+    tda._heads("x", 48, 4, 128)  # G = 12: the decode kernels tile groups
+    assert [tda.group_tiles(g * 4, 4) for g in (1, 5, 8, 10, 12, 16, 17)] \
+        == [1, 1, 1, 2, 2, 2, 3]
 
 
 @pytest.mark.gpu
@@ -372,10 +377,12 @@ def test_cuda_decode_kernels_int8_and_contiguous(dtype):
 
 # Split edges of the decode kernels (split-K over the key axis): (G, D, B)
 # with one slot over a long lane (many splits) and 64 slots over short
-# lanes (one or few splits); G 1, 2, 5, 8; D 64 and 128, and 20 (rows of
-# no multiple of 16 bytes in bf16 and int8: element copies).
+# lanes (one or few splits); G 1, 2, 5, 8, and 10, 12, 16 (two group tiles
+# of 5, 6, 8 rows); D 64 and 128, and 20 (rows of no multiple of 16 bytes
+# in bf16 and int8: element copies).
 SPLIT_EDGES = [(1, 64, 1), (2, 128, 64), (5, 128, 1), (8, 64, 64),
-               (5, 128, 8), (2, 20, 8)]
+               (5, 128, 8), (2, 20, 8), (12, 128, 8), (10, 64, 1),
+               (16, 20, 64)]
 
 
 def _split_edge_bounds(rng, W, L, B):
