@@ -87,7 +87,16 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               heads of 128, G = 12 in two group tiles of 6, and G = 10;
               rings of 4096 positions in 32 pages of 128, lanes that
               wrapped; the mixed step's chunks past the ring with a window
-              of 4096) against their plain versions, timed beside SDPA.
+              of 4096) against their plain versions, timed beside SDPA, and
+              the mixed kernel's all-columns mode (``moe_rows``: the mode
+              of routed MoE stacks, every column computed as the reference
+              computes it) on the small and tile-edge cases above, against
+              its plain version on every column that has a key and exact
+              zeros on those with none (line ``kernels_all_columns``); then
+              paged decode and the all-columns mixed step at the MoE
+              serve's shapes (48 q / 8 kv heads of 128, G = 6; rows
+              ``.g6``, the mixed row with its skip mode's time at the same
+              shape), timed beside SDPA.
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -129,6 +138,16 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               serialized paged and contiguous engines give the same tokens
               through the kernels and the plain path on the card and on
               the CPU, with the CPU's host counters.
+   moe_tokens — dbrx and arctic smoke at float32 with the published
+              capacity factor 1.25 (the smoke configs' 2.0 and 8.0 never
+              drop a claim), dense and compressed weights: the mixed and
+              serialized paged engines on the card through the kernels
+              (the mixed kernel in its all-columns mode) and the plain
+              path, and on the CPU in both modes, give the same tokens and
+              host counters and, mode by mode, the CPU's drops; the kernel
+              runs drop claims. One mixed step carrying a decode row while
+              capacity binds gives the CPU's logits on every column, the
+              decode row's five columns past ``n_new`` included (1e-4).
    bf16_logits — bf16 logits of qwen2.5 smoke and starcoder2 smoke
               (``apply`` over 40 tokens, ``decode_step`` and ``mixed_step``
               over a page pool; the kernels on the card, the plain path on
@@ -206,13 +225,24 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               copied on write, and every host counter equal to the port's
               CPU run of the same workload on starcoder2 smoke with a window
               of 4096; tok/s, TTFT and decode-step ms with the card's name
-              and power limit. It runs last, after phase 5 has freed its
-              weights.
+              and power limit.
+7. moe_serve — dbrx-132b at its published widths (d_model 6144, 48 q / 8
+              kv heads of 128, 16 experts of 10752, top-4, capacity factor
+              1.25, vocab 100352; depth cut to ``MOE_LAYERS`` = 8 of 40,
+              ``reduced``), bf16 weights from seed 0 (~53 GB), through the
+              mixed engine with phase 4's ``ENGINE_KW`` and workload:
+              16/16 ``ok`` with phase 4's launch checks, every mixed launch
+              in the all-columns mode, claims dropped, and the host
+              counters equal to the port's CPU run of the same prompt
+              lengths and arrivals on dbrx smoke at float32; tok/s, TTFT
+              and step ms with the card's name and power limit. It runs
+              last, after phase 6 has freed its weights.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
 (``serve:<engine>``; int8 rows from the int8 serves), the G = 12 paged
-decode and mixed rows from phase 6 (``serve:ring``), DMM and SMM from phase
+decode and mixed rows from phase 6 (``serve:ring``), the G = 6 ones from
+phase 7 (``serve:moe``), DMM and SMM from phase
 5 (``compressed_serve``), softmax_lut from the kernel_table phase
 (``kernel_table``); layernorm_residual, the TDA LUT and int8-mixed
 variants and the other ring-shape rows (contiguous decode at G = 12, every
@@ -1171,6 +1201,7 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
         del kl, vl, keys_all, vals_all
     del q, k, v, kr, vr, kq, vq, ks, vs, sq, fmask
     ring_rows(torch, np, err, check, add_row, gather)
+    moe_rows(torch, np, err, check, add_row, gather, T, plain_mixed, table)
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
@@ -1179,7 +1210,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
          **{r["name"]: {k: r[k] for k in (
              "ms", "device_ms", "plain_ms", "library_ms",
              "library_device_ms", "library", "bound_ms", "bound_by",
-             "max_abs_err", "shape") if k in r} for r in rows})
+             "max_abs_err", "shape", "skip_mode_ms", "skip_mode_device_ms")
+             if k in r} for r in rows})
     return rows
 
 
@@ -1315,6 +1347,157 @@ def ring_rows(torch, np, err, check, add_row, gather):
                  "dtype": "bfloat16"}, launches, plain_reps=3, device=True)
         r.update(launches=launches, launches_from="check")
         del q, sq
+    torch.cuda.synchronize()
+
+
+def moe_rows(torch, np, err, check, add_row, gather, T, plain_mixed, table):
+    """The mixed kernel's all-columns mode (routed MoE stacks compute every
+    column of the step) against its plain version on every column that has
+    a key, exact zeros on those with none: the small and tile-edge cases
+    of phase 2 (f32 and bf16; fp and int8 pools; exact and LUT exp;
+    windows, short rings, dead and inert rows; line
+    ``kernels_all_columns``). Then the kernels-line rows at the MoE
+    serve's shapes (``profile_serve.moe_config``: 48 q / 8 kv heads of 128,
+    G = 6 in one group tile; ENGINE_KW's 8 slots, 128-token pages, chunks
+    of 256): paged decode (``tda_paged_decode_attention.g6``) and the
+    mixed step in the all-columns mode (``tda_mixed_attention.g6``, checked
+    on every column, with the skip mode's time at the same shape beside
+    it), each timed beside SDPA. main gives both rows the MoE serve's
+    launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ref import (_mixed_masks,
+                                             decode_attention_reference)
+    from repro_torch.launch.profile_serve import ENGINE_KW, moe_config
+    from repro_torch.models.layers import kv_quantize
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    def keyed(bnd, S, W, ring, window):
+        cv, rv = _mixed_masks(bnd[:, :1].long(), bnd[:, 1:].long(), S, W,
+                              ring, window)
+        return cv.any(-1) | rv.any(-1), cv, rv
+
+    n_cases, allc = 0, {}
+    cases = [(c, kw, dt) for dt in (torch.float32, bf)
+             for c, kw in small_mixed_cases(np)]
+    cases += [(c, kw, bf) for c, kw in mixed_tile_cases(np)]
+    for case, kw, dt in cases:
+        q, k, v, kr, vr, bnd, bt = [T(a, dt) for a in case]
+        live, _, _ = keyed(bnd, q.shape[1], bt.shape[1] * k.shape[1],
+                           kw["ring"], kw["window"])
+        kq, ks = kv_quantize(T(case[1]))
+        vq, vs = kv_quantize(T(case[2]))
+        for suffix, pool, lut in (
+                ("", (k, v, None, None), False),
+                (".lut", (k, v, None, None), True),
+                (".int8", (kq, vq, ks, vs), False),
+                (".int8.lut", (kq, vq, ks, vs), True)):
+            name = "tda_mixed_attention.all_columns" + suffix
+            err.setdefault(name, 0.0)
+            check(name, tda.tda_mixed_attention(
+                q, *pool[:2], kr, vr, bnd, bt, *pool[2:],
+                table if lut else None, all_columns=True, **kw),
+                plain_mixed(q, *pool[:2], kr, vr, bnd, bt, *pool[2:], lut,
+                            **kw), live)
+            allc[name] = err[name]
+            n_cases += 1
+    torch.cuda.synchronize()
+    line("kernels_all_columns", cases=n_cases, max_abs_err=allc,
+         limits={"exact": TOL, "lut": LUT_TOL},
+         launches=tda.MODE_LAUNCHES["tda_mixed_attention.all_columns"])
+
+    cfg, kw = moe_config(), ENGINE_KW
+    cache_len = kw["max_len"] * 2 + kw["max_new_tokens"]
+    dec, mix = full_cases(np, cfg, kw["num_slots"], cache_len, 128,
+                          kw["max_len"])
+    Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    fp_b = Hkv * D * 2 * 2
+    repl = "src/repro/kernels/tda/tda.py:"
+    # --- paged decode at G = 6
+    q1, k, v, bounds, bt = [T(a, bf) for a in dec]
+    B = int(q1.shape[0])
+    hi = bounds[:, 1:].long()
+    tokens = int(hi.sum())
+    kl, vl = gather(k, bt)[:, :cache_len], gather(v, bt)[:, :cache_len]
+    pos = torch.arange(cache_len, device=dev)
+    lmask = (pos[None] < hi)[:, None, None, :]
+    kk, vv = kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3)
+    name = "tda_paged_decode_attention.g6"
+    err[name] = 0.0
+    n0 = tda.VARIANT_LAUNCHES["tda_paged_decode_attention"]
+
+    def fn():
+        return tda.tda_paged_decode_attention(q1, k, v, bounds, bt)
+
+    def plain():
+        return decode_attention_reference(q1, kl, vl, hi)
+
+    check(name, fn(), plain(), hi[:, 0] > 0)
+    r = add_row(name, "tda_paged_decode.cu", repl + "220", fn, plain,
+                lambda: F.scaled_dot_product_attention(
+                    q1[:, :, None], kk, vv, attn_mask=lmask,
+                    enable_gqa=True),
+                "SDPA over bf16 lanes",
+                tokens * fp_b + q1.numel() * 2 + B * Hq * D * 4
+                + bounds.numel() * 4 + bt.numel() * 4,
+                4 * tokens * Hq * D,
+                {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "G": Hq // Hkv,
+                 "group_tiles": tda.group_tiles(Hq, Hkv),
+                 "lane": {"page_size": int(k.shape[1]),
+                          "pool_pages": int(k.shape[0])},
+                 "tokens_attended": tokens, "dtype": "bfloat16"},
+                tda.VARIANT_LAUNCHES["tda_paged_decode_attention"] - n0,
+                device=True)
+    r.update(launches_from="check")
+    del kl, vl, kk, vv
+    # --- mixed step at G = 6, every column computed
+    q, k, v, kr, vr, bnd, bt = [T(a, bf) for a in mix]
+    S, W = int(q.shape[1]), bt.shape[1] * k.shape[1]
+    ring = cache_len
+    live, cv, rv = keyed(bnd, S, W, ring, None)
+    name = "tda_mixed_attention.g6"
+    err[name] = 0.0
+    n0 = tda.VARIANT_LAUNCHES["tda_mixed_attention"]
+
+    def mfn(all_columns=True):
+        return tda.tda_mixed_attention(q, k, v, kr, vr, bnd, bt, ring=ring,
+                                       all_columns=all_columns)
+
+    def mplain():
+        return plain_mixed(q, k, v, kr, vr, bnd, bt, ring=ring)
+
+    check(name, mfn(), mplain(), live)
+    launches = tda.VARIANT_LAUNCHES["tda_mixed_attention"] - n0
+    ci, nn = mix[5][:, 0].astype(np.int64), mix[5][:, 1].astype(np.int64)
+    keyed_rows = (ci > 0) | (nn > 0)
+    cols = int(live.sum())  # computed columns: every column of a keyed row
+    nbytes = int(np.where(keyed_rows, np.minimum(ci, ring), 0).sum()) \
+        * fp_b + int(nn.sum()) * fp_b + cols * Hq * D * (2 + 4) \
+        + bnd.numel() * 4 + bt.numel() * 4
+    pairs = int((cv & live[:, :, None]).sum() + rv.sum())
+    kl, vl = gather(k, bt), gather(v, bt)
+    keys_all = torch.cat([kl, kr], 1).permute(0, 2, 1, 3)
+    vals_all = torch.cat([vl, vr], 1).permute(0, 2, 1, 3)
+    fmask = torch.cat([cv, rv], -1)
+    fmask = fmask | ~fmask.any(-1, keepdim=True)  # no all-masked rows
+    sq = q.permute(0, 2, 1, 3)
+    r = add_row(name, "tda_mixed.cu", repl + "391", mfn, mplain,
+                lambda: F.scaled_dot_product_attention(
+                    sq, keys_all, vals_all, attn_mask=fmask[:, None],
+                    enable_gqa=True),
+                "SDPA over bf16 lanes and the chunk (every column)", nbytes,
+                4 * pairs * Hq * D,
+                {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                 "G": Hq // Hkv, "mode": "all_columns",
+                 "rows_ci_nnew": mix[5].tolist(), "computed_columns": cols,
+                 "live_columns": int(nn.sum()), "bound_bytes": nbytes,
+                 "query_key_pairs_per_head": pairs, "dtype": "bfloat16"},
+                launches, plain_reps=3, device=True)
+    r.update(launches_from="check",
+             skip_mode_ms=time_ms(torch, lambda: mfn(False)),
+             skip_mode_device_ms=device_ms(torch, lambda: mfn(False)))
+    del q, k, v, kr, vr, kl, vl, keys_all, vals_all, fmask, sq
     torch.cuda.synchronize()
 
 
@@ -2823,6 +3006,261 @@ def phase_ring_serve(torch, np):
     return launches
 
 
+# The MoE smoke comparisons (phase moe_tokens): dbrx and arctic smoke at
+# float32 with the published capacity factor (the smoke configs' 2.0 and
+# 8.0 never drop a claim), dense and compressed weights, the CPU tests'
+# traffic (tests/test_torch_moe.py) through the mixed and the serialized
+# paged engines.
+MOE_CF = 1.25
+MOE_ARCHS = ("dbrx-132b", "arctic-480b")
+MOE_FCFG = dict(enabled=True, min_dim=32, rank=32, nnz=8)
+MOE_LENGTHS = [3, 11, 25, 7, 40, 45, 33]
+MOE_BUDGETS = [4, 2, 12, 3, 6, 9, 5]
+MOE_SMOKE_KW = dict(max_len=16, max_new_tokens=12, num_slots=3,
+                    max_prompt_len=48)
+MOE_ENGINES = {"mixed": {}, "serialized_paged": {"mixed": False}}
+MOE_LOGIT_TOL = 1e-4  # f32 logits, card kernels vs the CPU's plain path
+
+
+def moe_smoke(arch, fmt):
+    """(CPU model, CPU params, card model, card params): ``arch`` smoke at
+    float32 with capacity factor MOE_CF, weights from seed 0 drawn on the
+    CPU; ``compressed``: factorized (MOE_FCFG), W_D projected and the tree
+    compressed on the CPU, then copied."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import (FactorizationConfig,
+                                             project_wd_leaves)
+    from repro_torch.models.transformer import Model
+    over = {}
+    if fmt == "compressed":
+        over["factorization"] = FactorizationConfig(**MOE_FCFG)
+    cfg = get_config(arch, "smoke", dtype="float32", **over)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CF))
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(seed=0)
+    if fmt == "compressed":
+        cpu_model, params, _ = cpu_model.compress_params(
+            project_wd_leaves(params, cfg.factorization))
+    return cpu_model, params, Model(cpu_model.cfg), tree_to(params, "cuda")
+
+
+def moe_mixed_step(torch, np, model, params, dev):
+    """One mixed step over paged lanes (4 rows of 6 columns: a chunk row, a
+    decode row with five columns past ``n_new``, an inert row, a row whose
+    chunk was deferred) on ``dev``; returns (all-column logits on the
+    host, the router's counts of the step)."""
+    from repro_torch.models import moe
+    cfg = model.cfg
+    rng = np.random.default_rng(31)
+    B, S, ps, n = 4, 6, 8, 3
+    P = B * n + 2
+    bt = rng.permutation(P)[:B * n].reshape(B, n).astype(np.int32)
+    shape = (cfg.n_layers, P, ps, cfg.kv_heads, cfg.head_dim)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    moe.reset_router_counts()
+    logits, _ = model.mixed_step(
+        params, {"inputs": T(toks)}, {"k": T(k), "v": T(v)},
+        T(np.array([5, 14, 9, 11], np.int32)),
+        T(np.array([4, 1, 3, 0], np.int32)),
+        slot_mask=T(np.array([True, True, False, True])),
+        pages={"bt": T(bt), "width": n * ps, "page_size": ps})
+    return logits.float().cpu(), moe.router_counts()
+
+
+def phase_moe_tokens(torch, np):
+    """dbrx and arctic smoke at float32 with capacity factor 1.25, dense and
+    compressed weights: the mixed and serialized paged engines on the card
+    through the kernels (``decode_attn="tda"``: the mixed kernel in its
+    all-columns mode) and through the plain path (``"dense"``), and on the
+    CPU in both modes, give the same tokens, host counters and (mode by
+    mode) drops, and the kernel run drops claims; one mixed step carrying
+    a decode row while capacity binds (drops counted by the port's router)
+    gives the CPU's logits on every column, the five past the decode row's
+    ``n_new`` included, within MOE_LOGIT_TOL, with the CPU's drops.
+    Returns the line's summary."""
+    from repro_torch.kernels.tda import tda
+    from repro_torch.models import moe
+    from repro_torch.serve import Engine, EngineConfig, Request
+    keys = ("steps", "mixed_steps", "decoded_tokens", "kv_blocks_visited",
+            "weight_bytes_per_step", "prefix_hit_ratio", "preemptions")
+    out = {}
+    for arch in MOE_ARCHS:
+        for fmt in ("dense", "compressed"):
+            cpu_model, cpu_params, model, params = moe_smoke(arch, fmt)
+            rng = np.random.default_rng(1)
+            prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+                       for n in MOE_LENGTHS]
+            label = f"{arch}:{fmt}"
+            for eng_label, kw in MOE_ENGINES.items():
+                runs = {}
+                for where, m, prm, mode in (
+                        ("card_tda", model, params, "tda"),
+                        ("card_dense", model, params, "dense"),
+                        ("cpu_tda", cpu_model, cpu_params, "tda"),
+                        ("cpu_dense", cpu_model, cpu_params, "dense")):
+                    eng = Engine(m, prm, config=EngineConfig(
+                        decode_attn=mode, **MOE_SMOKE_KW, **kw))
+                    for i, (pr, b) in enumerate(zip(prompts, MOE_BUDGETS)):
+                        eng.submit(Request(rid=i, prompt=pr,
+                                           max_new_tokens=b))
+                    tda.reset_launch_counts()
+                    moe.reset_router_counts()
+                    done = eng.run()
+                    if len(done) != len(prompts) or any(
+                            r.status != "ok" for r in done):
+                        fail(f"moe_tokens {label} {eng_label} {where}: "
+                             "not every request ok")
+                    drops = moe.router_counts()
+                    if where == "card_tda":
+                        mixed = tda.LAUNCHES["tda_mixed_attention"]
+                        allc = tda.MODE_LAUNCHES[
+                            "tda_mixed_attention.all_columns"]
+                        if not tda.LAUNCHES["tda_paged_decode_attention"] \
+                                or mixed != allc \
+                                or bool(mixed) != (eng_label == "mixed"):
+                            fail(f"moe_tokens {label} {eng_label}: launched "
+                                 f"{tda.LAUNCHES}, all-columns {allc}")
+                        if not drops["dropped"]:
+                            fail(f"moe_tokens {label} {eng_label}: no claim "
+                                 f"dropped ({drops})")
+                    runs[where] = ({r.rid: list(r.output) for r in done},
+                                   {k: eng.decode_stats[k] for k in keys},
+                                   drops)
+                toks = [r[0] for r in runs.values()]
+                if any(t != toks[0] for t in toks):
+                    fail(f"moe_tokens {label} {eng_label}: tokens differ "
+                         f"(card kernels, card plain path, CPU): {runs}")
+                # the same counters everywhere; the same drops as the CPU's
+                # in each mode (idle decode rows attend nothing: zeros on
+                # the kernel path, the uniform average on the dense one)
+                for mode in ("tda", "dense"):
+                    if runs[f"card_{mode}"][1:] != runs[f"cpu_{mode}"][1:]:
+                        fail(f"moe_tokens {label} {eng_label} {mode}: host "
+                             f"counters and drops {runs[f'card_{mode}'][1:]}"
+                             f" != the CPU's {runs[f'cpu_{mode}'][1:]}")
+                out[f"{label}:{eng_label}"] = dict(
+                    runs["cpu_tda"][1], drops_tda=runs["cpu_tda"][2],
+                    drops_dense=runs["cpu_dense"][2])
+            got, drops = moe_mixed_step(torch, np, model.with_decode_attn(
+                "tda"), params, "cuda")
+            want, cpu_drops = moe_mixed_step(torch, np, cpu_model, cpu_params,
+                                             "cpu")
+            err = (got - want).abs().max().item()
+            if not (err <= MOE_LOGIT_TOL and drops["dropped"] > 0
+                    and drops == cpu_drops):
+                fail(f"moe_tokens {label}: mixed-step logits on all columns "
+                     f"{err} from the CPU's (limit {MOE_LOGIT_TOL}); drops "
+                     f"{drops}, CPU {cpu_drops}")
+            out[f"{label}:mixed_step"] = {"max_abs_err_all_columns": err,
+                                          **drops}
+            del model, params, cpu_model, cpu_params
+    return {"capacity_factor": MOE_CF, "prompt_lengths": MOE_LENGTHS,
+            "tokens_identical_kernels_plain_cpu": True, "runs": out}
+
+
+MOE_COUNTERS = ("steps", "mixed_steps", "decoded_tokens", "kv_blocks_visited",
+                "kv_blocks_dense", "prefix_hit_ratio", "preemptions")
+
+
+def phase_moe_serve(torch, np):
+    """dbrx-132b at its published widths (``profile_serve.moe_config``: 16
+    experts of 10752, top-4, capacity factor 1.25, 48 q / 8 kv heads of
+    128, vocab 100352; depth cut to MOE_LAYERS), bf16 weights from seed 0,
+    through the mixed engine with ENGINE_KW on ``profile_serve.workload``:
+    16/16 ``ok`` with serve_run's launch checks, every mixed launch in the
+    all-columns mode, claims dropped, and the host counters
+    (``MOE_COUNTERS``) equal to the port's CPU run of the same prompt
+    lengths and arrivals on dbrx smoke at float32 with capacity factor
+    1.25 (token ids taken modulo 256). Reports tok/s, TTFT p50/p99 and
+    decode- and mixed-step ms with the card's name and power limit.
+    Returns the serve's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import params_stream_bits
+    from repro_torch.kernels.tda import tda
+    from repro_torch.launch.profile_serve import (ENGINE_KW, MOE_LAYERS,
+                                                  moe_config, workload)
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig, Request
+    t0 = time.perf_counter()
+    cfg = moe_config(MOE_LAYERS)
+    kw = ENGINE_KW
+
+    def traffic(n):
+        return workload(cfg.vocab_size, n)
+
+    # The CPU half: the same lengths, budgets and arrival ticks.
+    scfg = get_config("dbrx-132b", "smoke", dtype="float32")
+    scfg = dataclasses.replace(scfg, moe=dataclasses.replace(
+        scfg.moe, capacity_factor=cfg.moe.capacity_factor))
+    smodel = Model(scfg, device="cpu")
+    eng = Engine(smodel, smodel.init(seed=0), config=EngineConfig(
+        prefix_share=False, **kw))
+
+    def small(r):
+        return Request(rid=r.rid, prompt=r.prompt % 256,
+                       max_new_tokens=r.max_new_tokens)
+
+    warm, up_front, arrivals, lengths = traffic(kw["max_new_tokens"])
+    eng.submit(small(warm))
+    eng.run()
+    for r in up_front:
+        eng.submit(small(r))
+    done = eng.run(arrivals=[(t, small(r)) for t, r in arrivals])
+    if len(done) != len(up_front) + len(arrivals) or any(
+            r.status != "ok" for r in done):
+        fail("moe_serve on the CPU: not every request ok")
+    cpu = {k: eng.decode_stats[k] for k in MOE_COUNTERS}
+    cpu_s = time.perf_counter() - t0
+    del eng, smodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    weights_gb = params_stream_bits(params) / 8e9
+    moe.reset_router_counts()
+    summ, launches, _, eng = serve_run(
+        torch, np, model, params, kw, traffic=traffic,
+        reduced={"n_layers": f"40 -> {cfg.n_layers} (depth only)"})
+    drops = moe.router_counts()  # warm-up request included
+    st = eng.decode_stats
+    allc = tda.MODE_LAUNCHES["tda_mixed_attention.all_columns"]
+    if allc != launches["tda_mixed_attention"] or not allc:
+        fail(f"moe_serve: {allc} all-columns mixed launches of "
+             f"{launches['tda_mixed_attention']}")
+    if not drops["dropped"]:
+        fail(f"moe_serve: no claim dropped at capacity factor "
+             f"{cfg.moe.capacity_factor} ({drops})")
+    got = {k: st[k] for k in MOE_COUNTERS}
+    if got != cpu:
+        fail(f"moe_serve: host counters {got} != the CPU smoke run's {cpu}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    line("moe_serve", seconds=round(time.perf_counter() - t0, 3),
+         cpu_smoke_s=cpu_s, init_s=init_s, card=smi, weights_gb=weights_gb,
+         experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         capacity_factor=cfg.moe.capacity_factor,
+         host_counters_equal_cpu_smoke=True, host_counters=got,
+         router=drops, mixed_all_columns_launches=allc,
+         **{k: v for k, v in summ.items() if k != "launches"},
+         launches={k: v for k, v in launches.items() if v})
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2856,6 +3294,8 @@ def main():
     rows += timed("linear_kernels", phase_linear_kernels, torch, np, ccfg)
     table_launches = timed("kernel_table", phase_kernel_table, torch)
     timed("tokens", phase_tokens, torch)
+    moe_tok = timed("moe_tokens", phase_moe_tokens, torch, np)
+    line("moe_tokens", seconds=seconds["moe_tokens"], **moe_tok)
     timed("bf16_logits", phase_bf16_logits, torch, np)
     timed("sampler", phase_sampler, torch, np)
     dense, runs, model, params = timed("serve", phase_serve, torch, np,
@@ -2870,6 +3310,7 @@ def main():
     claunches = timed("compressed_serve", phase_compressed_serve, torch, np,
                       ccfg, engine_kw, dense)
     rlaunches = timed("ring_serve", phase_ring_serve, torch, np)
+    mlaunches = timed("moe_serve", phase_moe_serve, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
@@ -2888,6 +3329,10 @@ def main():
                          "tda_mixed_attention.g12"):
             r.update(launches=rlaunches[r["name"].split(".")[0]],
                      launches_from="serve:ring")
+        elif r["name"] in ("tda_paged_decode_attention.g6",
+                           "tda_mixed_attention.g6"):
+            r.update(launches=mlaunches[r["name"].split(".")[0]],
+                     launches_from="serve:moe")
         elif r["name"] in ("dmm_matmul", "smm_matmul"):
             r.update(launches=claunches[r["name"]],
                      launches_from="compressed_serve",
@@ -2912,7 +3357,8 @@ def main():
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
         "device_ms", "library_device_ms", "library_bf16_ms", "M8",
-        "body_launches", "other_shapes") if k in r} for r in rows]}))
+        "body_launches", "other_shapes", "skip_mode_ms",
+        "skip_mode_device_ms") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,12 +35,13 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: (pointers..., int shape args..., dtype
-# code, [quant flag,] [scale,] stream); every one returns an int.
+# code, [quant flag,] [all-columns flag,] [scale,] stream); every one
+# returns an int.
 _ARGTYPES = {
     "tda_decode": {"tda_decode": [_P] * 10 + [_I] * 7 + [_I, _I, _F, _P]},
     "tda_paged_decode": {
         "tda_paged_decode": [_P] * 11 + [_I] * 8 + [_I, _I, _F, _P]},
-    "tda_mixed": {"tda_mixed": [_P] * 11 + [_I] * 10 + [_I, _I, _F, _P]},
+    "tda_mixed": {"tda_mixed": [_P] * 11 + [_I] * 10 + [_I, _I, _I, _F, _P]},
     "dmm": {"dmm": [_P] * 6 + [_I] * 4 + [_I, _P],
             "dmm_splits": [_I] * 4, "dmm_body": [_I] * 2},
     "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P], "smm_body": [_I] * 5},

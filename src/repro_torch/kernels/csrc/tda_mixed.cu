@@ -13,12 +13,19 @@
 // int8 codes with per-(token, head) f32 scales (P, ps, Hkv) read through the
 // same block table; the row's own chunk keys/values are always in q's type.
 //
-// Output convention: columns j >= n_new are never read by the caller (the
-// reference calls them garbage); the kernel skips their work, so a decode
-// row (n_new == 1) in a step of width S costs one column, not S. It still
-// writes them as zeros, so that the projections after attention see finite
-// values (the output comes from torch.empty). Rows with no key at all
-// (ci == 0, n_new == 0) give zeros.
+// Output convention, by `all_cols`:
+//   * 0 (dense stacks): columns j >= n_new are never read by the caller (the
+//     reference calls them garbage); the kernel skips their work, so a
+//     decode row (n_new == 1) in a step of width S costs one column, not S.
+//     It still writes them as zeros, so that the projections after
+//     attention see finite values (the output comes from torch.empty).
+//   * 1 (routed MoE stacks): every column is computed as the reference
+//     computes it, since the experts route every column's token and a
+//     column j >= n_new takes expert capacity like a live one: column j at
+//     position ci + j attends the lane (window included) and the chunk keys
+//     i < n_new with j - i < window. A decode row then costs S columns.
+// Rows with no key at all (ci == 0, n_new == 0), and columns with none,
+// give zeros.
 //
 // What bounds it on this card: by the card's peaks, bytes. In the served
 // shapes (8 rows of 256 columns, 660 of them live, 40 q / 8 kv heads of
@@ -113,7 +120,8 @@ mixed_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
              const T* __restrict__ vr, const int* __restrict__ bounds,
              const int* __restrict__ bt, const float* __restrict__ table,
              float* __restrict__ out, int S, int Hq, int Hkv, int D, int P,
-             int ps, int nblk, int ring, int window, float scale) {
+             int ps, int nblk, int ring, int window, int all_cols,
+             float scale) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int kBuf = kLut ? kMaxBk : kTile;  // keys of scores held at once
   __shared__ float q_s[kQR][kMaxD];
@@ -130,9 +138,10 @@ mixed_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
   const int nr = min(kQR, S * G - r0);
   const int ci = max(bounds[2 * b], 0);
   const int nn = min(max(bounds[2 * b + 1], 0), S);
+  const int nl = all_cols ? S : nn;  // columns computed
 
-  // Columns at or past n_new are written as zeros and cost nothing else.
-  if (r0 / G >= nn) {
+  // Columns not computed are written as zeros and cost nothing else.
+  if (r0 / G >= nl) {
     for (int i = tid; i < nr * D; i += kThreads) {
       const int rr = i / D, d = i % D, r = r0 + rr;
       out[(((size_t)b * S + r / G) * Hq + h * G + r % G) * D + d] = 0.f;
@@ -196,7 +205,7 @@ mixed_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     for (int i = tid; i < kQR * n; i += kThreads) {
       const int rr = i / n, t = i % n, u = u0 + t;
       const int j = (r0 + rr) / G;
-      bool ok = rr < nr && j < nn;
+      bool ok = rr < nr && j < nl;
       if (u < n_cache) {
         const int p_r = (ci - 1) - (ci - 1 - u) % ring;  // u <= ci - 1
         ok = ok && p_r >= 0 && u < ring;
@@ -312,7 +321,7 @@ mixed_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     const int i = tid + j * kThreads;
     if (i < nr * D) {
       const int rr = i / D, d = i % D, r = r0 + rr;
-      const float o = (r / G) < nn ? acc[j] / fmaxf(l_s[rr], 1e-30f) : 0.f;
+      const float o = (r / G) < nl ? acc[j] / fmaxf(l_s[rr], 1e-30f) : 0.f;
       out[(((size_t)b * S + r / G) * Hq + h * G + r % G) * D + d] = o;
     }
   }
@@ -453,7 +462,7 @@ mixed_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
                 const int* __restrict__ bounds, const int* __restrict__ bt,
                 const float* __restrict__ table, float* __restrict__ out,
                 int S, int Hq, int Hkv, int D, int P, int ps, int nblk,
-                int ring, int window, float scale) {
+                int ring, int window, int all_cols, float scale) {
   using namespace tc;
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   using L = Lay<kLut, kQuant>;
@@ -492,13 +501,14 @@ mixed_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
   const int nr = min(kRows, S * G - r0);
   const int ci = max(bounds[2 * b], 0);
   const int nn = min(max(bounds[2 * b + 1], 0), S);
+  const int nl = all_cols ? S : nn;  // columns computed
   auto out_at = [&](int rr) {  // first output element of local row rr
     const int r = r0 + rr;
     return out + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D;
   };
 
-  // Columns at or past n_new are written as zeros and cost nothing else.
-  if (r0 / G >= nn) {
+  // Columns not computed are written as zeros and cost nothing else.
+  if (r0 / G >= nl) {
     for (int i = tid; i < nr * D; i += 128) out_at(i / D)[i % D] = 0.f;
     return;
   }
@@ -524,11 +534,11 @@ mixed_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
   }
   __syncthreads();
 
-  // Query rows: live when r < S G and column j < n_new.
+  // Query rows: live when r < S G and column j is computed.
   const int units = vec ? D / 8 : D;  // 8-element pieces, or elements
   for (int i = tid; i < kRows * units; i += 128) {
     const int rr = i / units, c = i % units, r = r0 + rr;
-    if (rr >= nr || r / G >= nn) continue;
+    if (rr >= nr || r / G >= nl) continue;
     const __nv_bfloat16* src =
         q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D;
     if (vec)
@@ -654,8 +664,8 @@ mixed_tc_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
   // Per thread: rows ra = 16 warp + lane / 4 and rb = ra + 8 of the tile.
   const int ra = 16 * warp + g4, rb = ra + 8;
   const int ja = (r0 + ra) / G, jb = (r0 + rb) / G;
-  const bool la = ra < nr && ja < nn, lb = rb < nr && jb < nn;
-  const bool warp_live = 16 * warp < nr && (r0 + 16 * warp) / G < nn;
+  const bool la = ra < nr && ja < nl, lb = rb < nr && jb < nl;
+  const bool warp_live = 16 * warp < nr && (r0 + 16 * warp) / G < nl;
   auto key_ok = [&](int slot, int t, int u, int j) {
     if (u < n_cache) {
       const int p_r = pr_s[slot * kKeys + t];
@@ -900,7 +910,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* ks,
               const float* vs, const void* k_row, const void* v_row,
               const int* bounds, const int* bt, const float* table,
               float* out, int B, int S, int Hq, int Hkv, int D, int P, int ps,
-              int nblk, int ring, int window, float scale, cudaStream_t s) {
+              int nblk, int ring, int window, int all_cols, float scale,
+              cudaStream_t s) {
   const cudaError_t e = ensure_tc_smem<TKV, kLut>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = Hq / Hkv;
@@ -911,7 +922,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* ks,
               static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks, vs,
               static_cast<const __nv_bfloat16*>(k_row),
               static_cast<const __nv_bfloat16*>(v_row), bounds, bt, table,
-              out, S, Hq, Hkv, D, P, ps, nblk, ring, window, scale);
+              out, S, Hq, Hkv, D, P, ps, nblk, ring, window, all_cols,
+              scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -920,8 +932,8 @@ int launch_f32(const void* q, const void* k, const void* v, const float* ks,
                const float* vs, const void* k_row, const void* v_row,
                const int* bounds, const int* bt, const float* table,
                float* out, int B, int S, int Hq, int Hkv, int D, int P,
-               int ps, int nblk, int ring, int window, float scale,
-               cudaStream_t s) {
+               int ps, int nblk, int ring, int window, int all_cols,
+               float scale, cudaStream_t s) {
   const int G = Hq / Hkv;
   const dim3 grid(B, Hkv, (S * G + kQR - 1) / kQR);
   const float* qt = static_cast<const float*>(q);
@@ -932,11 +944,11 @@ int launch_f32(const void* q, const void* k, const void* v, const float* ks,
   if (table) {
     mixed_kernel<float, TKV, true><<<grid, kThreads, 0, s>>>(
         qt, kt, vt, ks, vs, krt, vrt, bounds, bt, table, out, S, Hq, Hkv, D,
-        P, ps, nblk, ring, window, scale);
+        P, ps, nblk, ring, window, all_cols, scale);
   } else {
     mixed_kernel<float, TKV, false><<<grid, kThreads, 0, s>>>(
         qt, kt, vt, ks, vs, krt, vrt, bounds, bt, table, out, S, Hq, Hkv, D,
-        P, ps, nblk, ring, window, scale);
+        P, ps, nblk, ring, window, all_cols, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -947,15 +959,17 @@ int launch_f32(const void* q, const void* k, const void* v, const float* ks,
 // ks, vs (P, ps, Hkv) f32 (quant = 1); k_row, v_row (B, S, Hkv, D) in q's
 // type; bounds (B, 2) int32 [ci, n_new]; bt (B, nblk) int32; table: null
 // (exact exp) or the 64-entry f32 LUT; out (B, S, Hq, D) f32. window <= 0
-// means no window. dtype: 0 = float32, 1 = bfloat16. Requires Hq % Hkv == 0,
+// means no window. all_cols: 0 skips the columns j >= n_new (zeros), 1
+// computes them (see the output convention above). dtype: 0 = float32,
+// 1 = bfloat16. Requires Hq % Hkv == 0,
 // D <= 128 and, with a table, ps <= 256 and S <= 256 (the wrapper checks).
 extern "C" int tda_mixed(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* k_row,
                          const void* v_row, const void* bounds, const void* bt,
                          const void* table, void* out, int B, int S, int Hq,
                          int Hkv, int D, int P, int ps, int nblk, int ring,
-                         int window, int dtype, int quant, float scale,
-                         void* stream) {
+                         int window, int dtype, int quant, int all_cols,
+                         float scale, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (D > kMaxD || (table && (ps > kMaxBk || S > kMaxBk))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -969,7 +983,7 @@ extern "C" int tda_mixed(const void* q, const void* k, const void* v,
   float* o = static_cast<float*>(out);
 #define TDA_MIXED_ARGS                                                     \
   q, k, v, kss, vss, k_row, v_row, bd, tb, lt, o, B, S, Hq, Hkv, D, P, ps, \
-      nblk, ring, window, scale, s
+      nblk, ring, window, all_cols, scale, s
   if (dtype == 0) {
     return quant ? launch_f32<int8_t>(TDA_MIXED_ARGS)
                  : launch_f32<float>(TDA_MIXED_ARGS);

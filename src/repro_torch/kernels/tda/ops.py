@@ -119,6 +119,7 @@ def fused_mixed_attention(
     v_scale: Optional[torch.Tensor] = None,
     lut_table: Optional[torch.Tensor] = None,
     use_kernel: bool = True,
+    all_columns: bool = False,
 ) -> torch.Tensor:
     """Mixed-step attention over paged lanes (masks pinned by
     :func:`~repro_torch.kernels.tda.ref.mixed_attention_reference`). The
@@ -127,7 +128,9 @@ def fused_mixed_attention(
     the AFU's LUT (per page, then the row chunk). ``use_kernel=False`` runs
     the dense exact-exp oracle and ignores ``lut_table``, as the
     reference's does. Returns ``(B, S, Hq, D)`` in ``q.dtype``; only
-    columns ``j < n_new`` are meaningful."""
+    columns ``j < n_new`` are meaningful unless ``all_columns`` asks the
+    kernel for every column as the reference computes it (the plain
+    oracle always does)."""
     B = q.shape[0]
     ci = torch.as_tensor(cache_index, device=q.device).reshape(-1) \
         .to(torch.int32).expand(B)
@@ -145,5 +148,6 @@ def fused_mixed_attention(
         out = tda_mixed_attention(
             q.contiguous(), k, v, k_row.contiguous(), v_row.contiguous(),
             bounds, block_table.to(torch.int32).contiguous(), k_scale,
-            v_scale, lut_table, ring=ring, window=window)
+            v_scale, lut_table, ring=ring, window=window,
+            all_columns=all_columns)
     return out.to(q.dtype)

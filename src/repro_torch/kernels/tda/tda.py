@@ -26,8 +26,10 @@ run as ``group_tiles`` blocks per kv head, each over the same splits.
 
 ``VARIANT_LAUNCHES`` counts kernel launches by variant (``name``,
 ``name.int8``, ``name.lut``, ``name.int8.lut``) and ``LAUNCHES`` reads
-them per kernel (the sum of its variants); plain-version calls are not
-counted, so a run can show that its path went through the kernels.
+them per kernel (the sum of its variants); ``MODE_LAUNCHES`` counts the
+mixed kernel's launches in its all-columns mode (a subset of its
+launches); plain-version calls are not counted, so a run can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -48,14 +50,15 @@ from repro_torch.kernels.tda.ref import (
 
 __all__ = ["tda_decode_attention", "tda_paged_decode_attention",
            "tda_mixed_attention", "decode_split_plan", "group_tiles",
-           "LAUNCHES",
-           "VARIANT_LAUNCHES", "reset_launch_counts"]
+           "LAUNCHES", "VARIANT_LAUNCHES", "MODE_LAUNCHES",
+           "reset_launch_counts"]
 
 _KERNELS = ("tda_decode_attention", "tda_paged_decode_attention",
             "tda_mixed_attention")
 _VARIANTS = ("", ".int8", ".lut", ".int8.lut")
 VARIANT_LAUNCHES = {name + suffix: 0 for name in _KERNELS
                     for suffix in _VARIANTS}
+MODE_LAUNCHES = {"tda_mixed_attention.all_columns": 0}
 
 
 class _KernelLaunches(Mapping):
@@ -134,8 +137,9 @@ def _split_buffers(q, Hkv: int, width: int, split: int):
 
 
 def reset_launch_counts() -> None:
-    for name in VARIANT_LAUNCHES:
-        VARIANT_LAUNCHES[name] = 0
+    for counts in (VARIANT_LAUNCHES, MODE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _count(name: str, quant: int, table_ptr: int) -> None:
@@ -327,8 +331,8 @@ def tda_paged_decode_attention(q, k, v, bounds, block_table, k_scale=None,
 
 def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
                         k_scale=None, v_scale=None, lut_table=None, *,
-                        ring: int, window: Optional[int] = None
-                        ) -> torch.Tensor:
+                        ring: int, window: Optional[int] = None,
+                        all_columns: bool = False) -> torch.Tensor:
     """Mixed-step attention over a paged pool. q (B, S, Hq, D); k/v page
     pools (P, page_size, Hkv, D) in q's dtype, or int8 codes with
     ``k_scale``/``v_scale`` pools (P, page_size, Hkv) f32 read through the
@@ -337,10 +341,15 @@ def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
     the logical lane width; ``lut_table`` the AFU's exp table (softmax
     blocks: each page, then the row chunk; page_size and S <= 256).
     Returns (B, S, Hq, D) f32; rows with no key (``ci == 0`` and ``n_new
-    == 0``) are zeros. Columns ``j >= n_new`` are never read by the
-    caller: the kernel writes them as zeros (so the projections after
-    attention see finite values), the CPU path leaves the plain version's
-    values there."""
+    == 0``) are zeros. Columns ``j >= n_new``: by default the caller never
+    reads them, and the kernel skips their work and writes zeros (so the
+    projections after attention see finite values). With ``all_columns``
+    (routed MoE stacks, whose experts take every column's token) the
+    kernel computes them as the reference does: column ``j`` at position
+    ``ci + j`` attends the lane (window included) and the chunk keys ``i <
+    n_new`` with ``j - i < window``; a column with no such key gives
+    zeros. The CPU path gives the plain version's values in every column
+    either way."""
     if ring < 1:
         raise ValueError(f"tda_mixed_attention: ring must be >= 1, got {ring}")
     ps = k.shape[1]
@@ -377,7 +386,9 @@ def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
                        block_table.data_ptr(), tp, out.data_ptr(), B, S, Hq,
                        Hkv, D, P, ps, block_table.shape[1], ring,
                        0 if window is None else int(window), code, quant,
-                       1.0 / math.sqrt(D),
+                       int(all_columns), 1.0 / math.sqrt(D),
                        torch.cuda.current_stream(q.device).cuda_stream))
     _count(name, quant, tp)
+    if all_columns:
+        MODE_LAUNCHES[name + ".all_columns"] += 1
     return out

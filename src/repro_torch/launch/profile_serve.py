@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
       [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]] \\
-      [--sampled] [--arch starcoder2-15b [--n-layers N]]
+      [--sampled] [--arch starcoder2-15b|dbrx-132b [--n-layers N]]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -33,17 +33,21 @@ instead (:func:`ring_config`, :data:`RING_ENGINE_KW`,
 :func:`ring_workload`: starcoder2-15b at its published widths with bf16
 weights, sliding-window ring lanes of 4096 tokens, the default
 ``EngineConfig`` with prefix sharing, long-context traffic that wraps the
-rings), as ``chip_smoke.py``'s ring_serve phase serves it; ``--n-layers``
-cuts its depth. Every step also reports its token choice alone
-(``choose_*``: the kernels launched inside ``Engine._choose``, the argmax
-of a greedy step or the sampler of a sampled one), found through the
-profiler's op tree. Needs a CUDA device.
+rings), as ``chip_smoke.py``'s ring_serve phase serves it; ``--arch
+dbrx-132b`` profiles the MoE serve (:func:`moe_config` with
+:data:`ENGINE_KW` and :func:`workload`, as ``chip_smoke.py``'s moe_serve
+phase serves it: routed experts, every mixed-step column computed);
+``--n-layers`` cuts either one's depth. Every step also reports its token
+choice alone (``choose_*``: the kernels launched inside ``Engine._choose``,
+the argmax of a greedy step or the sampler of a sampled one), found
+through the profiler's op tree. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import subprocess
 import time
 from typing import Dict, List, Tuple
 
@@ -51,9 +55,9 @@ import numpy as np
 import torch
 
 __all__ = ["ENGINE_KW", "SAMPLED", "SYSTEM_PROMPT", "RING_ENGINE_KW",
-           "RING_PREFIX", "serve_config", "compressed_config", "ring_config",
-           "workload", "shared_workload", "ring_workload", "profile_run",
-           "range_kernels", "main"]
+           "RING_PREFIX", "MOE_LAYERS", "serve_config", "compressed_config",
+           "ring_config", "moe_config", "workload", "shared_workload",
+           "ring_workload", "profile_run", "range_kernels", "main"]
 
 # The full-width serve's engine settings: paged lanes of 128-token pages
 # and mixed steps of chunk width 256 (``workload`` serves them with
@@ -83,6 +87,7 @@ _CATEGORIES = (
              "sum_splits")),
     ("smm", ("smm_kernel", "smm_small_kernel", "smm_tc_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
+    ("sort_scan", ("sort", "scan")),  # the MoE router's top-k and ranks
     ("gather_scatter_copy", ("index", "gather", "scatter", "copy", "memcpy",
                              "memset", "cat")),
 )
@@ -111,6 +116,22 @@ def ring_config(n_layers=None):
     over = {} if n_layers is None else {"n_layers": n_layers}
     return get_config("starcoder2-15b", "full", param_dtype="bfloat16",
                       **over)
+
+
+# The MoE serve's depth: dbrx-132b's 40 layers cut to 8 (each layer's 16
+# experts of 3 x 6144 x 10752 take 6.3 GB in bf16: 8 layers, the embedding
+# and the head come to about 53 GB of the card's 80).
+MOE_LAYERS = 8
+
+
+def moe_config(n_layers=MOE_LAYERS):
+    """dbrx-132b at its published widths (d_model 6144, 48 q / 8 kv heads
+    of 128, 16 experts of d_ff 10752, top-4, capacity factor 1.25, vocab
+    100352, rope_theta 5e5) with bf16 weights (``param_dtype``), depth cut
+    from 40 to ``n_layers``."""
+    from repro_torch.configs import get_config
+    return get_config("dbrx-132b", "full", param_dtype="bfloat16",
+                      n_layers=n_layers)
 
 
 def ring_workload(vocab: int, max_new: int, seed: int = 0):
@@ -333,15 +354,17 @@ def main(argv=None):
     ap.add_argument("--pool-frac", type=float, default=1.0)
     ap.add_argument("--sampled", action="store_true")
     ap.add_argument("--arch", default="qwen2.5-32b",
-                    choices=("qwen2.5-32b", "starcoder2-15b"))
+                    choices=("qwen2.5-32b", "starcoder2-15b", "dbrx-132b"))
     ap.add_argument("--n-layers", type=int, default=None)
     args = ap.parse_args(argv)
     ring = args.arch == "starcoder2-15b"
-    if ring and (args.compressed or args.shared):
-        ap.error("--arch starcoder2-15b profiles the ring serve: it takes "
+    if args.arch != "qwen2.5-32b" and (args.compressed or args.shared):
+        ap.error(f"--arch {args.arch} profiles its own serve: it takes "
                  "neither --compressed nor --shared")
     if ring:
         cfg = ring_config(args.n_layers)
+    elif args.arch == "dbrx-132b":
+        cfg = moe_config(args.n_layers or MOE_LAYERS)
     else:
         cfg = compressed_config() if args.compressed else serve_config()
     if args.kv_quant:
@@ -394,7 +417,11 @@ def main(argv=None):
            "prefix_hit_ratio": eng.decode_stats["prefix_hit_ratio"],
            "pages_shared": eng.decode_stats["pages_shared"],
            "preemptions": eng.decode_stats["preemptions"],
-           "device": torch.cuda.get_device_name(0), **prof}
+           "device": torch.cuda.get_device_name(0),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               timeout=60).stdout.strip(), **prof}
     print(json.dumps(out))
 
 

@@ -5,9 +5,10 @@
       [--max-new 8] [--serialized] [--contiguous] [--kv-quant] \\
       [--param-dtype bfloat16] [--device cuda]
 
-Every dense attention stack the port serves: qwen2.5-32b, yi-34b,
-qwen1.5-4b and starcoder2-15b (LayerNorm, GELU, sliding-window ring
-lanes). The reference launcher's flags, plus ``--n-layers`` (cut the
+Every attention stack the port serves: qwen2.5-32b, yi-34b, qwen1.5-4b,
+starcoder2-15b (LayerNorm, GELU, sliding-window ring lanes) and the MoE
+family, dbrx-132b and arctic-480b (routed experts; arctic's parallel dense
+FFN). The reference launcher's flags, plus ``--n-layers`` (cut the
 depth: the full 64-layer qwen2.5-32b does not fit one 80 GB card with f32
 params), ``--param-dtype`` (``bfloat16`` halves the weights: starcoder2-15b
 at full depth, ~16 B parameters, fits one 80 GB card so),

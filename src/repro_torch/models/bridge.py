@@ -4,7 +4,8 @@ dicts of numpy arrays by the caller, becomes the port's parameters.
 The port never sees JAX: a caller holding reference parameters converts
 them first, e.g. ``jax.tree.map(np.asarray, params)``, and hands the
 numpy tree here. The layout is kept as it is (uniform stacks carry the
-leading L axis on ``params["layers"]``)."""
+leading L axis on ``params["layers"]``; MoE experts ``(L, E, ...)``, and
+their compressed streams the same leading dims)."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union

@@ -125,11 +125,10 @@ class ModelConfig:
         return self.layer_pattern is None or len(set(self.layer_pattern)) == 1
 
     def n_params(self) -> int:
-        """Approximate dense parameter count (embeddings + blocks). Only
-        the attention/FFN terms of the reference are carried: the other
-        block kinds are refused by ``Model``."""
-        if self.moe is not None:
-            raise ValueError("n_params: MoE stacks are not ported")
+        """Approximate dense parameter count (embeddings + blocks), for 6ND
+        (MoE: every expert, the router and arctic's dense FFN). Only the
+        attention blocks of the reference are carried: the other block
+        kinds are refused by ``Model``."""
         d, hd = self.d_model, self.head_dim
         p = self.vocab_size * d * (1 if self.tie_embeddings else 2) \
             * self.n_codebooks
@@ -140,5 +139,21 @@ class ModelConfig:
                                  "ported")
             p += d * hd * (self.n_heads + 2 * self.kv_heads) \
                 + self.n_heads * hd * d
-            p += mults * d * self.d_ff
+            if self.moe is not None:
+                m = self.moe
+                p += d * m.n_experts  # router
+                p += m.n_experts * 3 * d * m.d_ff_expert
+                if m.dense_residual:
+                    p += 3 * d * m.d_ff_dense
+            else:
+                p += mults * d * self.d_ff
         return p
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only ``top_k`` experts), for
+        6 N_active D."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        per = 3 * self.d_model * m.d_ff_expert * self.n_layers
+        return self.n_params() - m.n_experts * per + m.top_k * per

@@ -99,8 +99,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key ``j`` when both carry the same nonzero segment id (``None``: all
     ones), ``j <= i`` (``causal``) and ``i - j < window``. Scores and the
     softmax are f32, over query blocks of ``chunk`` rows so the score
-    tensor stays bounded. A query with no visible key (padding) gets the
-    mean of ``v``. Returns ``q.dtype``."""
+    tensor stays bounded. A query with no visible key (a pad row or column)
+    gets what the reference's online softmax gives it (:func:`_dead_rows`).
+    Returns ``q.dtype``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -112,6 +113,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf, vf = k.float(), v.float()
     ik = torch.arange(Skv, device=dev)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    dead_o = _dead_rows(vf, Sq, chunk, window)  # (B, Sq, Hkv, D)
     for a in range(0, Sq, chunk):
         b = min(a + chunk, Sq)
         qg = q[:, a:b].float().reshape(B, b - a, Hkv, G, D)
@@ -126,8 +128,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(m[:, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        dead = ~m.any(-1)  # (B, b - a): no visible key
+        o = torch.where(dead[:, :, None, None, None],
+                        dead_o[:, a:b, :, None], o)
         out[:, a:b] = o.reshape(B, b - a, Hq, D).to(q.dtype)
     return out
+
+
+def _dead_rows(vf: torch.Tensor, Sq: int, chunk: int,
+               window: Optional[int]) -> torch.Tensor:
+    """What the reference's ``flash_attention`` gives a query that sees no
+    key: its online softmax pads both axes to multiples of ``c = min(chunk,
+    Sq, Skv)`` (zero values) and, on a row masked everywhere, takes every
+    visited key with weight ``exp(-1e30 - (-1e30)) = 1``. So the row gets
+    the sum of the values in the key chunks it visits over their padded
+    count: all ``nk`` chunks, or with a window the ``w + 1`` chunks of its
+    lookback (``w = ceil(window / c)``, indices clipped into range, a clip
+    counted each time). vf (B, Skv, Hkv, D) f32 -> (B, Sq, Hkv, D) f32."""
+    B, Skv = vf.shape[0], vf.shape[1]
+    c = min(chunk, Sq, Skv)
+    nk = -(-Skv // c)
+    if window is None:
+        tot = vf.sum(1, keepdim=True) / (nk * c)
+        return tot.expand(B, Sq, *vf.shape[2:])
+    pad = torch.zeros((B, nk * c - Skv) + tuple(vf.shape[2:]),
+                      dtype=vf.dtype, device=vf.device)
+    csum = torch.cat([vf, pad], 1).reshape(B, nk, c, *vf.shape[2:]).sum(2)
+    w = -(-window // c)
+    qi = torch.arange(Sq, device=vf.device) // c + (Skv - Sq) // c
+    tot = sum(csum[:, torch.clamp(qi - w + t, 0, nk - 1)]
+              for t in range(w + 1))
+    return tot / ((w + 1) * c)
 
 
 def kv_quantize(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -336,9 +367,13 @@ def attention_block(
             sm = slot_mask.reshape(-1)
             ci = torch.where(sm, ci, 0)
             nn = torch.where(sm, nn, 0)  # inert row: attends, writes nothing
+        # A routed (MoE) stack routes every column of the step together,
+        # so the columns j >= n_new take expert capacity: the kernel then
+        # computes them as the reference does instead of skipping them.
         o = fused_mixed_attention(q, kpool, vpool, k, v, ci, nn,
                                   block_table=bt, ring=ringw, window=window,
-                                  use_kernel=impl == "tda")
+                                  use_kernel=impl == "tda",
+                                  all_columns=cfg.moe is not None)
         # Chunk scatter AFTER attention: token j lands at lane position
         # (ci + j) % ringw; only the last min(n_new, ringw) columns write
         # (earlier columns of a wrapping chunk alias the same position).
@@ -412,11 +447,12 @@ def attention_block(
 
 def init_ffn(g: torch.Generator, cfg: ModelConfig,
              bank: Optional[DictionaryBank], lead=(),
-             prefix: str = "ffn") -> Dict:
+             prefix: str = "ffn", d_ff: Optional[int] = None) -> Dict:
     """``w_up``/``w_down`` (and ``w_gate`` for the gated ``swiglu`` and
-    ``geglu``) with leading dims ``lead``, each dense or factorized through
-    its ``{prefix}_*`` dictionary."""
-    d, f, fcfg = cfg.d_model, cfg.d_ff, cfg.factorization
+    ``geglu``) of width ``d_ff`` (default ``cfg.d_ff``) with leading dims
+    ``lead``, each dense or factorized through its ``{prefix}_*``
+    dictionary (arctic's parallel dense FFN: ``densefn``, ``d_ff_dense``)."""
+    d, f, fcfg = cfg.d_model, d_ff or cfg.d_ff, cfg.factorization
     kw = dict(dtype=cfg.params_dtype, lead=lead)
     p = {"w_up": init_linear(g, d, f, fcfg, bank, f"{prefix}_up", **kw),
          "w_down": init_linear(g, f, d, fcfg, bank, f"{prefix}_down", **kw)}
@@ -427,10 +463,12 @@ def init_ffn(g: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
-              dicts: Optional[Dict] = None) -> torch.Tensor:
+              dicts: Optional[Dict] = None,
+              prefix: str = "ffn") -> torch.Tensor:
     """``w_down(h)`` with ``h = silu(w_gate x) * w_up x`` (``swiglu``),
     ``gelu(w_gate x) * w_up x`` (``geglu``) or ``gelu(w_up x)`` (``gelu``);
-    the GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    the GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+    Factorized weights go through the ``{prefix}_*`` dictionaries."""
     dt = cfg.compute_dtype
     if cfg.act not in ("swiglu", "geglu", "gelu"):
         raise ValueError(f"unknown FFN activation {cfg.act!r}")
@@ -438,14 +476,15 @@ def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     def lin(name, inp, fam):
         return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
 
-    up = lin("w_up", x, "ffn_up")
+    up = lin("w_up", x, f"{prefix}_up")
     if cfg.act == "swiglu":
-        h = F.silu(lin("w_gate", x, "ffn_gate")) * up
+        h = F.silu(lin("w_gate", x, f"{prefix}_gate")) * up
     elif cfg.act == "geglu":
-        h = F.gelu(lin("w_gate", x, "ffn_gate"), approximate="tanh") * up
+        h = F.gelu(lin("w_gate", x, f"{prefix}_gate"),
+                   approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return lin("w_down", h, "ffn_down")
+    return lin("w_down", h, f"{prefix}_down")
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor,

@@ -1,6 +1,8 @@
 """The composable model (``repro.models.transformer``): embeds -> block
-stack -> norm -> logits, for uniform dense attention stacks (RMSNorm or
-LayerNorm, SwiGLU, GeGLU or GELU, full or sliding-window attention).
+stack -> norm -> logits, for uniform attention stacks (RMSNorm or
+LayerNorm; full or sliding-window attention), whose FFN is dense (SwiGLU,
+GeGLU or GELU) or routed: the MoE family (dbrx-132b, arctic-480b), with
+arctic's parallel dense FFN (``models/moe.py``).
 
 The reference's ``lax.scan`` over layers is a Python loop here. Parameters
 are nested dicts of tensors in the reference's layout (uniform stacks carry
@@ -23,6 +25,7 @@ from repro_torch.core.factorized import DictionaryBank, compress_model_params
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["Model", "check_supported"]
 
@@ -30,16 +33,21 @@ __all__ = ["Model", "check_supported"]
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what this slice of the port does not serve, naming the slice
     (ROADMAP Queue 1) that brings it."""
-    if cfg.family != "dense" or cfg.moe is not None \
-            or cfg.layer_pattern is not None or cfg.ssm is not None:
+    if cfg.family in ("ssm", "hybrid") or cfg.layer_pattern is not None \
+            or cfg.ssm is not None:
         raise UnsupportedConfigError(
-            f"{cfg.name}: only dense attention stacks are ported; the "
-            f"{cfg.family!r} family comes with a later slice (ROADMAP "
-            "Queue 1 item 10, other families)")
+            f"{cfg.name}: recurrent stacks (the {cfg.family!r} family) "
+            "come with a later slice (ROADMAP Queue 1 item 10c)")
+    if cfg.family not in ("dense", "moe") \
+            or (cfg.family == "moe") != (cfg.moe is not None):
+        raise UnsupportedConfigError(
+            f"{cfg.name}: the {cfg.family!r} family (external embeddings, "
+            "multi-codebook logits) comes with a later slice (ROADMAP "
+            "Queue 1 item 10b)")
     if cfg.external_embeddings or cfg.n_codebooks != 1:
         raise UnsupportedConfigError(
             f"{cfg.name}: external embeddings / multi-codebook logits come "
-            "with a later slice (ROADMAP Queue 1 item 10)")
+            "with a later slice (ROADMAP Queue 1 item 10b)")
     if cfg.learned_pos:
         raise UnsupportedConfigError(
             f"{cfg.name}: learned positions come with the paper models "
@@ -129,8 +137,15 @@ class Model:
             "norm1": L.init_norm(cfg, (Ln,), dev),
             "attn": L.init_attention(g, cfg, bank, lead=(Ln,)),
             "norm2": L.init_norm(cfg, (Ln,), dev),
-            "ffn": L.init_ffn(g, cfg, bank, lead=(Ln,)),
         }
+        if cfg.moe is None:
+            layers["ffn"] = L.init_ffn(g, cfg, bank, lead=(Ln,))
+        else:
+            layers["moe"] = init_moe(g, cfg, bank, lead=(Ln,))
+            if cfg.moe.dense_residual:
+                layers["dense_ffn"] = L.init_ffn(
+                    g, cfg, bank, lead=(Ln,), prefix="densefn",
+                    d_ff=cfg.moe.d_ff_dense)
         params: Dict[str, Any] = {
             "embed": {"tok": normal((cfg.vocab_size, d), 0.02)},
             "layers": layers,
@@ -151,9 +166,10 @@ class Model:
         the port then multiplies in bf16, where the reference's dense and
         factorized ``apply_linear`` multiplies the bf16 activation by the
         f32 weight as an f32 product (and casts the result to bf16): those
-        outputs differ from the reference's by that rounding. Norm scales
-        and the LM head stay as they are: the reference computes norms and
-        logits in f32."""
+        outputs differ from the reference's by that rounding (the MoE
+        experts' ``einsum`` casts its weights to the compute dtype, as
+        here). Norm scales, the MoE router and the LM head stay as they
+        are: the reference computes norms, routing and logits in f32."""
         dt = self.cfg.compute_dtype
 
         def cast(node):
@@ -162,9 +178,8 @@ class Model:
                     for k, v in node.items()}
 
         out = dict(params)
-        lay = params["layers"]
-        out["layers"] = {"norm1": lay["norm1"], "norm2": lay["norm2"],
-                         "attn": cast(lay["attn"]), "ffn": cast(lay["ffn"])}
+        out["layers"] = {k: v if k.startswith("norm") else cast(v)
+                         for k, v in params["layers"].items()}
         if "dicts" in params:
             out["dicts"] = {f: (e if isinstance(e, dict) else e.to(dt))
                             for f, e in params["dicts"].items()}
@@ -236,7 +251,16 @@ class Model:
                 pages=pages, slot_mask=slot_mask, n_new=n_new,
                 seg_ids=seg_ids, prefix_kv=pre)
             h2 = L.apply_norm(lp["norm2"], x)
-            x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
+            if cfg.moe is None:
+                x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
+            else:
+                # The reference's order: the routed experts, then arctic's
+                # parallel dense FFN on the same normed input. The aux
+                # loss belongs to training.
+                x = x + moe_ffn(lp["moe"], h2, cfg=cfg, dicts=dicts)[0]
+                if cfg.moe.dense_residual:
+                    x = x + L.ffn_block(lp["dense_ffn"], h2, cfg=cfg,
+                                        dicts=dicts, prefix="densefn")
         return L.apply_norm(params["final_norm"], x)
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:

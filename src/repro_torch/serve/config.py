@@ -75,7 +75,7 @@ class EngineConfig:
         if not traits["has_attn"] or traits["recurrent"]:
             raise UnsupportedConfigError(
                 "only attention-only stacks are served; recurrent layers "
-                "come with a later slice (ROADMAP Queue 1 item 10)")
+                "come with a later slice (ROADMAP Queue 1 item 10c)")
         if self.mixed and not traits["mixed_ok"]:
             raise UnsupportedConfigError(
                 "mixed-step serving needs a paged, attention-only, "

@@ -19,7 +19,7 @@ deterministic. With prefix sharing the engine passes a ``probe``: requests
 whose leading tokens sit in the prefix cache ride row-per-request
 **shared** admissions, hits adjacent in admission order batched into one
 suffix sweep. The row-per-request layout of recurrent stacks
-(``pack=False``) comes with ROADMAP Queue 1 item 10.
+(``pack=False``) comes with ROADMAP Queue 1 item 10c.
 """
 from __future__ import annotations
 
@@ -97,7 +97,7 @@ class Scheduler:
             raise UnsupportedConfigError(
                 "row-per-request admissions (pack=False, recurrent stacks) "
                 "come with a later slice of the port (ROADMAP Queue 1 "
-                "item 10)")
+                "item 10c)")
         self.policy = PackingPolicy(max_len=max_len, max_per_row=max_per_row)
         self.max_rows = max_rows
         self.max_prompt_len = max_prompt_len

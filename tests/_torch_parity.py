@@ -6,6 +6,8 @@ reference (JAX) outputs come back as numpy. Import this module only after
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -148,3 +150,52 @@ def serve_rounds(pkg: str, model, params, rounds, **cfg_kw):
         if eng.paged:
             eng.slots.pool.check_invariants()
     return out, stats, eng
+
+
+# MoE smoke pairs (tests/test_torch_moe*.py): factorized and compressed
+# weights use a factorization that reaches smoke widths; the published
+# capacity factor (1.25) is the default, since the smoke configs' own (2.0,
+# 8.0) never drop a claim.
+MOE_FCFG = dict(enabled=True, min_dim=32, rank=32, nnz=8)
+MOE_CF = 1.25
+_MOE_PARAMS: dict = {}
+
+
+def moe_pair(arch: str, fmt: str = "dense", cf=MOE_CF):
+    """(reference Model, its params, port Model on the CPU, the params
+    bridged over) of ``arch`` smoke at float32 in format ``fmt``
+    (``dense``, ``factorized``, or ``compressed``: W_D projected, then the
+    reference's ``compress_params``), with capacity factor ``cf`` (None:
+    the smoke config's). Params are made once per (arch, fmt) and
+    process."""
+    import jax
+    from repro.configs import get_config as jget
+    from repro.core import factorized as rf
+    from repro.models.transformer import Model as JM
+    from repro_torch.configs import get_config as tget
+    from repro_torch.core import factorized as tf
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.transformer import Model as TM
+    jo, to = {}, {}
+    if fmt != "dense":
+        jo["factorization"] = rf.FactorizationConfig(**MOE_FCFG)
+        to["factorization"] = tf.FactorizationConfig(**MOE_FCFG)
+    if fmt == "compressed":
+        jo["weight_format"] = to["weight_format"] = "compressed"
+    jcfg = jget(arch, "smoke", dtype="float32", **jo)
+    tcfg = tget(arch, "smoke", dtype="float32", **to)
+    if cf is not None:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=cf))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+            tcfg.moe, capacity_factor=cf))
+    key = (arch, fmt)
+    if key not in _MOE_PARAMS:
+        jm = JM(dataclasses.replace(jcfg, weight_format="dense"))
+        jp = jm.init(jax.random.key(0))
+        if fmt == "compressed":
+            _, jp, _ = jm.compress_params(rf.project_wd_leaves(
+                jp, jcfg.factorization))
+        _MOE_PARAMS[key] = (jp, params_from_numpy(to_numpy_tree(jp), CPU))
+    jp, tparams = _MOE_PARAMS[key]
+    return JM(jcfg), jp, TM(tcfg, device=CPU), tparams

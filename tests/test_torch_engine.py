@@ -182,13 +182,14 @@ def test_refused_engine_settings(name):
 
 
 @pytest.mark.parametrize("arch,over", [
-    ("mamba2-370m", {}), ("recurrentgemma-2b", {}), ("dbrx-132b", {}),
+    ("mamba2-370m", {}), ("recurrentgemma-2b", {}), ("musicgen-large", {}),
     ("starcoder2-15b", {"learned_pos": True}), ("llava-next-mistral-7b", {}),
-    ("dbrx-132b", {"factorized": True}),
+    ("mamba2-370m", {"factorized": True}),
     ("qwen2.5-32b", {"weight_format": "int3"})])
 def test_refused_models(arch, over):
-    """Families outside the slice (compressed MoE among them) and learned
-    positions (starcoder2 itself is served) are refused by Model; an
+    """Families outside the slice (recurrent stacks, factorized or not;
+    external embeddings and codebooks) and learned positions (starcoder2
+    itself is served, and so is the MoE family) are refused by Model; an
     unknown weight format is a ValueError, as in the reference."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError

@@ -319,8 +319,9 @@ def test_wrapped_ring_prompt_neither_shares_nor_publishes(sc2):
 
 
 def test_check_supported_accepts_starcoder2():
-    """starcoder2 smoke and full construct; learned positions (item 12) and
-    the other families (item 10) stay refused."""
+    """starcoder2 smoke and full construct (so do the MoE family's, item
+    10a); learned positions (item 12) and the other families (items 10b,
+    10c) stay refused."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model, check_supported
@@ -331,9 +332,10 @@ def test_check_supported_accepts_starcoder2():
         check_supported(get_config(arch, "full"))
     with pytest.raises(UnsupportedConfigError, match="item 12"):
         check_supported(get_config(ARCH, "smoke", learned_pos=True))
-    for arch in ("dbrx-132b", "arctic-480b", "mamba2-370m",
-                 "recurrentgemma-2b", "llava-next-mistral-7b",
-                 "musicgen-large"):
+    for arch in ("dbrx-132b", "arctic-480b"):
+        check_supported(get_config(arch, "smoke"))
+    for arch in ("mamba2-370m", "recurrentgemma-2b",
+                 "llava-next-mistral-7b", "musicgen-large"):
         with pytest.raises(UnsupportedConfigError, match="item 10"):
             check_supported(get_config(arch, "smoke"))
 
