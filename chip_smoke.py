@@ -96,7 +96,14 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               paged decode and the all-columns mixed step at the MoE
               serve's shapes (48 q / 8 kv heads of 128, G = 6; rows
               ``.g6``, the mixed row with its skip mode's time at the same
-              shape), timed beside SDPA.
+              shape), timed beside SDPA. Last, both decode kernels at head
+              dims past 128 (``d256_rows``, line ``kernels_d256``: D 136,
+              192, 256 at G 1, 5, 10 over one kv head; rings of 2048 in
+              pages of 128 and 16 and contiguous, lanes that wrapped,
+              windows, hi <= lo rows; fp and int8, exact and LUT exp, f32
+              and bf16; the limits above), then rows ``.d256`` at the
+              recurrentgemma serve's decode shape (8 slots, 10 q / 1 kv
+              heads of 256, lanes of 544 positions), timed beside SDPA.
    kernel_table — the slice's entry point, ``python -m repro_torch.launch.
               kernel_table``: the reference's ``kernels`` and ``decode_attn``
               tables in-process on the card (DMM, SMM, LUT softmax, int8
@@ -148,6 +155,16 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               runs drop claims. One mixed step carrying a decode row while
               capacity binds gives the CPU's logits on every column, the
               decode row's five columns past ``n_new`` included (1e-4).
+   recurrent_tokens — mamba2 and recurrentgemma smoke at float32
+              (``REC_SMOKE``: prompts past the SSD chunk and past the window
+              of 32, two arriving mid-decode) through the default engine
+              (serialized; recurrentgemma paged, and again contiguous): on
+              the card through the decode kernels and through the plain
+              path, and on the CPU, the same tokens; the card's host
+              counters and prefill sweeps (one row per request) equal the
+              CPU's; recurrentgemma's contiguous tokens equal its paged
+              ones; the kernel runs launch the decode kernel of their lanes
+              (mamba2, no attention layer, none).
    bf16_logits — bf16 logits of qwen2.5 smoke and starcoder2 smoke
               (``apply`` over 40 tokens, ``decode_step`` and ``mixed_step``
               over a page pool; the kernels on the card, the plain path on
@@ -236,13 +253,41 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               counters equal to the port's CPU run of the same prompt
               lengths and arrivals on dbrx smoke at float32; tok/s, TTFT
               and step ms with the card's name and power limit. It runs
-              last, after phase 6 has freed its weights.
+              after phase 6 has freed its weights.
+8. recurrent_serve — recurrentgemma-2b (26 layers: rglru, rglru, local;
+              d_model 2560, 10 q / 1 kv heads of 256, window 2048, vocab
+              256000; ~5.8 GB) and mamba2-370m (48 SSD layers, d_model
+              1024, state 128; ~0.74 GB) at their published widths and full
+              depth, bf16 weights from seed 0, each serving phase 4's
+              workload through the default ``EngineConfig`` (serialized,
+              one request per prefill row; paged for recurrentgemma's
+              local layers, unpaged state lanes for mamba2), recurrentgemma
+              once more with contiguous lanes: 16/16 ``ok`` with phase 4's
+              launch checks (the decode kernel once per attention layer
+              per decode step), every host counter and prefill sweep equal
+              to the port's CPU run of the same traffic on the smoke config,
+              and a short profiled window (launches and device ms per decode
+              step and prefill sweep); tok/s, TTFT, step ms and rows per
+              sweep with the card's name and power limit.
+9. embeds   — llava-next-mistral-7b (32 layers, ~14 GB) and then
+              musicgen-large (48 layers, ~4.9 GB, 4 codebooks) at their
+              published widths, bf16 weights from seed 0: seeded (2, 512,
+              d) embeds through ``Model.prefill``, then 8 ``decode_step``s
+              on the contiguous decode kernel; at float32 compute (the
+              bf16 weights), every decode position's logits (and the
+              prefill's last) within 0.02 of the full forward's, relative
+              to its largest magnitude (the reference test's bound); at
+              bf16 compute the kernel path's drift within ``BF16_FACTOR``
+              (2) times the plain path's; musicgen's logits (2, 1, 4,
+              2048).
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
 (``serve:<engine>``; int8 rows from the int8 serves), the G = 12 paged
 decode and mixed rows from phase 6 (``serve:ring``), the G = 6 ones from
-phase 7 (``serve:moe``), DMM and SMM from phase
+phase 7 (``serve:moe``), the ``.d256`` rows from phase 8
+(``serve:recurrent:recurrentgemma-2b``, paged; ``...contiguous``, the
+contiguous run), DMM and SMM from phase
 5 (``compressed_serve``), softmax_lut from the kernel_table phase
 (``kernel_table``); layernorm_residual, the TDA LUT and int8-mixed
 variants and the other ring-shape rows (contiguous decode at G = 12, every
@@ -1202,6 +1247,8 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     del q, k, v, kr, vr, kq, vq, ks, vs, sq, fmask
     ring_rows(torch, np, err, check, add_row, gather)
     moe_rows(torch, np, err, check, add_row, gather, T, plain_mixed, table)
+    d256_rows(torch, np, err, check, add_row, gather, T, table,
+              plain_decode, plain_contig)
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
@@ -1347,6 +1394,134 @@ def ring_rows(torch, np, err, check, add_row, gather):
                  "dtype": "bfloat16"}, launches, plain_reps=3, device=True)
         r.update(launches=launches, launches_from="check")
         del q, sq
+    torch.cuda.synchronize()
+
+
+# recurrentgemma-2b's local attention at head dim 256 (10 q heads over one
+# kv head: G = 10, two group tiles of 5), the decode kernels' kMaxD = 256
+# instance. Checks: D 136, 192 and 256 at G 1, 5 and 10 over one kv head,
+# rings of D256_RING positions in pages of 128 and 16 and contiguous, the
+# split-edge rows (lanes that wrapped attend their whole ring, windows, hi
+# <= lo), fp and int8 K/V, exact and LUT exp (the LUT on 128-token pages
+# and contiguous blocks of 128), f32 and bf16.
+D256_CASES = ((136, 1), (192, 5), (256, 10))
+D256_RING = 2048
+
+
+def d256_rows(torch, np, err, check, add_row, gather, T, table,
+              plain_decode, plain_contig):
+    """Both decode kernels at head dims past 128 against their plain
+    versions (the limits of phase 2; line ``kernels_d256``), then rows
+    ``.d256`` at the recurrentgemma serve's decode shape (8 slots, 10 q / 1
+    kv heads of 256, lanes of 544 positions: the engine's cache_len under
+    ENGINE_KW, within the 2048 window; 128-token pages), bf16, timed beside
+    SDPA. main gives the rows the recurrent serves' launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tda import tda
+    from repro_torch.launch.profile_serve import ENGINE_KW, recurrent_config
+    from repro_torch.models.layers import kv_quantize
+    dev = torch.device("cuda")
+    n_cases, B = 0, 8
+    names = {"paged": "tda_paged_decode_attention",
+             "contig": "tda_decode_attention"}
+    for dt in (torch.float32, torch.bfloat16):
+        for i, (D, G) in enumerate(D256_CASES):
+            rng = np.random.default_rng(70 + i)
+            q = T(rng.standard_normal((B, G, D)).astype(np.float32), dt)
+            for ps in (128, 16, None):  # None: contiguous lanes
+                W = D256_RING
+                L = tda.decode_split_plan(W, ps)
+                bounds = T(split_edge_rows(np, rng, W, L, B))
+                live = bounds[:, 1] > bounds[:, 0]
+                if ps is None:
+                    shape = (B, W, 1, D)
+                else:
+                    n = W // ps
+                    P = B * n + 3
+                    bt = T(rng.permutation(P)[:B * n].reshape(B, n).astype(
+                        np.int32))
+                    shape = (P, ps, 1, D)
+                k = T(rng.standard_normal(shape).astype(np.float32), dt)
+                v = T(rng.standard_normal(shape).astype(np.float32), dt)
+                (kq, ks), (vq, vs) = kv_quantize(k.float()), \
+                    kv_quantize(v.float())
+                for suffix, lanes in (("", (k, v, None, None)),
+                                      (".int8", (kq, vq, ks, vs))):
+                    for lut in ((False, True) if ps in (128, None)
+                                else (False,)):
+                        tab = table if lut else None
+                        kind = "contig" if ps is None else "paged"
+                        name = names[kind] + ".d256" + suffix \
+                            + (".lut" if lut else "")
+                        err.setdefault(name, 0.0)
+                        if ps is None:
+                            got = tda.tda_decode_attention(
+                                q, *lanes[:2], bounds, *lanes[2:], tab,
+                                block_k=128)
+                            want = plain_contig(q, *lanes[:2], bounds,
+                                                *lanes[2:],
+                                                128 if lut else None)
+                        else:
+                            got = tda.tda_paged_decode_attention(
+                                q, *lanes[:2], bounds, bt, *lanes[2:], tab)
+                            want = plain_decode(q, *lanes[:2], bounds, bt,
+                                                *lanes[2:], lut)
+                        check(name, got, want, live)
+                        n_cases += 1
+    torch.cuda.synchronize()
+    line("kernels_d256", cases=n_cases, head_dims_groups=D256_CASES,
+         ring=D256_RING, max_abs_err={k: v for k, v in err.items()
+                                      if ".d256" in k},
+         limits={"exact": TOL, "lut": LUT_TOL})
+    # The timed rows: the recurrentgemma serve's decode shape.
+    rcfg = recurrent_config("recurrentgemma-2b")
+    Hq, Hkv, D = rcfg.n_heads, rcfg.kv_heads, rcfg.head_dim
+    cache_len = 2 * ENGINE_KW["max_len"] + ENGINE_KW["max_new_tokens"]
+    lane = min(rcfg.local_window, cache_len)
+    bf = torch.bfloat16
+    dec, _ = full_cases(np, rcfg, ENGINE_KW["num_slots"], lane, 128,
+                        ENGINE_KW["max_len"])
+    q, k, v, bounds, bt = [T(a, bf) for a in dec]
+    live = bounds[:, 1] > bounds[:, 0]
+    tokens = int((dec[3][:, 1] - dec[3][:, 0]).sum())
+    kl = gather(k, bt)[:, :lane].contiguous()
+    vl = gather(v, bt)[:, :lane].contiguous()
+    pos = torch.arange(lane, device=dev)
+    lmask = (pos[None] < bounds[:, 1:])[:, None, None, :]
+    kk, vv = kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3)
+    qo = q.numel() * 2 + q.shape[0] * Hq * D * 4 + bounds.numel() * 4
+    fp_b = Hkv * D * 2 * 2
+    shape = {"B": int(q.shape[0]), "Hq": Hq, "Hkv": Hkv, "D": D,
+             "G": Hq // Hkv, "group_tiles": tda.group_tiles(Hq, Hkv),
+             "tokens_attended": tokens, "dtype": "bfloat16"}
+
+    def plain():
+        return plain_contig(q, kl, vl, bounds)
+
+    for kind, fn in (
+            ("paged", lambda: tda.tda_paged_decode_attention(q, k, v, bounds,
+                                                             bt)),
+            ("contig", lambda: tda.tda_decode_attention(q, kl, vl, bounds))):
+        row = names[kind] + ".d256"
+        n0 = tda.VARIANT_LAUNCHES[names[kind]]
+        check(row, fn(), plain(), live)
+        launches = tda.VARIANT_LAUNCHES[names[kind]] - n0
+        r = add_row(row, "tda_paged_decode.cu" if kind == "paged"
+                    else "tda_decode.cu",
+                    "src/repro/kernels/tda/tda.py:"
+                    + ("220" if kind == "paged" else "168"), fn, plain,
+                    lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kk, vv, attn_mask=lmask,
+                        enable_gqa=True),
+                    "SDPA over bf16 lanes", tokens * fp_b + qo
+                    + (bt.numel() * 4 if kind == "paged" else 0),
+                    4 * tokens * Hq * D,
+                    dict(shape, lane={"page_size": 128,
+                                      "pages": int(bt.shape[1])}
+                         if kind == "paged" else lane), launches,
+                    device=True)
+        r.update(launches=launches, launches_from="check")
+    del q, k, v, kl, vl, kk, vv
     torch.cuda.synchronize()
 
 
@@ -2351,10 +2526,11 @@ def twin_engine(eng, **over):
         eng.config, weight_stream_bits=eng._weight_stream_bits, **over))
 
 
-def short_profile(torch, eng, engine_kw):
+def short_profile(torch, eng, engine_kw, kinds=("decode", "mixed")):
     """profile_serve's per-step breakdown of a short window on ``eng``:
     the first 8 requests of ``profile_serve.workload`` at 8 new tokens
-    each, served once to warm up, once plainly and once profiled."""
+    each, served once to warm up, once plainly and once profiled; the
+    steps of ``kinds``."""
     import numpy as np
     from repro_torch.launch.profile_serve import profile_run, workload
     vocab = eng.model.cfg.vocab_size
@@ -2370,7 +2546,7 @@ def short_profile(torch, eng, engine_kw):
     return {kind: {k: prof[kind][k] for k in (
         "steps", "host_ms_per_step_unprofiled", "device_busy_ms_per_step",
         "launches_per_step", "choose_launches_per_step",
-        "choose_device_ms_per_step")} for kind in ("decode", "mixed")}
+        "choose_device_ms_per_step")} for kind in kinds}
 
 
 def phase_sampled_serve(torch, np, model, params, engine_kw, greedy):
@@ -2559,16 +2735,19 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
     if eng.paged:
         eng.slots.pool.check_invariants()
     L = cfg.n_layers
+    # Attention layers launch the kernels: every layer of an attention
+    # stack, recurrentgemma's local layers, none of mamba2's.
+    La = sum(1 for i in range(L) if cfg.block_kind(i) in ("attn", "local"))
     n_dec = st["steps"] - st["mixed_steps"]
     want = {"tda_decode_attention": 0, "tda_paged_decode_attention": 0,
-            "tda_mixed_attention": L * st["mixed_steps"]}
+            "tda_mixed_attention": La * st["mixed_steps"]}
     want["tda_paged_decode_attention" if eng.paged
-         else "tda_decode_attention"] = L * n_dec
+         else "tda_decode_attention"] = La * n_dec
     n_used = sum(1 for n in want.values() if n)
     if any(launches[k] != n for k, n in want.items()) or \
-            n_used != (2 if eng.mixed else 1):
-        fail(f"launch counts {launches}, want {want}: {L} layers x "
-             f"({n_dec} decode, {st['mixed_steps']} mixed) steps")
+            n_used != ((2 if eng.mixed else 1) if La else 0):
+        fail(f"launch counts {launches}, want {want}: {La} attention "
+             f"layers x ({n_dec} decode, {st['mixed_steps']} mixed) steps")
     ttft = sorted(v["wall_s"] for v in st["ttft"].values())
     toks = sum(len(r.output) for r in done)
     sweeps = eng.stats[n_sweeps0:]
@@ -2581,7 +2760,7 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
         engine="mixed" if eng.mixed else "serialized",
         lanes="paged" if eng.paged else "contiguous",
         kv="int8" if cfg.kv_quant else str(cfg.compute_dtype).split(".")[1],
-        d_model=cfg.d_model, n_layers=L,
+        d_model=cfg.d_model, n_layers=L, attention_layers=La,
         reduced=({"n_layers": "64 -> 8 (depth only)"} if reduced is None
                  else reduced),
         requests=len(done), ok=len(done), output_tokens=toks,
@@ -2595,6 +2774,8 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
         prefill_sweeps=len(st["step_ms"]["prefill"]),
         prefill_utilization_mean=(float(np.mean(
             [w["utilization"] for w in sweeps])) if not eng.mixed else None),
+        prefill_rows_mean=(float(np.mean([w["rows"] for w in sweeps]))
+                           if not eng.mixed else None),
         steps=st["steps"], mixed_steps=st["mixed_steps"],
         slot_utilization=st["slot_utilization"],
         kv_memory_ratio=st["kv_memory_ratio"],
@@ -3261,6 +3442,362 @@ def phase_moe_serve(torch, np):
     return launches
 
 
+# The recurrent smoke comparisons (phase recurrent_tokens): mamba2 and
+# recurrentgemma smoke at float32, the CPU tests' traffic
+# (tests/test_torch_recurrent_engine.py: prompts past the SSD chunk and past
+# the window of 32, two arriving mid-decode), recurrentgemma paged and
+# contiguous.
+REC_SMOKE = {"mamba2-370m": ([3, 7, 5, 8, 4, 20, 33], [4, 3, 2, 4, 3, 5, 4]),
+             "recurrentgemma-2b": ([3, 11, 7, 5, 9, 40, 37],
+                                   [4, 2, 5, 3, 4, 5, 6])}
+REC_TICKS = [0, 0, 0, 0, 0, 2, 5]
+REC_SMOKE_KW = dict(max_len=16, max_new_tokens=8, num_slots=2,
+                    max_prompt_len=48)
+REC_COUNTERS = ("steps", "decoded_tokens", "slot_utilization",
+                "kv_blocks_visited", "kv_blocks_dense", "preemptions",
+                "kv_pages_total", "kv_memory_ratio", "prefix_hit_ratio",
+                "pages_shared", "device_time")
+
+
+def rec_engine_runs(torch, np, arch, engines):
+    """``arch`` smoke at float32 (weights from seed 0 drawn on the CPU)
+    through each of ``engines`` ({label: EngineConfig overrides}) on the
+    card with the kernels (``decode_attn="tda"``), on the card through the
+    plain path (``"dense"``) and on the CPU: {label: {where: (tokens,
+    counters, sweeps, launches)}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tda import tda
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig, Request
+    cfg = get_config(arch, "smoke", dtype="float32")
+    lengths, budgets = REC_SMOKE[arch]
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    model = Model(cfg)
+    params = tree_to(cpu_params, "cuda")
+    out = {}
+    for label, kw in engines.items():
+        out[label] = {}
+        for where, m, prm, mode in (("card_tda", model, params, "tda"),
+                                    ("card_dense", model, params, "dense"),
+                                    ("cpu", cpu_model, cpu_params, "dense")):
+            eng = Engine(m, prm, config=EngineConfig(
+                decode_attn=mode, **REC_SMOKE_KW, **kw))
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=b)
+                    for i, (p, b) in enumerate(zip(prompts, budgets))]
+            for t, r in zip(REC_TICKS, reqs):
+                if not t:
+                    eng.submit(r)
+            tda.reset_launch_counts()
+            done = eng.run(arrivals=[(t, r) for t, r in zip(REC_TICKS, reqs)
+                                     if t])
+            if len(done) != len(reqs) or any(r.status != "ok"
+                                             for r in done):
+                fail(f"{arch} {label} {where}: not every request ok")
+            out[label][where] = (
+                {r.rid: list(r.output) for r in done},
+                {k: eng.decode_stats[k] for k in REC_COUNTERS},
+                [(w["rows"], w["n_requests"]) for w in eng.stats],
+                {k: n for k, n in tda.LAUNCHES.items() if n})
+    return out
+
+
+def phase_recurrent_tokens(torch, np):
+    """mamba2 and recurrentgemma smoke at float32 (REC_SMOKE): the
+    Engine's tokens through the decode kernels equal its tokens through
+    the plain path (``decode_attn="dense"``) and the CPU's; its host
+    counters and prefill sweeps (one row per request) equal the CPU run's;
+    recurrentgemma's contiguous and paged runs give the same tokens; the
+    kernel runs launch the decode kernel of their lanes (recurrentgemma's
+    local layers) and mamba2 none. Returns the line's summary."""
+    want = {("recurrentgemma-2b", "paged"): ["tda_paged_decode_attention"],
+            ("recurrentgemma-2b", "contiguous"): ["tda_decode_attention"],
+            ("mamba2-370m", "default"): []}
+    out = {}
+    for arch, engines in (("mamba2-370m", {"default": {}}),
+                          ("recurrentgemma-2b",
+                           {"paged": {}, "contiguous": {"paged": False}})):
+        runs = rec_engine_runs(torch, np, arch, engines)
+        for label, r in runs.items():
+            toks = {w: x[0] for w, x in r.items()}
+            if not toks["card_tda"] == toks["card_dense"] == toks["cpu"]:
+                fail(f"recurrent_tokens {arch} {label}: tokens differ "
+                     f"(kernels, plain path, CPU): {toks}")
+            if r["card_tda"][1:3] != r["cpu"][1:3]:
+                fail(f"recurrent_tokens {arch} {label}: host counters "
+                     f"{r['card_tda'][1:3]} != the CPU run's "
+                     f"{r['cpu'][1:3]}")
+            if sorted(r["card_tda"][3]) != want[arch, label]:
+                fail(f"recurrent_tokens {arch} {label}: launched "
+                     f"{r['card_tda'][3]}, want {want[arch, label]}")
+            out[f"{arch}:{label}"] = dict(r["cpu"][1], sweeps=r["cpu"][2],
+                                          launches=r["card_tda"][3])
+        if arch == "recurrentgemma-2b" and \
+                runs["paged"]["cpu"][0] != runs["contiguous"]["cpu"][0]:
+            fail("recurrent_tokens: recurrentgemma's paged and contiguous "
+                 "runs give other tokens")
+    return {"tokens_identical_kernels_plain_cpu": True,
+            "recurrentgemma_paged_equals_contiguous": True, "runs": out}
+
+
+# The recurrent serves (phase recurrent_serve): each config at its
+# published widths and full depth, bf16 weights from seed 0
+# (profile_serve.recurrent_config), through the default EngineConfig with
+# ENGINE_KW on profile_serve.workload; recurrentgemma then again with
+# contiguous lanes on the same params.
+REC_SERVE_COUNTERS = ("steps", "mixed_steps", "decoded_tokens",
+                      "kv_blocks_visited", "kv_blocks_dense", "preemptions",
+                      "kv_pages_total", "kv_memory_ratio", "slot_utilization",
+                      "device_time")
+
+
+def phase_recurrent_serve(torch, np):
+    """recurrentgemma-2b (26 layers, ~5.8 GB) and mamba2-370m (48 layers,
+    ~0.74 GB) at their published widths and full depth, bf16 weights, each
+    serving ``profile_serve.workload`` (16 greedy requests, prompts in [32,
+    512]) through the default EngineConfig (serialized; paged for
+    recurrentgemma, whose local layers' lanes are 544 positions of the
+    2048 window; unpaged state lanes for mamba2): 16/16 ``ok`` with
+    serve_run's launch checks (the decode kernel once per attention layer
+    per decode step), every host counter and prefill sweep equal to the
+    port's CPU run of the same prompt lengths and arrivals on the smoke
+    config at float32 (token ids modulo 256; recurrentgemma at window
+    2048 and attention chunks of 512, mamba2 at SSD chunk 128), and a
+    short profiled window (launches
+    and device ms per decode step and prefill sweep). recurrentgemma is
+    served once more with contiguous lanes. Reports tok/s, TTFT p50/p99,
+    decode-step and prefill-sweep ms and rows per sweep with the card's
+    name and power limit. Returns {arch (or "recurrentgemma-2b.contiguous"):
+    launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import params_stream_bits
+    from repro_torch.launch.profile_serve import (ENGINE_KW,
+                                                  recurrent_config, workload)
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig, Request
+    kw = ENGINE_KW
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    out = {}
+    for arch in ("recurrentgemma-2b", "mamba2-370m"):
+        t0 = time.perf_counter()
+        cfg = recurrent_config(arch)
+        runs = {"default": {}}
+        if arch == "recurrentgemma-2b":
+            runs["contiguous"] = {"paged": False}
+
+        def traffic(n, cfg=cfg):
+            return workload(cfg.vocab_size, n)
+
+        def small(r):
+            return Request(rid=r.rid, prompt=r.prompt % 256,
+                           max_new_tokens=r.max_new_tokens)
+
+        scfg = get_config(arch, "smoke", dtype="float32")
+        if arch == "recurrentgemma-2b":  # the full config's window and
+            # attention chunks (the smoke config's 16 would walk the window
+            # in 129 chunk sums per padded row)
+            scfg = dataclasses.replace(scfg, local_window=cfg.local_window,
+                                       attn_chunk=cfg.attn_chunk)
+        else:
+            scfg = dataclasses.replace(scfg, ssm=dataclasses.replace(
+                scfg.ssm, chunk=cfg.ssm.chunk))
+        smodel = Model(scfg, device="cpu")
+        sparams = smodel.init(seed=0)
+        cpu = {}
+        for label, over in runs.items():
+            eng = Engine(smodel, sparams, config=EngineConfig(**over, **kw))
+            warm, up_front, arrivals, _ = traffic(kw["max_new_tokens"])
+            eng.submit(small(warm))
+            eng.run()
+            n0 = len(eng.stats)
+            for r in up_front:
+                eng.submit(small(r))
+            done = eng.run(arrivals=[(t, small(r)) for t, r in arrivals])
+            if len(done) != len(up_front) + len(arrivals) or any(
+                    r.status != "ok" for r in done):
+                fail(f"recurrent_serve {arch} on the CPU: not every "
+                     "request ok")
+            cpu[label] = ({k: eng.decode_stats[k]
+                           for k in REC_SERVE_COUNTERS},
+                          [(w["rows"], w["n_requests"])
+                           for w in eng.stats[n0:]])
+            del eng
+        cpu_s = time.perf_counter() - t0
+        del smodel, sparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        model = Model(cfg)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        weights_gb = params_stream_bits(params) / 8e9
+        for label, over in runs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            t2 = time.perf_counter()
+            summ, launches, _, eng = serve_run(
+                torch, np, model, params, kw, traffic=traffic, reduced={},
+                prefix_share=True, **over)
+            st = eng.decode_stats
+            sweeps = [(w["rows"], w["n_requests"])
+                      for w in eng.stats[len(eng.stats)
+                                         - summ["prefill_sweeps"]:]]
+            got = ({k: st[k] for k in REC_SERVE_COUNTERS}, sweeps)
+            if got != cpu[label]:
+                fail(f"recurrent_serve {arch} {label}: host counters "
+                     f"{got} != the CPU smoke run's {cpu[label]}")
+            if summ["engine"] != "serialized" or eng.prefix_share or \
+                    eng.paged != (arch == "recurrentgemma-2b"
+                                  and label == "default"):
+                fail(f"recurrent_serve {arch} {label}: engine "
+                     f"{summ['engine']}, paged {eng.paged}, sharing "
+                     f"{eng.prefix_share}")
+            prof = short_profile(torch, eng, kw, kinds=("decode",
+                                                        "prefill"))
+            out[arch if label == "default" else f"{arch}.{label}"] = \
+                launches
+            line("recurrent_serve", arch=arch, lanes_run=label,
+                 seconds=round(time.perf_counter() - t2, 3),
+                 cpu_smoke_s=cpu_s, init_s=init_s, card=smi,
+                 weights_gb=weights_gb, host_counters_equal_cpu_smoke=True,
+                 host_counters=got[0], sweeps_rows_requests=got[1],
+                 short_window_profile=prof,
+                 **{k: v for k, v in summ.items() if k != "launches"},
+                 launches={k: v for k, v in launches.items() if v})
+            del eng
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# The external-embeddings phase (embeds): llava-next-mistral-7b (32
+# layers, ~14 GB in bf16) and musicgen-large (48 layers, ~4.9 GB) at their
+# published widths, full depth, bf16 weights, one after the other. The
+# check runs at float32 compute over those weights: at bf16 compute the
+# 32 layers' roundings alone move llava's decode logits ~0.02 off the full
+# forward on an H100 (PERF.md), the bound itself, whichever attention path
+# decodes; so bf16 compute is reported beside the plain path's and held to
+# BF16_FACTOR times its drift.
+EMBEDS_ARCHS = ("llava-next-mistral-7b", "musicgen-large")
+EMBEDS_PREFILL = 512
+EMBEDS_DECODE = 8
+EMBEDS_REL = 0.02  # tests/test_models_smoke.py's bound, relative to max |full|
+
+
+def embeds_run(torch, model, params, x):
+    """``Model.prefill`` of ``x[:, :EMBEDS_PREFILL]`` then EMBEDS_DECODE
+    ``decode_step``s: (the logits of each position from the prefill's last
+    on, host ms per decode step, TDA launches)."""
+    from repro_torch.kernels.tda import tda
+    P, n = EMBEDS_PREFILL, EMBEDS_DECODE
+    tda.reset_launch_counts()
+    lg, caches = model.prefill(params, {"embeds": x[:, :P]}, max_len=P + n)
+    steps, ms = [lg], []
+    for i in range(P, P + n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, caches = model.decode_step(
+            params, {"embeds": x[:, i:i + 1]}, caches,
+            torch.full((2,), i, dtype=torch.int64, device="cuda"))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        steps.append(lg)
+    return steps, ms, dict(tda.LAUNCHES)
+
+
+def phase_embeds(torch, np):
+    """Seeded (2, EMBEDS_PREFILL, d) embeds through ``Model.prefill``, then
+    EMBEDS_DECODE ``decode_step``s on the contiguous decode kernel (llava
+    G = 4, D = 128; musicgen G = 1, D = 64), bf16 weights from seed 0. At
+    float32 compute, each decode position's logits (and the prefill's
+    last) within EMBEDS_REL of the full forward's, relative to its largest
+    magnitude (the reference test's bound); at bf16 compute the kernel
+    path's largest such drift within BF16_FACTOR times the plain path's
+    (``decode_attn="dense"``). musicgen's logits (2, 1, 4, 2048); every
+    kernel run launches the contiguous decode kernel once per layer and
+    step. Memory freed between the models. Returns {arch: decode
+    launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import params_stream_bits
+    from repro_torch.models.transformer import Model
+    out = {}
+    P, n = EMBEDS_PREFILL, EMBEDS_DECODE
+    for arch in EMBEDS_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch, "full", param_dtype="bfloat16")
+        params = Model(cfg).init(seed=0)
+        weights_gb = params_stream_bits(params) / 8e9
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((2, P + n, cfg.d_model), generator=g,
+                        device="cuda")
+        want_shape = (2, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1
+                               else ()) + (cfg.vocab_size,)
+        L = cfg.n_layers
+        res = {}
+        full = {}
+        for label, dt, mode in (("float32", "float32", "tda"),
+                                ("bfloat16", "bfloat16", "tda"),
+                                ("bfloat16_plain", "bfloat16", "dense")):
+            model = Model(dataclasses.replace(cfg, dtype=dt)) \
+                .with_decode_attn(mode)
+            with torch.inference_mode():
+                steps, ms, launches = embeds_run(torch, model, params, x)
+                if dt not in full:
+                    full[dt] = model.apply(params, {"embeds": x})[0]
+            if tuple(steps[-1].shape) != want_shape:
+                fail(f"embeds {arch} {label}: decode logits "
+                     f"{tuple(steps[-1].shape)}, want {want_shape}")
+            rel = []
+            for j, lg in enumerate(steps):  # position P - 1 + j
+                a, b = full[dt][:, P - 1 + j].float(), lg[:, 0].float()
+                if not torch.isfinite(b).all():
+                    fail(f"embeds {arch} {label}: non-finite logits at "
+                         f"{P - 1 + j}")
+                rel.append((a - b).abs().max().item()
+                           / a.abs().max().item())
+            want = {"tda_decode_attention": L * n if mode == "tda" else 0,
+                    "tda_paged_decode_attention": 0,
+                    "tda_mixed_attention": 0}
+            if launches != want:
+                fail(f"embeds {arch} {label}: launches {launches}, want "
+                     f"{want}")
+            res[label] = {"rel_err_vs_full": rel, "decode_step_ms": ms,
+                          "tda_decode_launches":
+                              launches["tda_decode_attention"]}
+            del model, steps
+        if max(res["float32"]["rel_err_vs_full"]) >= EMBEDS_REL:
+            fail(f"embeds {arch}: float32 decode vs full forward "
+                 f"{res['float32']['rel_err_vs_full']} (limit {EMBEDS_REL})")
+        kern = max(res["bfloat16"]["rel_err_vs_full"])
+        plain = max(res["bfloat16_plain"]["rel_err_vs_full"])
+        if kern > BF16_FACTOR * plain:
+            fail(f"embeds {arch}: bf16 drift through the kernel {kern} > "
+                 f"{BF16_FACTOR} x the plain path's {plain}")
+        out[arch] = res["float32"]["tda_decode_launches"] \
+            + res["bfloat16"]["tda_decode_launches"]
+        line("embeds", arch=arch, seconds=round(time.perf_counter() - t0, 3),
+             weights_gb=weights_gb, n_layers=L, d_model=cfg.d_model,
+             heads=[cfg.n_heads, cfg.kv_heads, cfg.head_dim],
+             n_codebooks=cfg.n_codebooks, prefill=P, decode_steps=n,
+             logits_shape=list(want_shape), limit=EMBEDS_REL,
+             bf16_factor=BF16_FACTOR, bf16_drift_kernel_over_plain=(
+                 kern / plain if plain else None), runs=res,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        del params, full, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3296,6 +3833,8 @@ def main():
     timed("tokens", phase_tokens, torch)
     moe_tok = timed("moe_tokens", phase_moe_tokens, torch, np)
     line("moe_tokens", seconds=seconds["moe_tokens"], **moe_tok)
+    rec_tok = timed("recurrent_tokens", phase_recurrent_tokens, torch, np)
+    line("recurrent_tokens", seconds=seconds["recurrent_tokens"], **rec_tok)
     timed("bf16_logits", phase_bf16_logits, torch, np)
     timed("sampler", phase_sampler, torch, np)
     dense, runs, model, params = timed("serve", phase_serve, torch, np,
@@ -3311,6 +3850,8 @@ def main():
                       ccfg, engine_kw, dense)
     rlaunches = timed("ring_serve", phase_ring_serve, torch, np)
     mlaunches = timed("moe_serve", phase_moe_serve, torch, np)
+    reclaunches = timed("recurrent_serve", phase_recurrent_serve, torch, np)
+    timed("embeds", phase_embeds, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
@@ -3333,6 +3874,12 @@ def main():
                            "tda_mixed_attention.g6"):
             r.update(launches=mlaunches[r["name"].split(".")[0]],
                      launches_from="serve:moe")
+        elif r["name"] in ("tda_paged_decode_attention.d256",
+                           "tda_decode_attention.d256"):
+            run = "recurrentgemma-2b" + (
+                "" if r["name"].startswith("tda_paged") else ".contiguous")
+            r.update(launches=reclaunches[run][r["name"].split(".")[0]],
+                     launches_from=f"serve:recurrent:{run}")
         elif r["name"] in ("dmm_matmul", "smm_matmul"):
             r.update(launches=claunches[r["name"]],
                      launches_from="compressed_serve",

@@ -27,7 +27,7 @@ struct LaneAddr {
 // B * Hkv * ceil(Hq / Hkv / 8) int32, zero (both may be null with one
 // split); out (B, Hq, D) f32. split: the positions of a split (>= S with a
 // table). dtype: 0 = float32, 1 = bfloat16 (q's type). Requires
-// Hq % Hkv == 0, D <= 128 and, with a table, 1 <= bk <= 256 (the wrapper
+// Hq % Hkv == 0, D <= 256 and, with a table, 1 <= bk <= 256 (the wrapper
 // checks); groups above 8 rows run in group tiles.
 extern "C" int tda_decode(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* bounds,

@@ -66,7 +66,20 @@
 //      and merge are the tile's own. Holding all G rows in one block would
 //      double the per-thread accumulators (acc[G][4]) and the q and p
 //      buffers at G = 16, past the 128-thread block's register budget.
-//   5. CUDA cores, a warp per key group. A warp scores 16 keys at once, two
+//   5. Head dims up to 256, in two instances. The body is a template on its
+//      largest head dim kMaxD, and the launch picks 128 for D <= 128 (the
+//      instance every earlier row ran: the same code, registers and shared
+//      memory) and 256 above (recurrentgemma-2b's local layers: 10 q heads
+//      of 256 over one kv head, two group tiles of 5). At 256 a lane scores
+//      a half row of 128 elements and accumulates 8 elements of D, the
+//      staged rows are 256 elements wide, and one stage is 2 x 64 x 264 x
+//      2 B = 67.6 KB in bf16 (66.6 KB in f32, 34.8 KB in int8): past the
+//      48 KB default, so the launch opts in to 2 stages of dynamic shared
+//      memory with cudaFuncSetAttribute (the card allows 227 KB a block),
+//      as it already did. Keys per tile stay 64 (32 in f32), so all 4 warps
+//      score. Columns past D (D = 136 or 192 on the 256 instance) are zero
+//      in shared memory and in q, as below 128.
+//   6. CUDA cores, a warp per key group. A warp scores 16 keys at once, two
 //      lanes a key, each lane half of D against the G query rows held in
 //      shared memory as f32 (read as broadcasts); one shuffle joins the
 //      halves. The warp's online softmax then takes the group's max and
@@ -107,11 +120,7 @@ namespace tda {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kMaxD = 128;
-constexpr int kHalf = kMaxD / 2;      // elements of D a lane scores
-constexpr int kPerLane = kMaxD / 32;  // elements of D a lane accumulates
 constexpr int kGroup = 16;            // keys a warp scores together
-constexpr int kQStride = kHalf + 4;   // q_s half rows: both halves in 1 wavefront
 constexpr int kMaxBk = 256;           // largest LUT-mode block (positions)
 constexpr int kMaxSplits = 128;       // splits of one lane (merge buffer)
 constexpr float kNegInf = -1e30f;
@@ -119,12 +128,13 @@ constexpr float kEps = 1e-30f;
 
 template <typename T>  // elements in 16 bytes
 constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-template <typename T>  // a staged row: D padded by 16 bytes
+template <typename T, int kMaxD>  // a staged row: kMaxD padded by 16 bytes
 constexpr int kStride = kMaxD + kVec<T>;
 template <typename T>  // keys of one tile
 constexpr int kTileKeys = sizeof(T) == 4 ? 32 : 64;
-template <typename T>  // one stage: a K tile and a V tile
-constexpr int kStageBytes = 2 * kTileKeys<T> * kStride<T> * static_cast<int>(sizeof(T));
+template <typename T, int kMaxD>  // one stage: a K tile and a V tile
+constexpr int kStageBytes =
+    2 * kTileKeys<T> * kStride<T, kMaxD> * static_cast<int>(sizeof(T));
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -169,6 +179,22 @@ __device__ __forceinline__ void load4(const int8_t* p, float (&x)[4]) {
   x[0] = c.x, x[1] = c.y, x[2] = c.z, x[3] = c.w;
 }
 
+// The N (4 or 8) consecutive elements a lane accumulates, as f32.
+template <int N, typename T>
+__device__ __forceinline__ void load_lane(const T* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    load4(p, x);
+  } else if constexpr (sizeof(T) == 2) {  // 8 bf16: one 16-byte load
+    load16(p, x);
+  } else {
+    float a[4], b[4];
+    load4(p, a);
+    load4(p + 4, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = a[i], x[4 + i] = b[i];
+  }
+}
+
 // Max and sum over the 16 lanes of a half warp (both halves alike).
 __device__ __forceinline__ float group_max(float x) {
   for (int o = kGroup / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -210,7 +236,7 @@ __device__ __forceinline__ void cp_wait() {
 // (rows of kStride): 16-byte cp.async pieces, neighbouring threads on
 // neighbouring pieces of a row, or element copies when rows are not 16-byte
 // multiples (vec == 0).
-template <typename TKV>
+template <typename TKV, int kMaxD>
 __device__ __forceinline__ void stage_rows(TKV* dst, const TKV* __restrict__ src,
                                            size_t row0, int n, int Hkv, int h,
                                            int D, int vec, int tid) {
@@ -220,13 +246,13 @@ __device__ __forceinline__ void stage_rows(TKV* dst, const TKV* __restrict__ src
     const int per_row = D / kVec<TKV>;
     for (int i = tid; i < n * per_row; i += kThreads) {
       const int t = i / per_row, c = i - t * per_row;
-      cp16(dst + t * kStride<TKV> + c * kVec<TKV>,
+      cp16(dst + t * kStride<TKV, kMaxD> + c * kVec<TKV>,
            base + t * stride + c * kVec<TKV>);
     }
   } else {
     for (int i = tid; i < n * D; i += kThreads) {
       const int t = i / D, d = i - t * D;
-      dst[t * kStride<TKV> + d] = base[t * stride + d];
+      dst[t * kStride<TKV, kMaxD> + d] = base[t * stride + d];
     }
   }
 }
@@ -236,7 +262,7 @@ __device__ __forceinline__ void stage_rows(TKV* dst, const TKV* __restrict__ src
 // rows) and `size_t row(int b, int p) const` (the token row of lane
 // position p of slot b: element (row * Hkv + h) * D + d of k/v, scale
 // row * Hkv + h).
-// Grid (splits, Hkv * tiles, B), nstage * kStageBytes<TKV> bytes of
+// Grid (splits, Hkv * tiles, B), nstage * kStageBytes<TKV, kMaxD> bytes of
 // dynamic shared memory; a block's y index is h * tiles + t (group tile t
 // of kv head h, tile_rows rows from row t * tile_rows of the group); split:
 // positions a split holds (kLut: >= the lane width, one split). ws: the
@@ -244,7 +270,7 @@ __device__ __forceinline__ void stage_rows(TKV* dst, const TKV* __restrict__ src
 // f32; counters: B * Hkv * tiles ints, 0 between launches; both may be
 // null with one split. kLut: table (lut::kSize f32) and bk
 // (the LUT-mode block, <= kMaxBk) are read; otherwise ignored.
-template <typename TQ, typename TKV, bool kLut, typename Addr>
+template <typename TQ, typename TKV, bool kLut, int kMaxD, typename Addr>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
               const TKV* __restrict__ v, const float* __restrict__ ks,
@@ -255,9 +281,13 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
               int nstage, int tiles, int tile_rows, Addr addr) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int kTile = kTileKeys<TKV>;
-  constexpr int kS = kStride<TKV>;
+  constexpr int kS = kStride<TKV, kMaxD>;
+  constexpr int kHalf = kMaxD / 2;      // elements of D a lane scores
+  constexpr int kPerLane = kMaxD / 32;  // elements of D a lane accumulates
+  constexpr int kQStride = kHalf + 4;   // q_s half rows: both halves in 1 wavefront
   // nstage stages of [K tile, V tile]; after the key loop, the warps' f32
-  // accumulators ([warp][g][d], 16 KB), then the split merge's weights.
+  // accumulators ([warp][g][d], 16 KB at kMaxD 128, 32 KB at 256), then the
+  // split merge's weights.
   extern __shared__ __align__(16) unsigned char dyn_s[];
   __shared__ __align__(16) float q_s[kMaxG][2][kQStride];
   __shared__ float sc_s[2][2][kTile];
@@ -297,7 +327,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   };
   if (D < kMaxD) {  // columns past D stay 0: lanes read whole halves
     uint4* z = reinterpret_cast<uint4*>(dyn_s);
-    for (int i = tid; i < nstage * kStageBytes<TKV> / 16; i += kThreads)
+    for (int i = tid; i < nstage * kStageBytes<TKV, kMaxD> / 16; i += kThreads)
       z[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
   }
@@ -324,11 +354,11 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   auto issue = [&](int t0, int n, int st, bool with_k, bool with_v) {
     const size_t r0 = t0 / seg == pa / seg ? row_a + (t0 - pa) : addr.row(b, t0);
     if (with_k) {
-      stage_rows(stage(st, 0), k, r0, n, Hkv, h, D, vec, tid);
+      stage_rows<TKV, kMaxD>(stage(st, 0), k, r0, n, Hkv, h, D, vec, tid);
       if (kQuant && tid < n) cp4(&sc_s[st][0][tid], ks + (r0 + tid) * Hkv + h);
     }
     if (with_v) {
-      stage_rows(stage(st, 1), v, r0, n, Hkv, h, D, vec, tid);
+      stage_rows<TKV, kMaxD>(stage(st, 1), v, r0, n, Hkv, h, D, vec, tid);
       if (kQuant && tid < n) cp4(&sc_s[st][1][tid], vs + (r0 + tid) * Hkv + h);
     }
     cp_commit();
@@ -376,7 +406,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll 4
     for (int tt = 0; tt < nt; ++tt) {
       float vx[kPerLane];
-      load4(vt + tt * kS, vx);
+      load_lane<kPerLane>(vt + tt * kS, vx);
       const float f = kQuant ? sc_s[st][1][j0 + tt] : 1.f;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
@@ -612,24 +642,25 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-template <typename TQ, typename TKV, bool kLut, typename Addr>
+template <typename TQ, typename TKV, bool kLut, int kMaxD, typename Addr>
 int launch_kernel(dim3 grid, int nstage, cudaStream_t s, const TQ* q,
                   const TKV* k, const TKV* v, const float* ks, const float* vs,
                   const int* bounds, const float* table, float* ws,
                   int* counters, float* out, int Hq, int Hkv, int D,
                   float scale, int bk, int split, int vec, int tiles,
                   int tile_rows, const Addr& addr) {
-  auto* kern = decode_kernel<TQ, TKV, kLut, Addr>;
+  auto* kern = decode_kernel<TQ, TKV, kLut, kMaxD, Addr>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * kStageBytes<TKV>);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * kStageBytes<TKV, kMaxD>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kern<<<grid, kThreads, nstage * kStageBytes<TKV>, s>>>(
+  kern<<<grid, kThreads, nstage * kStageBytes<TKV, kMaxD>, s>>>(
       q, k, v, ks, vs, bounds, table, ws, counters, out, Hq, Hkv, D, scale,
       bk, split, vec, nstage, tiles, tile_rows, addr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV, typename Addr>
+template <typename TQ, typename TKV, int kMaxD, typename Addr>
 int launch_typed(const void* q, const void* k, const void* v, const float* ks,
                  const float* vs, const int* bounds, const float* table,
                  float* ws, int* counters, float* out, int B, int Hq, int Hkv,
@@ -656,13 +687,40 @@ int launch_typed(const void* q, const void* k, const void* v, const float* ks,
   const bool one_tile = split <= kTileKeys<TKV> && (seg % split == 0 || seg >= limit);
   const int nstage = table || one_tile ? 1 : 2;
   if (table) {
-    return launch_kernel<TQ, TKV, true, Addr>(
+    return launch_kernel<TQ, TKV, true, kMaxD, Addr>(
         grid, nstage, s, qt, kt, vt, ks, vs, bounds, table, ws, counters, out,
         Hq, Hkv, D, scale, bk, split, vec, tiles, tile_rows, addr);
   }
-  return launch_kernel<TQ, TKV, false, Addr>(
+  return launch_kernel<TQ, TKV, false, kMaxD, Addr>(
       grid, nstage, s, qt, kt, vt, ks, vs, bounds, table, ws, counters, out,
       Hq, Hkv, D, scale, bk, split, vec, tiles, tile_rows, addr);
+}
+
+// The dtype / K-V type instances of one kMaxD.
+template <int kMaxD, typename Addr>
+int launch_dtype(const void* q, const void* k, const void* v, const float* ks,
+                 const float* vs, const int* bd, const float* tb, float* w,
+                 int* c, float* o, int B, int Hq, int Hkv, int D, int dtype,
+                 int quant, float scale, int bk, int split, const Addr& addr,
+                 cudaStream_t s) {
+  if (dtype == 0 && !quant) {
+    return launch_typed<float, float, kMaxD>(q, k, v, ks, vs, bd, tb, w, c, o,
+                                             B, Hq, Hkv, D, scale, bk, split,
+                                             addr, s);
+  } else if (dtype == 1 && !quant) {
+    return launch_typed<__nv_bfloat16, __nv_bfloat16, kMaxD>(
+        q, k, v, ks, vs, bd, tb, w, c, o, B, Hq, Hkv, D, scale, bk, split, addr,
+        s);
+  } else if (dtype == 0 && quant) {
+    return launch_typed<float, int8_t, kMaxD>(q, k, v, ks, vs, bd, tb, w, c, o,
+                                              B, Hq, Hkv, D, scale, bk, split,
+                                              addr, s);
+  } else if (dtype == 1 && quant) {
+    return launch_typed<__nv_bfloat16, int8_t, kMaxD>(
+        q, k, v, ks, vs, bd, tb, w, c, o, B, Hq, Hkv, D, scale, bk, split, addr,
+        s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launch ceil(width / split) splits for each (kv head, group tile, slot),
@@ -672,7 +730,7 @@ int launch_typed(const void* q, const void* k, const void* v, const float* ks,
 // 64-entry LUT with blocks of bk positions (1 <= bk <= kMaxBk) and then
 // split >= the lane width; ws, counters: the workspace and zeroed counters
 // (null allowed with one split; B * Hkv * ceil(G / 8) counters). At most
-// kMaxSplits splits. Returns
+// kMaxSplits splits; head dims 1 to 256. Returns
 // cudaGetLastError() after the launch.
 template <typename Addr>
 int launch_decode(const void* q, const void* k, const void* v, const void* ks,
@@ -692,22 +750,14 @@ int launch_decode(const void* q, const void* k, const void* v, const void* ks,
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   float* o = static_cast<float*>(out);
-  if (dtype == 0 && !quant) {
-    return launch_typed<float, float>(q, k, v, kss, vss, bd, tb, w, c, o, B,
-                                      Hq, Hkv, D, scale, bk, split, addr, s);
-  } else if (dtype == 1 && !quant) {
-    return launch_typed<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, kss, vss, bd, tb, w, c, o, B, Hq, Hkv, D, scale, bk, split,
-        addr, s);
-  } else if (dtype == 0 && quant) {
-    return launch_typed<float, int8_t>(q, k, v, kss, vss, bd, tb, w, c, o, B,
-                                       Hq, Hkv, D, scale, bk, split, addr, s);
-  } else if (dtype == 1 && quant) {
-    return launch_typed<__nv_bfloat16, int8_t>(q, k, v, kss, vss, bd, tb, w,
-                                               c, o, B, Hq, Hkv, D, scale, bk,
-                                               split, addr, s);
+  // The instance: kMaxD 128 up to D = 128 (every earlier row's), 256 above.
+  if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 128) {
+    return launch_dtype<128>(q, k, v, kss, vss, bd, tb, w, c, o, B, Hq, Hkv,
+                             D, dtype, quant, scale, bk, split, addr, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<256>(q, k, v, kss, vss, bd, tb, w, c, o, B, Hq, Hkv, D,
+                           dtype, quant, scale, bk, split, addr, s);
 }
 
 }  // namespace tda

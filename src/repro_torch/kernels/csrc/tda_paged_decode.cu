@@ -32,7 +32,7 @@ struct PagedAddr {
 // and counters: B * Hkv * ceil(Hq / Hkv / 8) int32, zero (both may be null
 // with one split); out (B, Hq, D) f32. split: the positions of a split, a
 // divisor or a multiple of ps (>= nblk ps with a table). dtype:
-// 0 = float32, 1 = bfloat16 (q's type). Requires Hq % Hkv == 0, D <= 128
+// 0 = float32, 1 = bfloat16 (q's type). Requires Hq % Hkv == 0, D <= 256
 // and, with a table, ps <= 256 (the wrapper checks); groups above 8 rows
 // run in group tiles.
 extern "C" int tda_paged_decode(const void* q, const void* k, const void* v,

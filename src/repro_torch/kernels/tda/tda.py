@@ -22,7 +22,10 @@ partials in the same launch; the wrappers hand them a workspace
 per device and reset by the kernel itself after each merge. With a LUT
 table the plan has one split per lane: the LUT result depends on the block
 order. A GQA group of any size is served: groups above ``MAX_GROUP`` rows
-run as ``group_tiles`` blocks per kv head, each over the same splits.
+run as ``group_tiles`` blocks per kv head, each over the same splits. The
+decode kernels take head dims up to ``MAX_HEAD_DIM`` = 256 (recurrentgemma's
+local attention), the mixed kernel up to ``MAX_MIXED_HEAD_DIM`` = 128 (no
+stack at 256 runs the mixed step: recurrent stacks serve serialized).
 
 ``VARIANT_LAUNCHES`` counts kernel launches by variant (``name``,
 ``name.int8``, ``name.lut``, ``name.int8.lut``) and ``LAUNCHES`` reads
@@ -81,7 +84,8 @@ class _KernelLaunches(Mapping):
 
 LAUNCHES = _KernelLaunches()
 MAX_GROUP = 8     # query rows of one decode block (a group tile)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256        # the decode kernels (instances of 128 and 256)
+MAX_MIXED_HEAD_DIM = 128  # the mixed kernel
 MAX_LUT_BLOCK = 256  # positions a LUT-mode block may hold (score buffer)
 SPLIT_BASE = 64   # positions of a decode split, page-aligned, at least
 MAX_SPLITS = 128  # splits of one lane, at most (the kernel's kMaxSplits)
@@ -214,14 +218,15 @@ def _table(name: str, table, q, block: int) -> int:
     return table.data_ptr()
 
 
-def _heads(name: str, Hq: int, Hkv: int, D: int) -> None:
+def _heads(name: str, Hq: int, Hkv: int, D: int,
+           max_d: int = MAX_HEAD_DIM) -> None:
     """Any GQA group (``Hq`` a multiple of ``Hkv``), head dim up to
-    ``MAX_HEAD_DIM``."""
+    ``max_d`` (the decode kernels' ``MAX_HEAD_DIM``, the mixed kernel's
+    ``MAX_MIXED_HEAD_DIM``)."""
     if Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: needs head dim <= {MAX_HEAD_DIM}, got "
-                         f"D={D}")
+    if not 0 < D <= max_d:
+        raise ValueError(f"{name}: needs head dim <= {max_d}, got D={D}")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -376,7 +381,7 @@ def tda_mixed_attention(q, k, v, k_row, v_row, bounds, block_table,
                          f"k{tuple(k.shape)} k_row{tuple(k_row.shape)} "
                          f"bounds{tuple(bounds.shape)} "
                          f"bt{tuple(block_table.shape)}")
-    _heads(name, Hq, Hkv, D)
+    _heads(name, Hq, Hkv, D, MAX_MIXED_HEAD_DIM)
     tp = _table(name, lut_table, q, max(ps, S))
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load

@@ -3,7 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--compressed] \\
       [--serialized] [--contiguous] [--kv-quant] [--shared [--pool-frac F]] \\
-      [--sampled] [--arch starcoder2-15b|dbrx-132b [--n-layers N]]
+      [--sampled] [--arch starcoder2-15b|dbrx-132b|mamba2-370m|\
+      recurrentgemma-2b [--n-layers N]]
 
 Builds the serve configuration that ``chip_smoke.py``'s serve phase
 shares (:func:`serve_config` and :data:`ENGINE_KW`: qwen2.5-32b at its
@@ -37,7 +38,13 @@ rings), as ``chip_smoke.py``'s ring_serve phase serves it; ``--arch
 dbrx-132b`` profiles the MoE serve (:func:`moe_config` with
 :data:`ENGINE_KW` and :func:`workload`, as ``chip_smoke.py``'s moe_serve
 phase serves it: routed experts, every mixed-step column computed);
-``--n-layers`` cuts either one's depth. Every step also reports its token
+``--arch mamba2-370m`` and ``--arch recurrentgemma-2b`` profile the
+recurrent serves (:func:`recurrent_config`: published widths, full depth,
+bf16 weights; :data:`ENGINE_KW` and :func:`workload` through the default
+``EngineConfig``, which resolves to the phase-serialized engine, paged
+for recurrentgemma's local layers and unpaged for mamba2), as
+``chip_smoke.py``'s recurrent_serve phase serves them; ``--n-layers``
+cuts any of these archs' depth. Every step also reports its token
 choice alone (``choose_*``: the kernels launched inside ``Engine._choose``,
 the argmax of a greedy step or the sampler of a sampled one), found
 through the profiler's op tree. Needs a CUDA device.
@@ -56,7 +63,8 @@ import torch
 
 __all__ = ["ENGINE_KW", "SAMPLED", "SYSTEM_PROMPT", "RING_ENGINE_KW",
            "RING_PREFIX", "MOE_LAYERS", "serve_config", "compressed_config",
-           "ring_config", "moe_config", "workload", "shared_workload",
+           "ring_config", "moe_config", "recurrent_config",
+           "RECURRENT_ARCHS", "workload", "shared_workload",
            "ring_workload", "profile_run", "range_kernels", "main"]
 
 # The full-width serve's engine settings: paged lanes of 128-token pages
@@ -132,6 +140,24 @@ def moe_config(n_layers=MOE_LAYERS):
     from repro_torch.configs import get_config
     return get_config("dbrx-132b", "full", param_dtype="bfloat16",
                       n_layers=n_layers)
+
+
+RECURRENT_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
+
+
+def recurrent_config(arch: str, n_layers=None):
+    """A recurrent stack at its published widths and full depth with bf16
+    weights (``param_dtype``): mamba2-370m (48 SSD layers, d_model 1024,
+    state 128, 32 heads of 64, vocab 50280, tied; ~0.74 GB) or
+    recurrentgemma-2b (26 layers of rglru, rglru, local attention: d_model
+    2560, RG-LRU width 2560, 10 q heads / 1 kv head of 256, window 2048,
+    d_ff 7680, vocab 256000, tied; ~5.8 GB); ``n_layers`` cuts the
+    depth."""
+    from repro_torch.configs import get_config
+    if arch not in RECURRENT_ARCHS:
+        raise ValueError(f"not a recurrent arch: {arch}")
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    return get_config(arch, "full", param_dtype="bfloat16", **over)
 
 
 def ring_workload(vocab: int, max_new: int, seed: int = 0):
@@ -354,7 +380,8 @@ def main(argv=None):
     ap.add_argument("--pool-frac", type=float, default=1.0)
     ap.add_argument("--sampled", action="store_true")
     ap.add_argument("--arch", default="qwen2.5-32b",
-                    choices=("qwen2.5-32b", "starcoder2-15b", "dbrx-132b"))
+                    choices=("qwen2.5-32b", "starcoder2-15b", "dbrx-132b")
+                    + RECURRENT_ARCHS)
     ap.add_argument("--n-layers", type=int, default=None)
     args = ap.parse_args(argv)
     ring = args.arch == "starcoder2-15b"
@@ -365,6 +392,8 @@ def main(argv=None):
         cfg = ring_config(args.n_layers)
     elif args.arch == "dbrx-132b":
         cfg = moe_config(args.n_layers or MOE_LAYERS)
+    elif args.arch in RECURRENT_ARCHS:
+        cfg = recurrent_config(args.arch, args.n_layers)
     else:
         cfg = compressed_config() if args.compressed else serve_config()
     if args.kv_quant:

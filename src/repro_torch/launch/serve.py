@@ -5,10 +5,14 @@
       [--max-new 8] [--serialized] [--contiguous] [--kv-quant] \\
       [--param-dtype bfloat16] [--device cuda]
 
-Every attention stack the port serves: qwen2.5-32b, yi-34b, qwen1.5-4b,
-starcoder2-15b (LayerNorm, GELU, sliding-window ring lanes) and the MoE
+Every stack the Engine serves: qwen2.5-32b, yi-34b, qwen1.5-4b,
+starcoder2-15b (LayerNorm, GELU, sliding-window ring lanes), the MoE
 family, dbrx-132b and arctic-480b (routed experts; arctic's parallel dense
-FFN). The reference launcher's flags, plus ``--n-layers`` (cut the
+FFN), and the recurrent stacks, mamba2-370m and recurrentgemma-2b
+(phase-serialized, one request per prefill row). llava-next-mistral-7b and
+musicgen-large, fed external embeddings, are refused with the Engine's
+message before any weight is drawn: the Engine feeds token ids only. The
+reference launcher's flags, plus ``--n-layers`` (cut the
 depth: the full 64-layer qwen2.5-32b does not fit one 80 GB card with f32
 params), ``--param-dtype`` (``bfloat16`` halves the weights: starcoder2-15b
 at full depth, ~16 B parameters, fits one 80 GB card so),
@@ -68,12 +72,13 @@ def main(argv=None):
     if args.param_dtype:
         over["param_dtype"] = args.param_dtype
     cfg = get_config(args.arch, args.variant, **over)
+    econf = EngineConfig(max_len=args.max_len, max_new_tokens=args.max_new,
+                         paged=not args.contiguous,
+                         mixed=False if args.serialized else None)
+    econf.validate(cfg)  # refuse before drawing any weight
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)
-    eng = Engine(model, params, config=EngineConfig(
-        max_len=args.max_len, max_new_tokens=args.max_new,
-        paged=not args.contiguous,
-        mixed=False if args.serialized else None))
+    eng = Engine(model, params, config=econf)
     rng = np.random.default_rng(0)
     for rid, n in enumerate(request_lengths(args.requests, args.max_len)):
         eng.submit(Request(rid=rid, prompt=rng.integers(

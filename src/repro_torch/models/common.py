@@ -126,26 +126,35 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Approximate dense parameter count (embeddings + blocks), for 6ND
-        (MoE: every expert, the router and arctic's dense FFN). Only the
-        attention blocks of the reference are carried: the other block
-        kinds are refused by ``Model``."""
+        (MoE: every expert, the router and arctic's dense FFN), as the
+        reference counts it."""
         d, hd = self.d_model, self.head_dim
         p = self.vocab_size * d * (1 if self.tie_embeddings else 2) \
             * self.n_codebooks
         mults = 3 if self.act in ("swiglu", "geglu") else 2
         for i in range(self.n_layers):
-            if self.block_kind(i) not in ("attn", "local"):
-                raise ValueError("n_params: only attention stacks are "
-                                 "ported")
-            p += d * hd * (self.n_heads + 2 * self.kv_heads) \
-                + self.n_heads * hd * d
-            if self.moe is not None:
-                m = self.moe
-                p += d * m.n_experts  # router
-                p += m.n_experts * 3 * d * m.d_ff_expert
-                if m.dense_residual:
-                    p += 3 * d * m.d_ff_dense
-            else:
+            kind = self.block_kind(i)
+            if kind in ("attn", "local"):
+                p += d * hd * (self.n_heads + 2 * self.kv_heads) \
+                    + self.n_heads * hd * d
+                if self.moe is not None:
+                    m = self.moe
+                    p += d * m.n_experts  # router
+                    p += m.n_experts * 3 * d * m.d_ff_expert
+                    if m.dense_residual:
+                        p += 3 * d * m.d_ff_dense
+                else:
+                    p += mults * d * self.d_ff
+            elif kind == "ssd":
+                s = self.ssm
+                d_in = s.expand * d
+                conv_ch = d_in + 2 * s.n_groups * s.d_state
+                p += d * (2 * d_in + 2 * s.n_groups * s.d_state
+                          + d_in // s.head_dim)
+                p += conv_ch * s.d_conv + d_in * d
+            elif kind == "rglru":
+                w = self.rglru.lru_width or d
+                p += 2 * d * w + w * self.rglru.conv_width + 2 * w + w * d
                 p += mults * d * self.d_ff
         return p
 

@@ -38,7 +38,8 @@ NEG_INF = -1e30
 __all__ = ["init_norm", "apply_norm", "rope_tables", "apply_rope", "flash_attention",
            "kv_quantize", "kv_dequantize", "decode_attention",
            "init_attention", "attention_block", "init_ffn", "ffn_block",
-           "embed_tokens", "lm_logits", "NEG_INF"]
+           "init_embedding", "init_lm_head", "embed_tokens", "lm_logits",
+           "layer_view", "NEG_INF"]
 
 
 def init_norm(cfg: ModelConfig, lead=(),
@@ -240,6 +241,14 @@ def _ring_layout(t: torch.Tensor, ring: int) -> torch.Tensor:
     return torch.roll(t[:, -ring:], t.shape[1] % ring, dims=1)
 
 
+def layer_view(cache: Dict[str, torch.Tensor], name: str,
+               layer_idx: Optional[int]) -> torch.Tensor:
+    """One layer's view of cache leaf ``name`` (L-stacked, or the layer's
+    own when ``layer_idx`` is None)."""
+    leaf = cache[name]
+    return leaf if layer_idx is None else leaf[layer_idx]
+
+
 def init_attention(g: torch.Generator, cfg: ModelConfig,
                    bank: Optional[DictionaryBank], lead=(),
                    prefix: str = "attn") -> Dict:
@@ -267,7 +276,7 @@ def attention_block(
     dicts: Optional[Dict] = None,     # params["dicts"] (factorized weights)
     positions: torch.Tensor,          # (B, S) positions (RoPE)
     cache: Optional[Dict[str, torch.Tensor]] = None,  # L-stacked leaves
-    layer_idx: int = 0,
+    layer_idx: Optional[int] = 0,     # None: unstacked leaves (one layer)
     cache_index: Optional[torch.Tensor] = None,  # (B,) tokens resident
     pages: Optional[Dict] = None,     # {"bt": (B, n), "width", "page_size"}
     slot_mask: Optional[torch.Tensor] = None,  # (B,) bool writable rows
@@ -275,6 +284,7 @@ def attention_block(
     seg_ids: Optional[torch.Tensor] = None,    # (B, S): prefill packing
     prefix_kv: Optional[Dict] = None,  # suffix prefill: {"k"/"v": (B, Np,
     # Hkv, D) post-RoPE shared prefix, "len": (B,) valid prefix length}
+    window=...,                       # None, a window, or ...: the config's
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
@@ -303,7 +313,13 @@ def attention_block(
       causal in-row chunk, and only then does the chunk scatter into the
       pool.
 
-    With ``cfg.sliding_window`` the lanes are rings of ``ring`` positions
+    ``window`` is the layer's attention window: ``...`` (the default) takes
+    ``cfg.sliding_window``; a heterogeneous stack passes its ``local``
+    layers' ``cfg.local_window``. ``layer_idx`` picks the layer of
+    L-stacked cache leaves; ``None`` means the leaves are one layer's own
+    (a heterogeneous stack's ``{"layer_XX": {...}}`` caches).
+
+    With a window the lanes are rings of ``ring`` positions
     (the cache's width, or ``pages["width"]``): decode writes at
     ``cache_index % ring`` and attends the lane's ``[0, min(cache_index +
     1, ring))`` (canonical ring phase: every resident position is inside
@@ -326,7 +342,8 @@ def attention_block(
         k = apply_rope(k, cos, sin)
 
     quant = cache is not None and "k_scale" in cache
-    window = cfg.sliding_window
+    if window is ...:
+        window = cfg.sliding_window
     impl = resolve_decode_attn(cfg.decode_attn, x.device)
     if cache_index is None:
         if prefix_kv is None:
@@ -345,11 +362,11 @@ def attention_block(
                                 seg_q=sq, seg_kv=torch.cat([pseg, sq], 1),
                                 chunk=cfg.attn_chunk)
         if cache is not None:
-            ring = cache["k"].shape[2]
+            ring = layer_view(cache, "k", layer_idx).shape[1]
             for name, t in _kv_leaves(_ring_layout(k, ring),
                                       _ring_layout(v, ring), quant).items():
-                cache[name][layer_idx, :, :t.shape[1]] = \
-                    t.to(cache[name].dtype)
+                lane = layer_view(cache, name, layer_idx)
+                lane[:, :t.shape[1]] = t.to(lane.dtype)
         return lin("wo", o.reshape(B, S, cfg.n_heads * hd), "attn_o")
 
     ci = cache_index.reshape(-1).to(torch.int64).expand(B)
@@ -360,7 +377,8 @@ def attention_block(
         ps = pages["page_size"]
         ringw = pages["width"]
         bt = pages["bt"]
-        kpool, vpool = cache["k"][layer_idx], cache["v"][layer_idx]
+        kpool = layer_view(cache, "k", layer_idx)
+        vpool = layer_view(cache, "v", layer_idx)
         P = kpool.shape[0]
         nn = n_new.reshape(-1).to(torch.int64)
         if slot_mask is not None:
@@ -389,7 +407,7 @@ def attention_block(
     if S != 1:
         raise ValueError("decode takes one token per row")
     new = _kv_leaves(k[:, 0], v[:, 0], quant)
-    lanes = {name: cache[name][layer_idx] for name in new}
+    lanes = {name: layer_view(cache, name, layer_idx) for name in new}
     if pages is not None:
         ps = pages["page_size"]
         bt = pages["bt"]
@@ -487,6 +505,31 @@ def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     return lin("w_down", h, f"{prefix}_down")
 
 
+def init_embedding(g: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The token table ``N(0, 0.02^2)`` ``(V, d)``, or nothing for a model
+    fed external embeddings (llava, musicgen), as the reference's
+    ``init_embedding``."""
+    if cfg.external_embeddings:
+        return {}
+    return {"tok": torch.empty((cfg.vocab_size, cfg.d_model),
+                               dtype=cfg.params_dtype,
+                               device=g.device).normal_(0.0, 0.02,
+                                                        generator=g)}
+
+
+def init_lm_head(g: torch.Generator, cfg: ModelConfig) -> Dict:
+    """``w ~ N(0, 1/d)`` of shape ``(d, V)``, ``(n_codebooks, d, V)`` for a
+    multi-codebook head (musicgen); nothing when tied."""
+    if cfg.tie_embeddings:
+        return {}
+    shape = (cfg.d_model, cfg.vocab_size)
+    if cfg.n_codebooks > 1:
+        shape = (cfg.n_codebooks,) + shape
+    return {"w": torch.empty(shape, dtype=cfg.params_dtype,
+                             device=g.device).normal_(
+        0.0, 1.0 / math.sqrt(cfg.d_model), generator=g)}
+
+
 def embed_tokens(p: Dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     return p["tok"][tokens.long()].to(cfg.compute_dtype)
@@ -494,8 +537,12 @@ def embed_tokens(p: Dict, tokens: torch.Tensor,
 
 def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """f32 logits ``x @ w`` (tied: ``x @ tok.T``)."""
+    """f32 logits ``x @ w`` (tied: ``x @ tok.T``); a multi-codebook head
+    ``(C, d, V)`` gives ``(B, S, C, V)``."""
     xf = x.float()
     if cfg.tie_embeddings:
         return xf @ p_embed["tok"].float().T
-    return xf @ p_head["w"].float()
+    w = p_head["w"].float()
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,cdv->bscv", xf, w)
+    return xf @ w

@@ -1,21 +1,33 @@
 """The composable model (``repro.models.transformer``): embeds -> block
-stack -> norm -> logits, for uniform attention stacks (RMSNorm or
-LayerNorm; full or sliding-window attention), whose FFN is dense (SwiGLU,
-GeGLU or GELU) or routed: the MoE family (dbrx-132b, arctic-480b), with
-arctic's parallel dense FFN (``models/moe.py``).
+stack -> norm -> logits, for every architecture of the registry but the
+paper's encoder-decoder models:
+
+* attention stacks (RMSNorm or LayerNorm; full or sliding-window
+  attention) whose FFN is dense (SwiGLU, GeGLU or GELU) or routed (the MoE
+  family, dbrx-132b and arctic-480b, with arctic's parallel dense FFN,
+  ``models/moe.py``);
+* recurrent stacks: mamba2-370m (SSD blocks, ``models/ssd.py``, no
+  attention) and recurrentgemma-2b (``rglru, rglru, local`` blocks:
+  ``models/rglru.py`` and local attention of ``local_window``);
+* external embeddings (``batch["embeds"]`` instead of token ids: llava,
+  musicgen) and musicgen's multi-codebook head ``(B, S, C, V)``.
 
 The reference's ``lax.scan`` over layers is a Python loop here. Parameters
-are nested dicts of tensors in the reference's layout (uniform stacks carry
-a leading L axis on ``params["layers"]``; factorized models add the shared
-``params["dicts"]``), so ``models/bridge.py`` can hand over a reference
-``Model.init`` or ``compress_params`` tree unchanged. ``Model.init`` draws its
-own weights from a ``torch.Generator``; they cannot match the reference's
-numbers, so every parity test uses bridged parameters.
+are nested dicts of tensors in the reference's layout: a uniform stack
+(every layer of one block kind) carries a leading L axis on
+``params["layers"]`` and on its caches; a heterogeneous one
+(recurrentgemma) keeps ``params["layers"]["layer_XX"]`` and caches ``{
+"layer_XX": {...}}`` per layer, and its paged ``pages`` argument is
+``{layer_name: entry-or-None}`` (``None`` on recurrent layers).
+Factorized models add the shared ``params["dicts"]``. So
+``models/bridge.py`` can hand over a reference ``Model.init`` or
+``compress_params`` tree unchanged. ``Model.init`` draws its own weights
+from a ``torch.Generator``; they cannot match the reference's numbers, so
+every parity test uses bridged parameters.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -24,39 +36,32 @@ from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import DictionaryBank, compress_model_params
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssd as SSD
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = ["Model", "check_supported"]
 
+BLOCK_KINDS = ("attn", "local", "ssd", "rglru")
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what this slice of the port does not serve, naming the slice
-    (ROADMAP Queue 1) that brings it."""
-    if cfg.family in ("ssm", "hybrid") or cfg.layer_pattern is not None \
-            or cfg.ssm is not None:
-        raise UnsupportedConfigError(
-            f"{cfg.name}: recurrent stacks (the {cfg.family!r} family) "
-            "come with a later slice (ROADMAP Queue 1 item 10c)")
-    if cfg.family not in ("dense", "moe") \
-            or (cfg.family == "moe") != (cfg.moe is not None):
-        raise UnsupportedConfigError(
-            f"{cfg.name}: the {cfg.family!r} family (external embeddings, "
-            "multi-codebook logits) comes with a later slice (ROADMAP "
-            "Queue 1 item 10b)")
-    if cfg.external_embeddings or cfg.n_codebooks != 1:
-        raise UnsupportedConfigError(
-            f"{cfg.name}: external embeddings / multi-codebook logits come "
-            "with a later slice (ROADMAP Queue 1 item 10b)")
-    if cfg.learned_pos:
+    """Refuse what the port does not serve: learned positions and the
+    encoder-decoder paper models (ROADMAP Queue 1 item 12), and blocks it
+    does not know."""
+    if cfg.learned_pos or cfg.n_encoder_layers:
         raise UnsupportedConfigError(
             f"{cfg.name}: learned positions come with the paper models "
             "(ROADMAP Queue 1 item 12)")
-    if cfg.act not in ("swiglu", "geglu", "gelu") \
-            or cfg.norm not in ("rmsnorm", "layernorm"):
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    if kinds - set(BLOCK_KINDS) or cfg.act not in ("swiglu", "geglu", "gelu") \
+            or cfg.norm not in ("rmsnorm", "layernorm") \
+            or ("ssd" in kinds and cfg.ssm is None) \
+            or ("rglru" in kinds and cfg.rglru is None):
         raise UnsupportedConfigError(
-            f"{cfg.name}: unknown block (act={cfg.act!r}, "
-            f"norm={cfg.norm!r})")
+            f"{cfg.name}: unknown block (kinds={sorted(kinds)}, "
+            f"act={cfg.act!r}, norm={cfg.norm!r})")
 
 
 def _tree_map(fn, tree):
@@ -115,43 +120,58 @@ class Model:
     # parameters
     # ------------------------------------------------------------------
 
+    def _init_block(self, g: torch.Generator, kind: str,
+                     bank: Optional[DictionaryBank], lead=()) -> Dict:
+        """One block's params (``lead``: the L axis of a uniform stack):
+        ``norm1`` and the mixer; ``norm2`` and the FFN (dense, or routed
+        experts plus arctic's dense FFN) after attention and RG-LRU
+        mixers; an SSD block has neither ``norm2`` nor FFN."""
+        cfg = self.cfg
+        p: Dict[str, Any] = {"norm1": L.init_norm(cfg, lead, self.device)}
+        if kind in ("attn", "local"):
+            p["attn"] = L.init_attention(g, cfg, bank, lead=lead)
+        elif kind == "ssd":
+            p["ssd"] = SSD.init_ssd(g, cfg, bank, lead=lead)
+            return p
+        else:
+            p["rglru"] = R.init_rglru(g, cfg, bank, lead=lead)
+        p["norm2"] = L.init_norm(cfg, lead, self.device)
+        if cfg.moe is None or kind == "rglru":
+            p["ffn"] = L.init_ffn(g, cfg, bank, lead=lead)
+        else:
+            p["moe"] = init_moe(g, cfg, bank, lead=lead)
+            if cfg.moe.dense_residual:
+                p["dense_ffn"] = L.init_ffn(
+                    g, cfg, bank, lead=lead, prefix="densefn",
+                    d_ff=cfg.moe.d_ff_dense)
+        return p
+
     def init(self, seed: int = 0) -> Dict:
         """Random parameters in the reference's layout and distributions
         (``w ~ N(0, 1/d_in)``; factorized: dictionaries ``N(0, 1/d_in)``
         under ``params["dicts"]`` and per-layer ``wd ~ N(0, 1/r)``; zero
         biases, unit norm scales (LayerNorm: zero norm biases), embeddings
-        ``N(0, 0.02^2)``, head ``N(0, 1/d)``), drawn on ``self.device`` from
-        a ``torch.Generator`` seeded with ``seed``."""
+        ``N(0, 0.02^2)`` (none with external embeddings), head ``N(0,
+        1/d)``; the recurrent blocks' own draws in ``models/ssd.py`` and
+        ``models/rglru.py``), drawn on ``self.device`` from a
+        ``torch.Generator`` seeded with ``seed``. A uniform stack's layers
+        share a leading L axis; a heterogeneous one has
+        ``params["layers"]["layer_XX"]``."""
         cfg = self.cfg
         g = torch.Generator(device=self.device).manual_seed(seed)
-        dt, dev, Ln, d = cfg.params_dtype, self.device, cfg.n_layers, \
-            cfg.d_model
-        bank = DictionaryBank(cfg.factorization, dt) \
+        bank = DictionaryBank(cfg.factorization, cfg.params_dtype) \
             if cfg.factorization.enabled else None
-
-        def normal(shape, std):
-            return torch.empty(shape, dtype=dt, device=dev).normal_(
-                0.0, std, generator=g)
-
-        layers = {
-            "norm1": L.init_norm(cfg, (Ln,), dev),
-            "attn": L.init_attention(g, cfg, bank, lead=(Ln,)),
-            "norm2": L.init_norm(cfg, (Ln,), dev),
-        }
-        if cfg.moe is None:
-            layers["ffn"] = L.init_ffn(g, cfg, bank, lead=(Ln,))
+        if cfg.uniform_layers:
+            layers = self._init_block(g, cfg.block_kind(0), bank,
+                                      lead=(cfg.n_layers,))
         else:
-            layers["moe"] = init_moe(g, cfg, bank, lead=(Ln,))
-            if cfg.moe.dense_residual:
-                layers["dense_ffn"] = L.init_ffn(
-                    g, cfg, bank, lead=(Ln,), prefix="densefn",
-                    d_ff=cfg.moe.d_ff_dense)
+            layers = {f"layer_{i:02d}": self._init_block(
+                g, cfg.block_kind(i), bank) for i in range(cfg.n_layers)}
         params: Dict[str, Any] = {
-            "embed": {"tok": normal((cfg.vocab_size, d), 0.02)},
+            "embed": L.init_embedding(g, cfg),
             "layers": layers,
-            "final_norm": L.init_norm(cfg, (), dev),
-            "lm_head": {} if cfg.tie_embeddings
-            else {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))},
+            "final_norm": L.init_norm(cfg, (), self.device),
+            "lm_head": L.init_lm_head(g, cfg),
         }
         if bank is not None:
             params["dicts"] = bank.dicts
@@ -168,8 +188,10 @@ class Model:
         f32 weight as an f32 product (and casts the result to bf16): those
         outputs differ from the reference's by that rounding (the MoE
         experts' ``einsum`` casts its weights to the compute dtype, as
-        here). Norm scales, the MoE router and the LM head stay as they
-        are: the reference computes norms, routing and logits in f32."""
+        here). Norm scales, the MoE router, the recurrent blocks' own
+        leaves (conv taps, decays, gates: the reference computes them in
+        f32) and the LM head stay as they are: the reference computes
+        norms, routing, recurrences and logits in f32."""
         dt = self.cfg.compute_dtype
 
         def cast(node):
@@ -178,12 +200,11 @@ class Model:
                     for k, v in node.items()}
 
         out = dict(params)
-        out["layers"] = {k: v if k.startswith("norm") else cast(v)
-                         for k, v in params["layers"].items()}
+        out["layers"] = cast(params["layers"])
         if "dicts" in params:
             out["dicts"] = {f: (e if isinstance(e, dict) else e.to(dt))
                             for f, e in params["dicts"].items()}
-        if not self.cfg.tie_embeddings:
+        if not self.cfg.tie_embeddings and "tok" in params["embed"]:
             out["embed"] = {"tok": params["embed"]["tok"].to(dt)}
         return out
 
@@ -203,17 +224,19 @@ class Model:
             return max_len
         return min(window, max_len)
 
-    def init_cache(self, batch: int, max_len: int,
-                   ring: bool = True) -> Dict[str, torch.Tensor]:
-        """Zero contiguous caches ``(L, batch, width, Hkv, D)`` in the
-        compute dtype, or, with ``kv_quant``, int8 codes plus f32
-        ``k_scale``/``v_scale`` ``(L, batch, width, Hkv)``; ``width`` is
-        :meth:`_block_ring` of ``max_len`` (the ring of a windowed stack
-        with ``ring=True``). (The page pools of the slot table are
-        ``init_cache(num_pages, page_size, ring=False)``.)"""
+    def _window(self, kind: str) -> Optional[int]:
+        return self.cfg.local_window if kind == "local" \
+            else self.cfg.sliding_window
+
+    def _block_cache(self, kind: str, batch: int, max_len: int, ring: bool,
+                     lead=()) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, self._block_ring("attn", max_len, ring),
-                 cfg.kv_heads, cfg.head_dim)
+        if kind == "ssd":
+            return SSD.init_ssd_cache(cfg, batch, lead, self.device)
+        if kind == "rglru":
+            return R.init_rglru_cache(cfg, batch, lead, self.device)
+        shape = tuple(lead) + (batch, self._block_ring(kind, max_len, ring),
+                               cfg.kv_heads, cfg.head_dim)
 
         def zeros(shp, dt):
             return torch.zeros(shp, dtype=dt, device=self.device)
@@ -226,12 +249,66 @@ class Model:
         return {"k": zeros(shape, cfg.compute_dtype),
                 "v": zeros(shape, cfg.compute_dtype)}
 
-    def cache_lane_specs(self) -> Dict[str, str]:
-        """Per-leaf lane kinds of :meth:`init_cache`: every leaf is a
-        per-token ``"kv"`` lane (full, or a ring of the window)."""
-        return {name: "kv" for name in (
-            ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant
-            else ("k", "v"))}
+    def init_cache(self, batch: int, max_len: int, ring: bool = True
+                   ) -> Dict[str, Any]:
+        """Zero caches for ``batch`` rows. Attention leaves are contiguous
+        lanes ``(batch, width, Hkv, D)`` in the compute dtype, or, with
+        ``kv_quant``, int8 codes plus f32 ``k_scale``/``v_scale`` ``(batch,
+        width, Hkv)``; ``width`` is :meth:`_block_ring` of ``max_len`` (the
+        ring of a windowed layer with ``ring=True``). Recurrent leaves are
+        fixed-shape states (``models/ssd.py``, ``models/rglru.py``). A
+        uniform stack's leaves carry a leading L axis; a heterogeneous
+        stack's caches are ``{"layer_XX": {...}}``. (The page pools of the
+        slot table are shaped from these leaves.)"""
+        cfg = self.cfg
+        if cfg.uniform_layers:
+            return self._block_cache(cfg.block_kind(0), batch, max_len, ring,
+                                     lead=(cfg.n_layers,))
+        return {f"layer_{i:02d}": self._block_cache(cfg.block_kind(i), batch,
+                                                    max_len, ring)
+                for i in range(cfg.n_layers)}
+
+    def _layer_tree(self, fn) -> Dict[str, Any]:
+        """``fn(kind)`` for a uniform stack, else ``{"layer_XX":
+        fn(kind_i)}``: the structure of :meth:`init_cache`."""
+        cfg = self.cfg
+        if cfg.uniform_layers:
+            return fn(cfg.block_kind(0))
+        return {f"layer_{i:02d}": fn(cfg.block_kind(i))
+                for i in range(cfg.n_layers)}
+
+    def cache_lane_specs(self) -> Dict[str, Any]:
+        """Per-leaf lane kinds of :meth:`init_cache`, in its structure:
+        ``"kv"`` for a per-token attention lane (full, or a ring of the
+        window), ``"state"`` for a fixed-shape recurrent state (SSD state,
+        RG-LRU ``h``, conv taps: no sequence axis)."""
+        quant = self.cfg.kv_quant
+
+        def spec(kind):
+            if kind == "ssd":
+                return {"state": "state", "conv": "state"}
+            if kind == "rglru":
+                return {"h": "state", "conv": "state"}
+            return {name: "kv" for name in (
+                ("k", "v", "k_scale", "v_scale") if quant else ("k", "v"))}
+
+        return self._layer_tree(spec)
+
+    def cache_lane_widths(self, max_len: int) -> Dict[str, Any]:
+        """:meth:`cache_lane_specs`' structure with each kv leaf's lane
+        width (:meth:`_block_ring` of ``max_len``) and 0 for state
+        leaves."""
+        specs = self.cache_lane_specs()
+        widths = self._layer_tree(lambda kind: self._block_ring(kind,
+                                                                max_len))
+
+        def fill(sp, w):
+            if isinstance(sp, dict) and any(isinstance(v, dict)
+                                            for v in sp.values()):
+                return {k: fill(sp[k], w[k]) for k in sp}
+            return {k: (w if v == "kv" else 0) for k, v in sp.items()}
+
+        return fill(specs, widths)
 
     def _stack(self, params, x, *, positions, caches, cache_index=None,
                slot_mask=None, pages=None, n_new=None, seg_ids=None,
@@ -240,18 +317,43 @@ class Model:
         lay = params["layers"]
         dicts = params.get("dicts")
         for i in range(cfg.n_layers):
-            lp = _tree_map(lambda t: t[i], lay)
+            kind = cfg.block_kind(i)
+            if cfg.uniform_layers:
+                lp = _tree_map(lambda t: t[i], lay)
+                cache_l, li, pages_l = caches, i, pages
+                pre = None if prefix_kv is None else {
+                    "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
+                    "len": prefix_kv["len"]}
+            else:
+                name = f"layer_{i:02d}"
+                lp, li = lay[name], None
+                cache_l = None if caches is None else caches[name]
+                pages_l = None if pages is None else pages.get(name)
+                pre = None
+                if prefix_kv is not None \
+                        and prefix_kv["k"].get(name) is not None:
+                    pre = {"k": prefix_kv["k"][name],
+                           "v": prefix_kv["v"][name],
+                           "len": prefix_kv["len"]}
             h = L.apply_norm(lp["norm1"], x)
-            pre = None if prefix_kv is None else {
-                "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
-                "len": prefix_kv["len"]}
-            x = x + L.attention_block(
-                lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
-                cache=caches, layer_idx=i, cache_index=cache_index,
-                pages=pages, slot_mask=slot_mask, n_new=n_new,
-                seg_ids=seg_ids, prefix_kv=pre)
+            if kind == "ssd":
+                x = x + SSD.ssd_block(lp["ssd"], h, cfg=cfg, dicts=dicts,
+                                      cache=cache_l, layer_idx=li,
+                                      seg_ids=seg_ids, slot_mask=slot_mask)
+                continue
+            if kind == "rglru":
+                x = x + R.rglru_block(lp["rglru"], h, cfg=cfg, dicts=dicts,
+                                      cache=cache_l, layer_idx=li,
+                                      seg_ids=seg_ids, slot_mask=slot_mask)
+            else:
+                x = x + L.attention_block(
+                    lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
+                    cache=cache_l, layer_idx=li, cache_index=cache_index,
+                    pages=pages_l, slot_mask=slot_mask, n_new=n_new,
+                    seg_ids=seg_ids, prefix_kv=pre,
+                    window=self._window(kind))
             h2 = L.apply_norm(lp["norm2"], x)
-            if cfg.moe is None:
+            if "moe" not in lp:
                 x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
             else:
                 # The reference's order: the routed experts, then arctic's
@@ -266,25 +368,40 @@ class Model:
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg)
 
+    def _embed_in(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """``batch["embeds"]`` (B, S, d) cast to the compute dtype for a
+        model fed external embeddings, else the token table's rows of
+        ``batch["inputs"]``."""
+        if self.cfg.external_embeddings:
+            return batch["embeds"].to(self.cfg.compute_dtype)
+        return L.embed_tokens(params["embed"], batch["inputs"], self.cfg)
+
+    def _batch_shape(self, batch: Dict) -> Tuple[int, int]:
+        ref = batch["embeds"] if self.cfg.external_embeddings \
+            else batch["inputs"]
+        return ref.shape[0], ref.shape[1]
+
     def hidden(self, params: Dict, batch: Dict, *,
                caches: Optional[Dict] = None,
                prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
         """Full-sequence forward up to the final norm: ``(h (B, S, d),
-        caches)``. batch ``{"inputs": (B, S)}`` with optional
-        ``"positions"`` (default ``0..S-1``) and ``"seg_ids"`` (packed
-        rows; 0 is padding). With ``caches`` (contiguous, :meth:`init_cache`
-        with at least S positions) every layer writes its K/V at positions
-        ``[0, S)``, in place. ``prefix_kv`` (suffix prefill): the post-RoPE
-        K/V of a shared prompt prefix, ``{"k", "v": (L, B, Np, Hkv, D),
-        "len": (B,)}``, which every layer prepends to its keys; the batch
-        then holds only the suffix, at absolute ``positions``."""
-        tokens = batch["inputs"]
-        B, S = tokens.shape
+        caches)``. batch ``{"inputs": (B, S)}`` (or ``{"embeds": (B, S,
+        d)}`` with external embeddings) with optional ``"positions"``
+        (default ``0..S-1``) and ``"seg_ids"`` (packed or right-aligned
+        rows; 0 is padding, an identity step for recurrent blocks). With
+        ``caches`` (:meth:`init_cache` with at least S positions) every
+        attention layer writes its K/V at positions ``[0, S)`` and every
+        recurrent layer its end-of-row state, in place. ``prefix_kv``
+        (suffix prefill): the post-RoPE K/V of a shared prompt prefix,
+        ``{"k", "v": (L, B, Np, Hkv, D) (a heterogeneous stack: {layer:
+        array or None}), "len": (B,)}``, which every attention layer
+        prepends to its keys; the batch then holds only the suffix, at
+        absolute ``positions``."""
+        B, S = self._batch_shape(batch)
+        x = self._embed_in(params, batch)
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(S, device=tokens.device)[None] \
-                .expand(B, S)
-        x = L.embed_tokens(params["embed"], tokens, self.cfg)
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
         h = self._stack(params, x, positions=positions.long(),
                         caches=caches, seg_ids=batch.get("seg_ids"),
                         prefix_kv=prefix_kv)
@@ -293,8 +410,9 @@ class Model:
     def apply(self, params: Dict, batch: Dict, *,
               caches: Optional[Dict] = None,
               prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
-        """:meth:`hidden` with all-position logits ``(B, S, V)`` f32. (The
-        reference also returns an aux loss, which only MoE stacks make.)"""
+        """:meth:`hidden` with all-position logits ``(B, S, V)`` f32
+        (``(B, S, C, V)`` for a multi-codebook head). (The reference also
+        returns an aux loss, which only MoE stacks make.)"""
         h, caches = self.hidden(params, batch, caches=caches,
                                 prefix_kv=prefix_kv)
         return self.logits(params, h), caches
@@ -302,10 +420,10 @@ class Model:
     def prefill(self, params: Dict, batch: Dict, *,
                 max_len: int = 0) -> Tuple[torch.Tensor, Any]:
         """Forward that fills fresh caches of ``max(max_len, S)`` positions
-        (rings of the window for a windowed stack, the prompt's last ring
-        positions in canonical ring phase); returns the last position's
-        logits ``(B, 1, V)`` and the caches."""
-        B, S = batch["inputs"].shape
+        (rings of the window for a windowed layer, the prompt's last ring
+        positions in canonical ring phase; recurrent layers their end
+        state); returns the last position's logits and the caches."""
+        B, S = self._batch_shape(batch)
         caches = self.init_cache(B, max(max_len, S))
         h, caches = self.hidden(params, batch, caches=caches)
         return self.logits(params, h[:, -1:]), caches
@@ -315,18 +433,20 @@ class Model:
                     slot_mask: Optional[torch.Tensor] = None,
                     pages: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
         """One-token step over contiguous lanes, or paged lanes when
-        ``pages`` is given. batch ``{"inputs": (B, 1)}``; ``cache_index``
-        (B,) tokens resident per row (the new token is written there);
-        ``slot_mask`` (B,) rows allowed to write; ``pages`` ``{"bt": (B, n)
-        int32, "width": lane width, "page_size": int}``. Returns ``(logits
-        (B, 1, V) f32, caches)``; the caches are updated in place."""
-        tokens = batch["inputs"]
-        B = tokens.shape[0]
+        ``pages`` is given. batch ``{"inputs": (B, 1)}`` or ``{"embeds":
+        (B, 1, d)}``; ``cache_index`` (B,) tokens resident per row (the new
+        token is written there); ``slot_mask`` (B,) rows allowed to write
+        (recurrent rows outside it keep their state); ``pages`` ``{"bt":
+        (B, n) int32, "width": lane width, "page_size": int}``, or
+        ``{layer_name: entry or None}`` for a heterogeneous stack. Returns
+        ``(logits (B, 1, V) f32, caches)``; the caches are updated in
+        place."""
+        B, _ = self._batch_shape(batch)
+        x = self._embed_in(params, batch)
         ci = cache_index.reshape(-1).to(torch.int64).expand(B)
-        positions = ci.reshape(-1, 1)
-        x = L.embed_tokens(params["embed"], tokens, self.cfg)
-        h = self._stack(params, x, positions=positions, caches=caches,
-                        cache_index=ci, slot_mask=slot_mask, pages=pages)
+        h = self._stack(params, x, positions=ci.reshape(-1, 1),
+                        caches=caches, cache_index=ci, slot_mask=slot_mask,
+                        pages=pages)
         return self.logits(params, h), caches
 
     def mixed_hidden(self, params: Dict, batch: Dict, caches,
@@ -336,11 +456,15 @@ class Model:
         """:meth:`mixed_step` up to the final norm: ``(h (B, S, d),
         caches)``. The engine takes logits only at each row's last fresh
         column instead of all ``B * S``."""
-        tokens = batch["inputs"]
-        S = tokens.shape[1]
+        if any(self.cfg.block_kind(i) not in ("attn", "local")
+               for i in range(self.cfg.n_layers)):
+            raise ValueError("the mixed step takes attention-only stacks: "
+                             "a recurrent block has no multi-token decode "
+                             "form")
+        _, S = self._batch_shape(batch)
+        x = self._embed_in(params, batch)
         ci = cache_index.reshape(-1).to(torch.int64)
-        positions = ci[:, None] + torch.arange(S, device=tokens.device)[None]
-        x = L.embed_tokens(params["embed"], tokens, self.cfg)
+        positions = ci[:, None] + torch.arange(S, device=x.device)[None]
         h = self._stack(params, x, positions=positions, caches=caches,
                         cache_index=ci, slot_mask=slot_mask, pages=pages,
                         n_new=n_new.reshape(-1))
@@ -352,10 +476,11 @@ class Model:
                    pages: Dict) -> Tuple[torch.Tensor, Any]:
         """One mixed step: up to ``S`` fresh tokens per row — prefill-chunk
         rows (``n_new > 1``), decode rows (``n_new == 1``) and inert rows
-        (``n_new == 0``). batch ``{"inputs": (B, S)}`` left-aligned; row b's
-        columns ``[0, n_new[b])`` sit at ``[cache_index[b], cache_index[b] +
-        n_new[b])``. Returns all-position logits ``(B, S, V)`` and the
-        caches (chunk K/V scattered in place after attention)."""
+        (``n_new == 0``). batch ``{"inputs": (B, S)}`` (or ``{"embeds"}``)
+        left-aligned; row b's columns ``[0, n_new[b])`` sit at
+        ``[cache_index[b], cache_index[b] + n_new[b])``. Returns
+        all-position logits ``(B, S, V)`` and the caches (chunk K/V
+        scattered in place after attention)."""
         h, caches = self.mixed_hidden(params, batch, caches, cache_index,
                                       n_new, slot_mask=slot_mask, pages=pages)
         return self.logits(params, h), caches

@@ -13,7 +13,8 @@ from repro_torch.serve.dispatch import Dispatcher
 from repro_torch.serve.engine import Engine, StepResult  # noqa: F401
 from repro_torch.serve.faults import FaultInjector, FaultPlan  # noqa: F401
 from repro_torch.serve.frontend import Frontend, StreamHandle  # noqa: F401
-from repro_torch.serve.kv_slots import SlotKVCache  # noqa: F401
+from repro_torch.serve.kv_slots import (SlotKVCache,  # noqa: F401
+                                        SlotStateTable)
 from repro_torch.serve.pages import FleetPrefixIndex, PagePool  # noqa: F401
 from repro_torch.serve.sampling import (SamplingParams,  # noqa: F401
                                         sample_tokens, sample_tokens_batch)

@@ -2,15 +2,16 @@
 with the reference's fields and defaults, whose :meth:`EngineConfig.validate`
 holds every construction-time refusal.
 
-The port serves attention-only stacks through the mixed-step engine
-(paged, unquantized lanes) or the phase-serialized one (contiguous or paged
-lanes, fp or int8 ``kv_quant``); ``mixed=None`` picks the mixed step where
+The port serves attention stacks through the mixed-step engine (paged,
+unquantized lanes) or the phase-serialized one (contiguous or paged lanes,
+fp or int8 ``kv_quant``), and recurrent stacks (mamba2, recurrentgemma)
+through the phase-serialized one; ``mixed=None`` picks the mixed step where
 the stack can take it, as the reference does. Every field is served as the
 reference serves it — greedy or seeded sampling, prefix sharing,
-preemption, audits — so ``EngineConfig()`` is valid. Stacks outside the
-port so far (recurrent layers) raise
-:class:`~repro_torch.core.errors.UnsupportedConfigError` naming the later
-slice that brings them, as do the reference's own refusals.
+preemption, audits — so ``EngineConfig()`` is valid. The reference's own
+refusals raise :class:`~repro_torch.core.errors.UnsupportedConfigError`,
+and so do models fed external embeddings (llava, musicgen), which the
+reference's Engine cannot serve either: it feeds token ids only.
 """
 from __future__ import annotations
 
@@ -72,10 +73,12 @@ class EngineConfig:
     def validate(self, model_cfg) -> dict:
         """Refuse what the port does not serve; returns the model traits."""
         traits = self._model_traits(model_cfg)
-        if not traits["has_attn"] or traits["recurrent"]:
+        if model_cfg.external_embeddings:
             raise UnsupportedConfigError(
-                "only attention-only stacks are served; recurrent layers "
-                "come with a later slice (ROADMAP Queue 1 item 10c)")
+                f"{model_cfg.name}: the Engine feeds token ids only (as the "
+                "reference's does); a model fed external embeddings runs "
+                "through Model.prefill / decode_step with batch "
+                "{'embeds': ...}")
         if self.mixed and not traits["mixed_ok"]:
             raise UnsupportedConfigError(
                 "mixed-step serving needs a paged, attention-only, "

@@ -68,6 +68,15 @@ publishes mirror full prefix pages to its host tier, probes restore
 fleet-only pages into the local pool first. The only reference option the
 port still refuses is ``mesh`` (ROADMAP Queue 1 item 11).
 
+**Recurrent stacks** (mamba2, recurrentgemma): the phase-serialized
+engine (no recurrent block has a multi-token decode form), admitting one
+request per prefill row, right-aligned (``Scheduler(pack=False)``,
+:meth:`Engine._rows_batch`), so each row's end state is its request's;
+``assign_many`` copies the states into the slot's ``"state"`` lanes.
+Only the attention layers' lanes page (recurrentgemma's local layers, a
+ring of the window); mamba2 is never paged. Prefix sharing stays off:
+a recurrent layer's end-of-prefix state is not content-addressable.
+
 **Sliding-window stacks** (starcoder2): each attention lane is a ring of
 ``min(window, cache_len)`` positions in canonical ring phase; prefill
 sweeps fill full-length caches (``init_cache(..., ring=False)``) so the
@@ -115,6 +124,7 @@ from repro_torch.serve.scheduler import (TERMINAL_STATUSES, Admission,
                                          Request, Scheduler)
 
 __all__ = ["Engine", "EngineConfig", "StepResult"]
+
 
 # The legacy per-knob construction surface warns once per process.
 _LEGACY_KWARGS_WARNED = False
@@ -205,14 +215,24 @@ class Engine:
         self._base_seed = int(cfg_e.seed)
         self.max_prompt_len = cfg_e.max_prompt_len or 2 * self.max_len
         self.cache_len = self.max_prompt_len + self.max_new
+        # Recurrent prefill caches hold one end-of-row state per row, so
+        # those stacks admit one request per row, right-aligned.
+        self._recurrent = traits["recurrent"]
         self.scheduler = Scheduler(max_len=self.max_len,
                                    max_rows=cfg_e.max_rows,
-                                   max_prompt_len=self.max_prompt_len)
-        self.decode_attn = resolve_decode_attn(cfg_e.decode_attn, self.device)
+                                   max_prompt_len=self.max_prompt_len,
+                                   pack=not self._recurrent)
+        # SSD's chunked scan takes prefill widths of whole chunks.
+        self._ssd_chunk = model.cfg.ssm.chunk \
+            if "ssd" in traits["kinds"] and model.cfg.ssm else None
+        self.decode_attn = resolve_decode_attn(cfg_e.decode_attn,
+                                               self.device) \
+            if traits["has_attn"] else "dense"
         self._dmodel = model.with_decode_attn(self.decode_attn,
                                               cfg_e.decode_block_k)
         self._block_k = self._dmodel.cfg.decode_block_k
-        # One page is one kv block of the predicated attention.
+        # One page is one kv block of the predicated attention; only the
+        # attention lanes page (state lanes have a fixed shape).
         self.paged = traits["paged"]
         self.page_size = (cfg_e.page_size or self._block_k) \
             if self.paged else None
@@ -222,9 +242,12 @@ class Engine:
                                  page_size=self.page_size,
                                  pool_frac=cfg_e.pool_frac,
                                  page_cap=cfg_e.page_cap)
-        # Prefix sharing: paged lanes only (every lane leaf here is a
-        # per-token "kv" lane, so every paged stack can share).
-        self.prefix_share = bool(cfg_e.prefix_share) and self.paged
+        # Prefix sharing: paged stacks whose every lane is a per-token kv
+        # lane. A recurrent layer would need its end-of-prefix state, which
+        # is neither paged nor content-addressable, so recurrent stacks
+        # prefill cold (the probe never fires).
+        self.prefix_share = bool(cfg_e.prefix_share) and self.paged \
+            and not self.slots.state_lanes
         self._shared_tokens = 0
         self._prompt_tokens = 0
         self._pages_shared = 0
@@ -237,9 +260,9 @@ class Engine:
         self.prefill_budget = cfg_e.prefill_budget
         self._chunk_width = max(1, min(self.max_len,
                                        cfg_e.prefill_budget or self.max_len))
-        self._width = self.slots.width
         # Attention layers per lane ring, for the blocks-visited and K/V
-        # byte accounting (one ring per window among the layers).
+        # byte accounting (one ring per window among the attention layers;
+        # none in a pure-recurrent stack).
         self._ring_layers: Dict[int, int] = {}
         for i in range(model.cfg.n_layers):
             kind = model.cfg.block_kind(i)
@@ -514,10 +537,21 @@ class Engine:
             active.size
 
     def _pages_arg(self) -> Optional[Dict]:
+        """The paged step's ``pages``: one entry for a uniform stack,
+        ``{layer: entry or None}`` for a heterogeneous one."""
         if not self.paged:
             return None
-        bt = self.slots.pool.device_tables()[self._width][:self.num_slots]
-        return {"bt": bt, "width": self._width, "page_size": self.page_size}
+        tables = self.slots.pool.device_tables()
+
+        def entry(w):
+            return None if w is None else {
+                "bt": tables[w][:self.num_slots], "width": w,
+                "page_size": self.page_size}
+
+        lw = self.slots.layer_widths
+        if isinstance(lw, dict):
+            return {name: entry(w) for name, w in lw.items()}
+        return entry(lw)
 
     def _count_blocks(self, st: _RunState, hi: np.ndarray) -> None:
         """The predicated attention's kv blocks over each active lane's
@@ -1217,6 +1251,10 @@ class Engine:
                 packed.tokens, packed.positions, packed.segment_ids))
             slots_of = [(r, s, n, 0) for r, s, n in packed.request_slots]
             util = adm.utilization
+        elif adm.chunks is None:  # row per request (recurrent stacks)
+            tokens, positions, seg, slots_of = self._rows_batch(adm)
+            rows = len(adm.requests)
+            util = adm.utilization
         else:  # solo long prompt, chunked
             prompt = np.concatenate(adm.chunks)
             width = len(adm.chunks) * self.max_len
@@ -1261,6 +1299,35 @@ class Engine:
         self.stats.append({"rows": rows, "n_requests": len(adm.requests),
                            "utilization": util})
         return firsts, caches, slots_of, hits
+
+    def _rows_batch(self, adm: Admission):
+        """Row-per-request layout of a recurrent stack: each request in its
+        own row, **right-aligned**, so the row's end state (all a recurrent
+        prefill cache keeps) is the request's. Leading padding rides
+        segment id 0: attention masks it and the recurrent blocks take it
+        as identity steps, so each row ends where a solo prefill would. An
+        SSD stack's width is rounded up to whole scan chunks (and
+        ``adm.row_width`` with it, for the utilization stat); rows are
+        padded to a power of two. Returns ``(tokens, positions, seg,
+        slots_of)``."""
+        width = adm.row_width
+        q = self._ssd_chunk
+        if q is not None and width > q and width % q:
+            width = -(-width // q) * q
+            adm.row_width = width
+        pad_rows = 1 << (len(adm.requests) - 1).bit_length()
+        tokens = np.zeros((pad_rows, width), np.int32)
+        seg = np.zeros((pad_rows, width), np.int32)
+        pos = np.zeros((pad_rows, width), np.int32)
+        slots_of = []
+        for i, req in enumerate(adm.requests):
+            n = len(req.prompt)
+            start = width - n
+            tokens[i, start:] = req.prompt
+            seg[i, start:] = 1
+            pos[i, start:] = np.arange(n)
+            slots_of.append((i, start, n, 0))
+        return tokens, pos, seg, slots_of
 
     def _shared_batch_many(self, reqs: List[Request],
                            hits: List[Optional[PrefixHit]]):

@@ -18,8 +18,9 @@ refuses (head-blocking, never skip-ahead), so admission order is
 deterministic. With prefix sharing the engine passes a ``probe``: requests
 whose leading tokens sit in the prefix cache ride row-per-request
 **shared** admissions, hits adjacent in admission order batched into one
-suffix sweep. The row-per-request layout of recurrent stacks
-(``pack=False``) comes with ROADMAP Queue 1 item 10c.
+suffix sweep. A recurrent stack's scheduler (``pack=False``) admits one
+request per row instead: a recurrent prefill cache keeps only each row's
+end state, so requests cannot share a row.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.packing import (PackedBatch, PackingPolicy,
                                       chunk_prompt, pack_requests)
 from repro_torch.serve.sampling import SamplingParams
@@ -64,14 +64,17 @@ class Request:
 class Admission:
     """One prefill sweep's worth of admitted requests: a ``packed`` batch
     of short prompts, one long prompt's ``chunks`` (its prefill row is
-    ``len(chunks) * max_len`` wide), or (``shared_prefix > 0``) requests
+    ``len(chunks) * max_len`` wide), (``shared_prefix > 0``) requests
     whose leading tokens are expected in the prefix cache, one row each:
     ``shared_prefixes[i]`` is request i's estimate, ``shared_prefix`` the
-    largest. The engine re-probes at prefill time."""
+    largest (the engine re-probes at prefill time), or (``row_width``
+    set, a ``pack=False`` scheduler's) one request per row, right-aligned
+    in rows of ``row_width`` tokens."""
 
     requests: List[Request]
     packed: Optional[PackedBatch] = None
     chunks: Optional[List[np.ndarray]] = None
+    row_width: Optional[int] = None
     shared_prefix: int = 0
     shared_prefixes: Optional[List[int]] = None
 
@@ -80,24 +83,24 @@ class Admission:
         """Filled fraction of the prefill token slots this sweep."""
         if self.packed is not None:
             return float((self.packed.segment_ids > 0).mean())
-        total = sum(len(c) for c in self.chunks)
-        return total / max(len(self.chunks) * len(self.chunks[0]), 1)
+        if self.chunks is not None:
+            total = sum(len(c) for c in self.chunks)
+            return total / max(len(self.chunks) * len(self.chunks[0]), 1)
+        total = sum(len(r.prompt) for r in self.requests)
+        return total / max(len(self.requests) * self.row_width, 1)
 
 
 class Scheduler:
     """FIFO admission queue with packing. ``max_len`` is the packed row
     width (longer prompts are chunked), ``max_per_row`` the packing depth,
     ``max_rows`` the rows of one packed sweep; ``max_prompt_len`` (when
-    set) is the hard cache-capacity bound a prompt may not exceed."""
+    set) is the hard cache-capacity bound a prompt may not exceed.
+    ``pack=False`` (recurrent stacks) admits one request per row."""
 
     def __init__(self, max_len: int = 128, max_per_row: int = 4,
                  max_rows: int = 8, max_prompt_len: Optional[int] = None,
                  pack: bool = True):
-        if not pack:
-            raise UnsupportedConfigError(
-                "row-per-request admissions (pack=False, recurrent stacks) "
-                "come with a later slice of the port (ROADMAP Queue 1 "
-                "item 10c)")
+        self.pack = pack
         self.policy = PackingPolicy(max_len=max_len, max_per_row=max_per_row)
         self.max_rows = max_rows
         self.max_prompt_len = max_prompt_len
@@ -140,7 +143,20 @@ class Scheduler:
         most ``max_rows`` each), each prompt longer than ``max_len`` is its
         own chunked group (flushing the hits buffered before it), then one
         packed group of the short ones. A packing wider than ``max_rows``
-        rows hands its last requests back to the queue head."""
+        rows hands its last requests back to the queue head. With ``pack``
+        off: one admission of up to ``min(free_slots, max_rows)`` requests,
+        one row each, rows as wide as the longest prompt rounded up to a
+        ``max_len`` multiple (no probe: sharing is off for such stacks)."""
+        if not self.pack:
+            reqs: List[Request] = []
+            while (self.queue and len(reqs) < min(free_slots, self.max_rows)
+                   and (reserve is None or reserve(self.queue[0]))):
+                reqs.append(self.queue.pop(0))
+            if not reqs:
+                return []
+            ml = self.policy.max_len
+            width = max(-(-len(r.prompt) // ml) * ml for r in reqs)
+            return [Admission(requests=reqs, row_width=width)]
         groups: List[Admission] = []
         shorts: List[Request] = []
         hits: List[Request] = []

@@ -187,16 +187,32 @@ def test_refused_engine_settings(name):
     ("mamba2-370m", {"factorized": True}),
     ("qwen2.5-32b", {"weight_format": "int3"})])
 def test_refused_models(arch, over):
-    """Families outside the slice (recurrent stacks, factorized or not;
-    external embeddings and codebooks) and learned positions (starcoder2
-    itself is served, and so is the MoE family) are refused by Model; an
-    unknown weight format is a ValueError, as in the reference."""
+    """What each configuration meets at construction: learned positions
+    are refused by Model (item 12) and an unknown weight format is a
+    ValueError, as in the reference; the recurrent stacks (factorized or
+    not) construct, and their Engine refuses ``mixed=True`` with the
+    reference's message; the models fed external embeddings (llava,
+    musicgen) construct, and the Engine refuses them (it feeds token ids
+    only, as the reference's does)."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model
-    exc = ValueError if "weight_format" in over else UnsupportedConfigError
-    with pytest.raises(exc):
-        Model(get_config(arch, "smoke", **over), device="cpu")
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = get_config(arch, "smoke", **over)
+    if "weight_format" in over or cfg.learned_pos:
+        exc = ValueError if "weight_format" in over \
+            else UnsupportedConfigError
+        with pytest.raises(exc):
+            Model(cfg, device="cpu")
+        return
+    model = Model(cfg, device="cpu")
+    if cfg.external_embeddings:
+        with pytest.raises(UnsupportedConfigError, match="token ids only"):
+            Engine(model, None, config=EngineConfig(max_len=16))
+        return
+    with pytest.raises(UnsupportedConfigError, match="mixed-step serving"):
+        Engine(model, None, config=EngineConfig(max_len=16, mixed=True))
+    assert not Engine(model, None, config=EngineConfig(max_len=16)).mixed
 
 
 def test_per_request_sampling_and_dry_pool_refused(qwen):

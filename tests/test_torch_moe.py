@@ -329,7 +329,8 @@ def test_mixed_wrapper_all_columns_on_the_cpu():
 
 def test_refusals_name_their_items():
     """The MoE family constructs; ``Engine(mesh=...)`` stays refused (item
-    11), and so do the families of later slices, each naming its item."""
+    11) and learned positions (item 12), each refusal naming its item; the
+    families of items 10b and 10c construct."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model
@@ -341,11 +342,12 @@ def test_refusals_name_their_items():
               device="cpu")
     with pytest.raises(UnsupportedConfigError, match="item 11"):
         Engine(m, m.init(0), config=EngineConfig(max_len=16), mesh=object())
-    for arch, item in (("mamba2-370m", "10c"), ("recurrentgemma-2b", "10c"),
-                       ("llava-next-mistral-7b", "10b"),
-                       ("musicgen-large", "10b")):
-        with pytest.raises(UnsupportedConfigError, match=f"item {item}"):
-            Model(get_config(arch, "smoke"), device="cpu")
+    with pytest.raises(UnsupportedConfigError, match="item 12"):
+        Model(get_config("dbrx-132b", "smoke", learned_pos=True),
+              device="cpu")
+    for arch in ("mamba2-370m", "recurrentgemma-2b",
+                 "llava-next-mistral-7b", "musicgen-large"):
+        Model(get_config(arch, "smoke"), device="cpu")
 
 
 # ---- the mixed kernel's all-columns mode on the card ---------------------------

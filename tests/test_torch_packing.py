@@ -128,10 +128,17 @@ def test_next_admissions_matches_reference(max_len, max_rows):
 
 
 def test_scheduler_refuses_sharing_and_row_layout():
-    from repro_torch.core.errors import UnsupportedConfigError
+    """The row layout (``pack=False``, recurrent stacks) is served now:
+    one row per request, no probe; sharing probes ride shared admissions;
+    an over-long prompt is still refused."""
     from repro_torch.serve.scheduler import Request, Scheduler
-    with pytest.raises(UnsupportedConfigError):
-        Scheduler(pack=False)
+    rows = Scheduler(max_len=8, pack=False)
+    for rid, n in enumerate((3, 12)):
+        rows.submit(Request(rid=rid, prompt=np.arange(n, dtype=np.int32)))
+    (adm,) = rows.next_admissions(2, probe=lambda r: 8)
+    assert [r.rid for r in adm.requests] == [0, 1]
+    assert adm.row_width == 16 and adm.packed is None and not adm.chunks
+    assert adm.utilization == 15 / 32
     # Sharing probes are served now: a hit rides a shared admission.
     s = Scheduler(max_len=8)
     s.submit(Request(rid=0, prompt=np.arange(3, dtype=np.int32)))

@@ -264,7 +264,10 @@ def test_wrappers_refuse_bad_inputs_on_cuda_only_path():
     with pytest.raises(ValueError):
         tda._heads("x", 40, 6, 128)  # Hq no multiple of Hkv
     with pytest.raises(ValueError):
-        tda._heads("x", 48, 4, 256)  # head dim past MAX_HEAD_DIM
+        tda._heads("x", 48, 4, 264)  # head dim past MAX_HEAD_DIM (256)
+    with pytest.raises(ValueError):  # the mixed kernel stops at 128
+        tda._heads("x", 10, 1, 256, tda.MAX_MIXED_HEAD_DIM)
+    tda._heads("x", 10, 1, 256)  # recurrentgemma's local layers: decode
     tda._heads("x", 48, 4, 128)  # G = 12: the decode kernels tile groups
     assert [tda.group_tiles(g * 4, 4) for g in (1, 5, 8, 10, 12, 16, 17)] \
         == [1, 1, 1, 2, 2, 2, 3]
@@ -469,6 +472,135 @@ def test_cuda_decode_split_edges(dtype):
                         q, *lanes[:2], tb, *lanes[2:], tab, block_k=128),
                         plain(q, *lanes[:2], tb, *lanes[2:], min(bk, S)),
                         live, 1e-3 if tab is None else 1e-5)
+
+
+# Head dims past 128 (the decode kernels' second instance): D 136, 192, 256
+# at G 1, 5 and 10 over one kv head (recurrentgemma-2b's local layers: 10 q
+# heads of 256 over 1 kv head).
+D256_CASES = [(136, 1), (192, 5), (256, 10)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("Dh,G", D256_CASES)
+def test_decode_plain_versions_at_head_dim_256(Dh, G, window, quant):
+    """The decode kernels' plain versions at head dims past 128, paged (one
+    row of 16-token pages) and contiguous, fp and int8, against the
+    reference's ``kernels/tda/ref.py`` oracle on the CPU: atol 1e-5, as
+    at D = 16 (f32 softmax over the same products)."""
+    import jax.numpy as jnp
+    from repro.kernels.tda.ref import decode_attention_reference as jref
+    from repro_torch.kernels.tda.tda import (tda_decode_attention,
+                                             tda_paged_decode_attention)
+    rng = np.random.default_rng(Dh + G)
+    B, ps, n = 5, 16, 4
+    W = n * ps
+    q = rng.standard_normal((B, G, Dh)).astype(np.float32)
+    hi = np.array([W, 1, 37, 17, 0], np.int32)
+    lo = np.zeros_like(hi) if window is None else np.maximum(hi - window, 0)
+    bounds = np.stack([lo, hi], 1).astype(np.int32)
+    if quant:
+        k, ks = _quantized(rng, (B, W, 1, Dh))
+        v, vs = _quantized(rng, (B, W, 1, Dh))
+    else:
+        k = rng.standard_normal((B, W, 1, Dh)).astype(np.float32)
+        v = rng.standard_normal((B, W, 1, Dh)).astype(np.float32)
+        ks = vs = None
+    J = lambda a: _opt(a, jnp.asarray)  # noqa: E731
+    want = np.array(jref(J(q), J(k), J(v), jnp.asarray(hi[:, None]),
+                         k_scale=J(ks), v_scale=J(vs),
+                         window=jnp.asarray((hi - lo)[:, None])))
+    want[hi <= lo] = 0.0
+    T = lambda a: _opt(a, tp.t)  # noqa: E731
+    got = tda_decode_attention(T(q), T(k), T(v), T(bounds), T(ks),
+                               T(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=tp.ATOL_ATTN, rtol=0)
+    # The same lanes as a shuffled page pool behind a block table.
+    perm = rng.permutation(B * n).astype(np.int32)
+    bt = perm.reshape(B, n)
+
+    def pool(a):
+        if a is None:
+            return None
+        out = np.empty((B * n, ps) + a.shape[2:], a.dtype)
+        out[bt.reshape(-1)] = a.reshape((B * n, ps) + a.shape[2:])
+        return tp.t(out)
+
+    got = tda_paged_decode_attention(T(q), pool(k), pool(v), T(bounds),
+                                     tp.t(bt), pool(ks), pool(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=tp.ATOL_ATTN, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_kernels_head_dim_256(dtype):
+    """Both decode kernels at head dims 136, 192 and 256 (their kMaxD = 256
+    instance), G 1, 5 and 10 over one kv head, on lanes of 2048 positions
+    (pages of 128 and 16; contiguous), fp and int8, exact and LUT exp,
+    against their plain versions on the card: max abs diff 1e-3 exact,
+    1e-5 LUT, on attended rows; exact zeros elsewhere; a second launch
+    gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.afu.ref import exp_lut_table
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ops import gather_paged_lanes as gather
+    from repro_torch.kernels.tda.ref import (decode_attention_lut,
+                                             decode_attention_reference)
+    from repro_torch.models.layers import kv_quantize
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    table = exp_lut_table(dev)
+
+    def plain(q, k, v, tb, ks, vs, lut_block):
+        if lut_block:
+            return decode_attention_lut(q, k, v, tb, table, lut_block, ks, vs)
+        hi, lo = tb[:, 1:].long(), tb[:, :1].long()
+        return decode_attention_reference(q, k, v, hi, k_scale=ks,
+                                          v_scale=vs, window=hi - lo)
+
+    def close(run, want, live, atol):
+        got = run()
+        assert (got - want)[live].abs().max().item() <= atol
+        assert not got[~live].any()
+        assert torch.equal(run(), got)
+
+    B, W = 8, 2048
+    for i, (Dh, G) in enumerate(D256_CASES):
+        rng = np.random.default_rng(90 + i)
+        q = tp.t(rng.standard_normal((B, G, Dh)).astype(np.float32), dev, dt)
+        for ps in (128, 16):
+            n = W // ps
+            tb = tp.t(_split_edge_bounds(rng, W, tda.decode_split_plan(W, ps),
+                                         B), dev)
+            live = tb[:, 1] > tb[:, 0]
+            kf, vf, bt, _ = tp.paged_pool(rng, B=B, Hkv=1, D=Dh, ps=ps, n=n,
+                                          free_tail=False)
+            tt = tp.t(bt, dev)
+            k, v = tp.t(kf, dev, dt), tp.t(vf, dev, dt)
+            (kq, ks), (vq, vs) = kv_quantize(k.float()), kv_quantize(v.float())
+            for lanes_ in ((k, v, None, None), (kq, vq, ks, vs)):
+                lanes = [None if x is None else gather(x, tt)
+                         for x in lanes_]
+                for tab in ((None, table) if ps == 128 else (None,)):
+                    close(lambda: tda.tda_paged_decode_attention(
+                        q, *lanes_[:2], tb, tt, *lanes_[2:], tab),
+                        plain(q, *lanes[:2], tb, *lanes[2:],
+                              0 if tab is None else ps),
+                        live, 1e-3 if tab is None else 1e-5)
+        tb = tp.t(_split_edge_bounds(rng, W, tda.decode_split_plan(W), B),
+                  dev)
+        live = tb[:, 1] > tb[:, 0]
+        shape = (B, W, 1, Dh)
+        k = tp.t(rng.standard_normal(shape).astype(np.float32), dev, dt)
+        v = tp.t(rng.standard_normal(shape).astype(np.float32), dev, dt)
+        (kq, ks), (vq, vs) = kv_quantize(k.float()), kv_quantize(v.float())
+        for lanes in ((k, v, None, None), (kq, vq, ks, vs)):
+            for tab, bk in ((None, 0), (table, 128)):
+                close(lambda: tda.tda_decode_attention(
+                    q, *lanes[:2], tb, *lanes[2:], tab, block_k=128),
+                    plain(q, *lanes[:2], tb, *lanes[2:], bk),
+                    live, 1e-3 if tab is None else 1e-5)
 
 
 # ---- LUT exp and int8 mixed ------------------------------------------------
