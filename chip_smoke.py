@@ -280,12 +280,38 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               bf16 compute the kernel path's drift within ``BF16_FACTOR``
               (2) times the plain path's; musicgen's logits (2, 1, 4,
               2048).
+10. tp_serve — tensor-parallel serving on a (1, N) mesh of rank processes
+              (``launch.mesh.run_ranks`` running ``launch.tp_serve.
+              serve_rank``) that share the one card through gloo (NCCL
+              refuses two ranks on one GPU; the times are of ranks sharing
+              a card through host-staged collectives, not a tensor-parallel
+              speed): (a) qwen2.5-32b at its published widths, depth 64 ->
+              ``TP_LAYERS`` = 4, float32 weights and compute, TF32 off,
+              phase 4's workload through ``ENGINE_KW`` and the default
+              ``EngineConfig``, served unsharded and then at N = 2 and 4
+              (20 / 4 and 10 / 2 heads a rank, G = 5): tokens, statuses and
+              host counters (``TP_COUNTERS``) equal to the unsharded run's
+              (on a difference: the first differing step and the unsharded
+              top-2 logit gap there, then failure); (b) the same widths at
+              depth 8 in bf16, N = 2: 16/16 ``ok``, host counters equal to
+              the unsharded bf16 run's, tok/s and step ms; (c) dbrx-132b at
+              its published widths, depth 40 -> 1, float32, N = 2, the first
+              ``TP_MOE_REQUESTS`` = 8 requests: tokens equal. The parent
+              draws the weights on the card from seed 0, serves them, saves
+              them to a temporary directory, and each rank loads them
+              memory-mapped and moves only its slice to the card; every
+              rank's outputs must equal every other rank's, and every rank
+              must launch the paged decode and mixed kernels on its heads.
+              Each rank's weight bytes on the card and peak host RSS are
+              printed.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
 (``serve:<engine>``; int8 rows from the int8 serves), the G = 12 paged
 decode and mixed rows from phase 6 (``serve:ring``), the G = 6 ones from
-phase 7 (``serve:moe``), the ``.d256`` rows from phase 8
+phase 7 (``serve:moe``), the ``.tp2`` rows (paged decode and mixed at
+a rank's shapes of phase 10's bf16 run: 20 q / 4 kv heads) from rank 0 of
+that run (``serve:tp:bf16:rank0``), the ``.d256`` rows from phase 8
 (``serve:recurrent:recurrentgemma-2b``, paged; ``...contiguous``, the
 contiguous run), DMM and SMM from phase
 5 (``compressed_serve``), softmax_lut from the kernel_table phase
@@ -1249,6 +1275,7 @@ def phase_kernels(torch, np, full_cfg, engine_kw):
     moe_rows(torch, np, err, check, add_row, gather, T, plain_mixed, table)
     d256_rows(torch, np, err, check, add_row, gather, T, table,
               plain_decode, plain_contig)
+    tp_rows(torch, np, err, check, add_row, gather, T, plain_mixed)
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
     torch.cuda.synchronize()
@@ -1672,6 +1699,111 @@ def moe_rows(torch, np, err, check, add_row, gather, T, plain_mixed, table):
     r.update(launches_from="check",
              skip_mode_ms=time_ms(torch, lambda: mfn(False)),
              skip_mode_device_ms=device_ms(torch, lambda: mfn(False)))
+    del q, k, v, kr, vr, kl, vl, keys_all, vals_all, fmask, sq
+    torch.cuda.synchronize()
+
+
+def tp_rows(torch, np, err, check, add_row, gather, T, plain_mixed):
+    """The kernels-line rows at a rank's shapes in the tp_serve phase's
+    bf16 run (b): qwen2.5-32b's 40 q / 8 kv heads of 128 cut over
+    TP_BF16_RANKS ranks, 20 q / 4 kv heads a rank (G = 5), ENGINE_KW's 8
+    slots, 128-token pages and chunks of 256: paged decode
+    (``tda_paged_decode_attention.tp2``) and the mixed step
+    (``tda_mixed_attention.tp2``), each checked against its plain version
+    (attended rows, live columns) and timed beside SDPA. main gives both
+    rows the launches of rank 0 of that run (``serve:tp``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tda import tda
+    from repro_torch.kernels.tda.ref import decode_attention_reference
+    from repro_torch.launch.profile_serve import ENGINE_KW, serve_config
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    full, kw, n = serve_config(), ENGINE_KW, TP_BF16_RANKS
+    cfg = dataclasses.replace(full, n_heads=full.n_heads // n,
+                              n_kv_heads=full.kv_heads // n)
+    cache_len = kw["max_len"] * 2 + kw["max_new_tokens"]
+    dec, mix = full_cases(np, cfg, kw["num_slots"], cache_len, 128,
+                          kw["max_len"])
+    Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    fp_b = Hkv * D * 2 * 2
+    repl = "src/repro/kernels/tda/tda.py:"
+    suffix = f".tp{n}"
+    # --- paged decode on a rank's heads
+    q1, k, v, bounds, bt = [T(a, bf) for a in dec]
+    B = int(q1.shape[0])
+    hi = bounds[:, 1:].long()
+    tokens = int(hi.sum())
+    kl, vl = gather(k, bt)[:, :cache_len], gather(v, bt)[:, :cache_len]
+    pos = torch.arange(cache_len, device=dev)
+    lmask = (pos[None] < hi)[:, None, None, :]
+    kk, vv = kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3)
+    name = "tda_paged_decode_attention" + suffix
+    err[name] = 0.0
+
+    def fn():
+        return tda.tda_paged_decode_attention(q1, k, v, bounds, bt)
+
+    def plain():
+        return decode_attention_reference(q1, kl, vl, hi)
+
+    check(name, fn(), plain(), hi[:, 0] > 0)
+    add_row(name, "tda_paged_decode.cu", repl + "220", fn, plain,
+            lambda: F.scaled_dot_product_attention(
+                q1[:, :, None], kk, vv, attn_mask=lmask, enable_gqa=True),
+            "SDPA over bf16 lanes",
+            tokens * fp_b + q1.numel() * 2 + B * Hq * D * 4
+            + bounds.numel() * 4 + bt.numel() * 4,
+            4 * tokens * Hq * D,
+            {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "G": Hq // Hkv,
+             "ranks": n, "lane": {"page_size": int(k.shape[1]),
+                                  "pool_pages": int(k.shape[0])},
+             "tokens_attended": tokens, "dtype": "bfloat16"}, 0,
+            device=True)
+    del kl, vl, kk, vv
+    # --- the mixed step on a rank's heads (live columns j < n_new)
+    q, k, v, kr, vr, bnd, bt = [T(a, bf) for a in mix]
+    S = int(q.shape[1])
+    ring = cache_len
+    cols = torch.arange(S, device=dev)
+    mlive = cols[None] < bnd[:, 1:]
+    name = "tda_mixed_attention" + suffix
+    err[name] = 0.0
+
+    def mfn():
+        return tda.tda_mixed_attention(q, k, v, kr, vr, bnd, bt, ring=ring)
+
+    def mplain():
+        return plain_mixed(q, k, v, kr, vr, bnd, bt, ring=ring)
+
+    check(name, mfn(), mplain(), mlive)
+    ci, nn = mix[5][:, 0].astype(np.int64), mix[5][:, 1].astype(np.int64)
+    cache_keys = np.where(nn > 0, np.minimum(ci, ring), 0)
+    keys = int((nn * cache_keys + nn * (nn + 1) // 2).sum())
+    live_cols = int(nn.sum())
+    r = torch.arange(bt.shape[1] * k.shape[1], device=dev)
+    cit, nnt = bnd[:, :1].long(), bnd[:, 1:].long()
+    cmask = (r[None] < torch.clamp(cit, max=ring))[:, None, :].expand(
+        -1, S, -1)
+    rmask = (cols[None, :, None] >= cols[None, None, :]) & \
+        (cols[None, None, :] < nnt[:, :, None])
+    fmask = torch.cat([cmask, rmask], -1)
+    fmask = fmask | ~fmask.any(-1, keepdim=True)  # no all-masked rows
+    kl, vl = gather(k, bt), gather(v, bt)
+    keys_all = torch.cat([kl, kr], 1).permute(0, 2, 1, 3)
+    vals_all = torch.cat([vl, vr], 1).permute(0, 2, 1, 3)
+    sq = q.permute(0, 2, 1, 3)
+    nbytes = int(cache_keys.sum()) * fp_b + live_cols * fp_b \
+        + live_cols * Hq * D * (2 + 4) + bnd.numel() * 4 + bt.numel() * 4
+    add_row(name, "tda_mixed.cu", repl + "391", mfn, mplain,
+            lambda: F.scaled_dot_product_attention(
+                sq, keys_all, vals_all, attn_mask=fmask[:, None],
+                enable_gqa=True),
+            "SDPA over bf16 lanes and the chunk", nbytes, 4 * keys * Hq * D,
+            {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "G": Hq // Hkv,
+             "ranks": n, "rows_ci_nnew": mix[5].tolist(),
+             "live_columns": live_cols, "bound_bytes": nbytes,
+             "live_query_key_pairs_per_head": keys, "dtype": "bfloat16"},
+            0, plain_reps=5, device=True)
     del q, k, v, kr, vr, kl, vl, keys_all, vals_all, fmask, sq
     torch.cuda.synchronize()
 
@@ -3798,6 +3930,229 @@ def phase_embeds(torch, np):
     return out
 
 
+# The tensor-parallel serves (phase tp_serve): ranks of a (1, N) mesh, each
+# its own process, sharing the one card through gloo (NCCL refuses two ranks
+# on one GPU). (a) qwen2.5-32b at its published widths, depth 64 -> 4, f32
+# weights and compute, at N = 2 and 4 (40 q / 8 kv heads: G = 5 on 20 / 4
+# and 10 / 2 heads a rank); (b) the same widths, depth 8, bf16, N = 2, the
+# default EngineConfig; (c) dbrx-132b at its published widths, depth 40 ->
+# 1, f32, N = 2, TP_MOE_REQUESTS of the dense traffic.
+TP_LAYERS = 4
+TP_RANKS = (2, 4)
+TP_BF16_LAYERS = 8
+TP_BF16_RANKS = 2
+TP_MOE_LAYERS = 1
+TP_MOE_REQUESTS = 8
+TP_COUNTERS = ("prefix_hit_ratio", "pages_shared", "preemptions", "steps",
+               "mixed_steps", "decoded_tokens")
+
+
+def tp_rounds(traffic, n_requests=None):
+    """``profile_serve.workload``'s requests as ``launch.tp_serve`` rounds:
+    the warm-up request alone, then the up-front requests and the
+    arrivals (the first ``n_requests`` of them, in rid order)."""
+    warm, up_front, arrivals, _ = traffic
+    rest = [(0, r) for r in up_front] + list(arrivals)
+    if n_requests is not None:
+        rest = [(t, r) for t, r in rest if r.rid < n_requests]
+    return [[(0, warm.rid, warm.prompt, warm.max_new_tokens)],
+            [(t, r.rid, r.prompt, r.max_new_tokens) for t, r in rest]]
+
+
+def tp_first_diff(torch, cfg, path, rounds, want, got):
+    """The first request whose tokens differ: its rid, the first differing
+    step, and the unsharded model's top-2 logit gap there (a forward of the
+    prompt and the tokens before it, from the saved weights)."""
+    from repro_torch.models.transformer import Model
+    prompts = {rid: p for rnd in rounds for _, rid, p, _ in rnd}
+    rid = min(r for r in want if want[r][0] != got[r][0])
+    a, b = want[rid][0], got[rid][0]
+    step = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+    model = Model(cfg, device="cuda")
+    params = model.prepare(torch.load(path, mmap=True, map_location="cpu",
+                                      weights_only=True))
+    seq = torch.tensor(list(prompts[rid]) + a[:step], device="cuda")[None]
+    with torch.inference_mode():
+        logits, _ = model.apply(params, {"inputs": seq})
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return {"rid": rid, "step": step, "unsharded_top2_gap":
+            float(top[0] - top[1]), "unsharded": a[step], "sharded": b[step]}
+
+
+def tp_launch_check(label, n, rank, launches):
+    """A rank of the mixed engine launched the paged decode and mixed
+    kernels on its heads."""
+    if not (launches["tda_paged_decode_attention"]
+            and launches["tda_mixed_attention"]):
+        fail(f"tp_serve {label} N={n}: rank {rank} launched {launches}")
+
+
+def tp_case(torch, np, label, cfg, rounds, engine_kw, ranks, tmp, exact):
+    """Serve ``rounds`` unsharded on the card, then on ``(1, N)`` meshes of
+    gloo ranks sharing it for each N in ``ranks``, the ranks loading the
+    weights the parent saved memory-mapped and moving only their slices to
+    the card. Fails unless every request of every run ends ``ok``, every
+    rank's outputs equal the others', the host counters (TP_COUNTERS) equal
+    the unsharded run's, each rank launched the paged decode and mixed
+    kernels, and, with ``exact``, every token equals the unsharded run's
+    (else the first differing step is printed with its top-2 gap). Returns
+    (the unsharded result, {N: every rank's result})."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.tp_serve import serve_rank, serve_scenario
+    from repro_torch.models.transformer import Model
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    base = serve_scenario(dict(cfg=cfg, params=params, engine=engine_kw,
+                               rounds=rounds, device="cuda"), None)
+    path = tmp / f"{label}.pt"
+    torch.save(params, path)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = base["out"]
+    if any(s != "ok" for _, s in want.values()):
+        fail(f"tp_serve {label}: the unsharded run is not all ok")
+    runs = {}
+    for n in ranks:
+        t0 = time.perf_counter()
+        res = [r[0] for r in run_ranks(n, serve_rank, (1, n), [dict(
+            cfg=cfg, params=str(path), engine=engine_kw, rounds=rounds)],
+            device="cuda", backend="gloo")]
+        spawn_s = time.perf_counter() - t0
+        for rank, r in enumerate(res):
+            if r["out"] != res[0]["out"]:
+                fail(f"tp_serve {label} N={n}: rank {rank}'s outputs differ "
+                     "from rank 0's")
+            if any(s != "ok" for _, s in r["out"].values()):
+                fail(f"tp_serve {label} N={n}: not every request ok")
+            tp_launch_check(label, n, rank, r["launches"])
+            bad = {k: (r["stats"][k], base["stats"][k]) for k in TP_COUNTERS
+                   if r["stats"][k] != base["stats"][k]}
+            if bad:
+                fail(f"tp_serve {label} N={n}: host counters (sharded, "
+                     f"unsharded) {bad}")
+        got = res[0]["out"]
+        statuses = {rid: s for rid, (_, s) in got.items()} == \
+            {rid: s for rid, (_, s) in want.items()}
+        if exact and (got != want or not statuses):
+            diff = tp_first_diff(torch, cfg, path, rounds, want, got)
+            print(json.dumps({"phase": "tp_serve", "case": label, "ranks": n,
+                              "first_diff": diff}), flush=True)
+            fail(f"tp_serve {label} N={n}: tokens differ from the "
+                 f"unsharded run's: {diff}")
+        runs[n] = (res, spawn_s)
+    path.unlink()
+    return base, runs
+
+
+def tp_summary(r, spawn_s=None):
+    """One run's tok/s, step ms, weight bytes on the card, peak host RSS,
+    K/V bytes per token (in all and per rank) and launches."""
+    import numpy as np
+    st = r["stats"]
+
+    def median(v):
+        return float(np.median(v)) if v else None
+
+    out = {"output_tok_s": r["output_tokens"] / r["wall_s"],
+           "wall_s": r["wall_s"],
+           "decode_step_ms_median": median(st["step_ms"]["decode"]),
+           "mixed_step_ms_median": median(st["step_ms"]["mixed"]),
+           "steps": st["steps"], "mixed_steps": st["mixed_steps"],
+           "weight_gb_on_card": r["weight_bytes"] / 1e9,
+           "peak_host_rss_gb": r["peak_rss_gb"],
+           "kv_bytes_per_token": st["kv_bytes_per_token"],
+           "kv_bytes_per_token_per_rank": st["kv_bytes_per_token_per_rank"],
+           "tp_ranks": st["tp_ranks"],
+           "launches": {k: v for k, v in r["launches"].items() if v}}
+    col = r.get("collectives")
+    if col and col["calls"]:
+        out["collectives_per_step"] = col["calls"] / st["steps"]
+        out["collective_host_ms_per_step"] = col["seconds"] * 1e3 / st["steps"]
+        out["collective_mb_per_step"] = col["bytes"] / 1e6 / st["steps"]
+    if spawn_s is not None:
+        out["spawn_and_serve_s"] = spawn_s
+    return out
+
+
+def phase_tp_serve(torch, np):
+    """Tensor-parallel serving on the one card: (a) qwen2.5-32b at its
+    published widths, TP_LAYERS layers, float32 weights and compute (TF32
+    off), ``profile_serve.workload`` through ``ENGINE_KW`` and the default
+    ``EngineConfig``, unsharded and then on (1, N) gloo meshes for N in
+    TP_RANKS: tokens, statuses and host counters equal to the unsharded
+    run's; (b) the same widths at TP_BF16_LAYERS layers in bf16 at N =
+    TP_BF16_RANKS: 16/16 ``ok``, host counters equal to the unsharded bf16
+    run's, tok/s and step ms; (c) dbrx-132b at its published widths,
+    TP_MOE_LAYERS layer, float32, N = 2, TP_MOE_REQUESTS requests: tokens
+    equal. Each rank loads the parent's saved weights memory-mapped and
+    moves only its slice to the card. The times are of ranks sharing one
+    card through gloo's host-staged collectives, not a tensor-parallel
+    speed. Returns rank 0's launches of (b) for the ``.tp2`` rows."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import ENGINE_KW, workload
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    label = "ranks share one card via gloo"
+    with tempfile.TemporaryDirectory(prefix="tp_serve_") as tmp:
+        tmp = Path(tmp)
+        cfg = get_config("qwen2.5-32b", "full", n_layers=TP_LAYERS,
+                         dtype="float32", param_dtype="float32")
+        rounds = tp_rounds(workload(cfg.vocab_size,
+                                    ENGINE_KW["max_new_tokens"]))
+        base, runs = tp_case(torch, np, "f32", cfg, rounds, ENGINE_KW,
+                             TP_RANKS, tmp, exact=True)
+        line("tp_serve", case="a", card=smi, timing=label,
+             model=cfg.name, n_layers=cfg.n_layers, dtype="float32",
+             reduced={"n_layers": f"64 -> {cfg.n_layers} (depth only)"},
+             tokens_equal_unsharded=True, host_counters_equal=True,
+             requests=len(base["out"]) - 1,
+             unsharded=tp_summary(base),
+             ranks={n: [tp_summary(r, s if i == 0 else None)
+                        for i, r in enumerate(res)]
+                    for n, (res, s) in runs.items()})
+        cfg = get_config("qwen2.5-32b", "full", n_layers=TP_BF16_LAYERS,
+                         param_dtype="bfloat16")
+        base, runs = tp_case(torch, np, "bf16", cfg, rounds, ENGINE_KW,
+                             (TP_BF16_RANKS,), tmp, exact=False)
+        res, s = runs[TP_BF16_RANKS]
+        same = sum(res[0]["out"][rid] == base["out"][rid]
+                   for rid in base["out"])
+        line("tp_serve", case="b", card=smi, timing=label,
+             model=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+             reduced={"n_layers": f"64 -> {cfg.n_layers} (depth only)"},
+             ok=len(res[0]["out"]) - 1, host_counters_equal=True,
+             requests_token_equal_unsharded=int(same) - 1,
+             unsharded=tp_summary(base),
+             ranks=[tp_summary(r, s if i == 0 else None)
+                    for i, r in enumerate(res)])
+        tp2 = dict(res[0]["launches"])
+        cfg = get_config("dbrx-132b", "full", n_layers=TP_MOE_LAYERS,
+                         dtype="float32", param_dtype="float32")
+        rounds = tp_rounds(workload(cfg.vocab_size,
+                                    ENGINE_KW["max_new_tokens"]),
+                           TP_MOE_REQUESTS)
+        base, runs = tp_case(torch, np, "moe", cfg, rounds, ENGINE_KW,
+                             (2,), tmp, exact=True)
+        line("tp_serve", case="c", card=smi, timing=label,
+             model=cfg.name, n_layers=cfg.n_layers, dtype="float32",
+             reduced={"n_layers": f"40 -> {cfg.n_layers} (depth only)",
+                      "requests": f"16 -> {TP_MOE_REQUESTS}"},
+             tokens_equal_unsharded=True, host_counters_equal=True,
+             requests=len(base["out"]) - 1,
+             unsharded=tp_summary(base),
+             ranks=[tp_summary(r, runs[2][1] if i == 0 else None)
+                    for i, r in enumerate(runs[2][0])])
+    line("tp_serve", seconds=round(time.perf_counter() - t0, 3))
+    return tp2
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3852,6 +4207,7 @@ def main():
     mlaunches = timed("moe_serve", phase_moe_serve, torch, np)
     reclaunches = timed("recurrent_serve", phase_recurrent_serve, torch, np)
     timed("embeds", phase_embeds, torch, np)
+    tplaunches = timed("tp_serve", phase_tp_serve, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
@@ -3880,6 +4236,9 @@ def main():
                 "" if r["name"].startswith("tda_paged") else ".contiguous")
             r.update(launches=reclaunches[run][r["name"].split(".")[0]],
                      launches_from=f"serve:recurrent:{run}")
+        elif r["name"].endswith(f".tp{TP_BF16_RANKS}"):
+            r.update(launches=tplaunches[r["name"].split(".")[0]],
+                     launches_from="serve:tp:bf16:rank0")
         elif r["name"] in ("dmm_matmul", "smm_matmul"):
             r.update(launches=claunches[r["name"]],
                      launches_from="compressed_serve",

@@ -34,6 +34,7 @@ __all__ = [
     "DictionaryBank",
     "init_linear",
     "apply_linear",
+    "parallel_linear",
     "pack_nibbles",
     "unpack_nibbles",
     "decompress_ws_entry",
@@ -129,10 +130,15 @@ def init_linear(g: torch.Generator, d_in: int, d_out: int,
 
 def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  dicts: Optional[Dict] = None, family: Optional[str] = None,
-                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 compute_dtype: Optional[torch.dtype] = None, *,
+                 mesh=None, fcfg: Optional[FactorizationConfig] = None
+                 ) -> torch.Tensor:
     """``y = x @ W (+ b)``, dispatching on the keys of ``p``: compressed
     streams (``wd_vq``), dense ``w``, or factorized ``wd`` through
-    ``dicts[family]``.
+    ``dicts[family]``. On a ``mesh`` whose ``model`` axis cut the family
+    dictionary's rank (``fcfg`` gives its full rank), a factorized leaf
+    gives the replicated ``y``: the rank's partial product over its rank
+    columns, all-reduced (:func:`_factorized`).
 
     Dense and factorized weights are used in ``x``'s (the compute) dtype;
     ``Model.prepare`` makes that copy once at load time, so on the serving
@@ -147,11 +153,75 @@ def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
             else x.dtype)
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif mesh is not None:
+        y = _factorized(p["wd"].to(x.dtype), x, dicts[family].to(x.dtype),
+                        mesh, fcfg)
     else:
         # Sequential MM — (X @ W_S) @ W_D, the paper's compute order.
         y = (x @ dicts[family].to(x.dtype)) @ p["wd"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _factorized(wd: torch.Tensor, x: torch.Tensor, ws: torch.Tensor, mesh,
+                fcfg: FactorizationConfig) -> torch.Tensor:
+    """``(x @ W_S) @ W_D`` on a mesh. When the ``model`` axis cut the
+    dictionary's rank ``r`` (``W_S`` holds ``r / N`` columns), the rank
+    multiplies by its columns and its rows of ``W_D`` (a column-parallel
+    ``W_D`` holds only those; a row-parallel one holds all ``r`` and is
+    cut here) and one ``all_reduce(SUM)`` adds the partial products."""
+    r = fcfg.rank_for(x.shape[-1], wd.shape[-1])
+    if ws.shape[-1] == r:  # the rank was not cut (N does not divide it)
+        return (x @ ws) @ wd
+    if wd.shape[-2] != ws.shape[-1]:
+        wd = mesh.block(wd, dim=-2)
+    return mesh.all_reduce((x @ ws) @ wd)
+
+
+def parallel_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    dicts: Optional[Dict], family: str, *, mesh,
+                    fcfg: FactorizationConfig, kind: str, width: int,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+    """One linear of a Megatron pair on this rank of ``mesh``'s ``model``
+    axis (``launch/sharding.py`` says where each leaf lives).
+
+    ``kind="col"``: ``x`` replicated -> this rank's block of the ``width``
+    output features. A dense leaf cut over its outputs multiplies its own
+    columns; a leaf that holds every output (compressed streams, or a
+    factorized leaf, whose partial products are all-reduced) computes
+    them all and keeps its block. A width the axis does not divide stays
+    whole on every rank (the placement replicates such a leaf).
+
+    ``kind="row"``: ``x`` this rank's block of the ``width`` input features
+    -> the replicated output. A dense leaf cut over its inputs multiplies
+    its own rows and one ``all_reduce(SUM)`` adds the partial sums; any
+    other leaf gathers ``x`` first and computes the whole product.
+
+    The bias is added after, once: a column block's own entries, or the
+    replicated bias of a row-parallel linear."""
+    core = {k: v for k, v in p.items() if k != "b"}
+    kw = dict(compute_dtype=compute_dtype, mesh=mesh, fcfg=fcfg)
+    n = mesh.shape["model"]
+    if kind == "col":
+        y = apply_linear(core, x, dicts, family, **kw)
+        if y.shape[-1] == width and width % n == 0:
+            y = mesh.block(y)
+    elif kind == "row":
+        local = x.shape[-1] != width
+        if "w" in core and local and core["w"].shape[-2] == x.shape[-1]:
+            y = mesh.all_reduce(x @ core["w"].to(x.dtype))
+        else:
+            y = apply_linear(core, mesh.gather(x) if local else x, dicts,
+                             family, **kw)
+    else:
+        raise ValueError(f"kind must be 'col' or 'row', got {kind!r}")
+    if "b" in p:
+        b = p["b"]
+        if kind == "col" and b.shape[-1] == width and width % n == 0:
+            b = mesh.block(b)
+        y = y + b.to(y.dtype)
     return y
 
 

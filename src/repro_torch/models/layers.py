@@ -24,13 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.factorized import (DictionaryBank, apply_linear,
-                                        init_linear)
+                                        init_linear, parallel_linear)
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ops import (
     fused_decode_attention,
     fused_mixed_attention,
     gather_paged_lanes,
 )
+from repro_torch.launch.mesh import tensor_parallel_size
 from repro_torch.models.common import ModelConfig
 
 NEG_INF = -1e30
@@ -249,6 +250,32 @@ def layer_view(cache: Dict[str, torch.Tensor], name: str,
     return leaf if layer_idx is None else leaf[layer_idx]
 
 
+# The Megatron side of each linear of the attention block and the FFN
+# (``launch/sharding.py``): column-parallel ones give this rank's heads or
+# d_ff slice, row-parallel ones take them and give the replicated output.
+_PARALLEL = {"wq": "col", "wk": "col", "wv": "col", "wo": "row",
+             "w_up": "col", "w_gate": "col", "w_down": "row"}
+
+
+def _linear_fn(p: Dict, dicts: Optional[Dict], cfg: ModelConfig, mesh=None):
+    """``lin(name, x, family, width)``: linear ``p[name]`` in the compute
+    dtype; on a tensor-parallel ``mesh`` its Megatron half
+    (:func:`~repro_torch.core.factorized.parallel_linear`) over the
+    ``width`` features that the model axis splits."""
+    dt = cfg.compute_dtype
+    tp = tensor_parallel_size(mesh) > 1
+
+    def lin(name, x, family, width):
+        if not tp:
+            return apply_linear(p[name], x, dicts, family,
+                                compute_dtype=dt).to(dt)
+        return parallel_linear(p[name], x, dicts, family, mesh=mesh,
+                               fcfg=cfg.factorization, kind=_PARALLEL[name],
+                               width=width, compute_dtype=dt).to(dt)
+
+    return lin
+
+
 def init_attention(g: torch.Generator, cfg: ModelConfig,
                    bank: Optional[DictionaryBank], lead=(),
                    prefix: str = "attn") -> Dict:
@@ -285,6 +312,7 @@ def attention_block(
     prefix_kv: Optional[Dict] = None,  # suffix prefill: {"k"/"v": (B, Np,
     # Hkv, D) post-RoPE shared prefix, "len": (B,) valid prefix length}
     window=...,                       # None, a window, or ...: the config's
+    mesh=None,                        # tensor-parallel mesh: this rank's heads
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
@@ -325,17 +353,20 @@ def attention_block(
     1, ring))`` (canonical ring phase: every resident position is inside
     the window); the mixed step passes the ring and the window to its
     attention.
+
+    On a tensor-parallel ``mesh`` every form runs on this rank's block of
+    heads (``Hq / N`` query and ``Hkv / N`` kv heads, the GQA group
+    unchanged) against the rank's head slice of the cache, through the
+    same kernels; ``wo`` is row-parallel, so the output is replicated.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.compute_dtype
-
-    def lin(name, inp, fam):
-        return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
-
-    q = lin("wq", x, "attn_q").reshape(B, S, cfg.n_heads, hd)
-    k = lin("wk", x, "attn_k").reshape(B, S, cfg.kv_heads, hd)
-    v = lin("wv", x, "attn_v").reshape(B, S, cfg.kv_heads, hd)
+    lin = _linear_fn(p, dicts, cfg, mesh)
+    qw, kvw = cfg.n_heads * hd, cfg.kv_heads * hd
+    q = lin("wq", x, "attn_q", qw).reshape(B, S, -1, hd)
+    k = lin("wk", x, "attn_k", kvw).reshape(B, S, -1, hd)
+    v = lin("wv", x, "attn_v", kvw).reshape(B, S, -1, hd)
     if cfg.rope:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -367,7 +398,7 @@ def attention_block(
                                       _ring_layout(v, ring), quant).items():
                 lane = layer_view(cache, name, layer_idx)
                 lane[:, :t.shape[1]] = t.to(lane.dtype)
-        return lin("wo", o.reshape(B, S, cfg.n_heads * hd), "attn_o")
+        return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
 
     ci = cache_index.reshape(-1).to(torch.int64).expand(B)
     if n_new is not None:
@@ -402,7 +433,7 @@ def attention_block(
         phys = torch.where(wvalid, page * ps + lanepos % ps, P * ps)
         _write_pool(kpool, phys.reshape(-1), k.reshape(B * S, *k.shape[2:]))
         _write_pool(vpool, phys.reshape(-1), v.reshape(B * S, *v.shape[2:]))
-        return lin("wo", o.reshape(B, S, cfg.n_heads * hd), "attn_o")
+        return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
 
     if S != 1:
         raise ValueError("decode takes one token per row")
@@ -460,7 +491,7 @@ def attention_block(
         else:
             kc, vc = view("k"), view("v")
         o = decode_attention(q, kc, vc, hi)
-    return lin("wo", o.reshape(B, S, cfg.n_heads * hd), "attn_o")
+    return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
 
 
 def init_ffn(g: torch.Generator, cfg: ModelConfig,
@@ -481,28 +512,28 @@ def init_ffn(g: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
-              dicts: Optional[Dict] = None,
-              prefix: str = "ffn") -> torch.Tensor:
+              dicts: Optional[Dict] = None, prefix: str = "ffn",
+              d_ff: Optional[int] = None, mesh=None) -> torch.Tensor:
     """``w_down(h)`` with ``h = silu(w_gate x) * w_up x`` (``swiglu``),
     ``gelu(w_gate x) * w_up x`` (``geglu``) or ``gelu(w_up x)`` (``gelu``);
     the GELU is the tanh approximation, ``jax.nn.gelu``'s default.
-    Factorized weights go through the ``{prefix}_*`` dictionaries."""
-    dt = cfg.compute_dtype
+    Factorized weights go through the ``{prefix}_*`` dictionaries. On a
+    tensor-parallel ``mesh`` each rank computes its slice of the width
+    ``d_ff`` (default ``cfg.d_ff``) and ``w_down`` gives the replicated
+    output."""
     if cfg.act not in ("swiglu", "geglu", "gelu"):
         raise ValueError(f"unknown FFN activation {cfg.act!r}")
-
-    def lin(name, inp, fam):
-        return apply_linear(p[name], inp, dicts, fam, compute_dtype=dt).to(dt)
-
-    up = lin("w_up", x, f"{prefix}_up")
+    lin = _linear_fn(p, dicts, cfg, mesh)
+    f = d_ff or cfg.d_ff
+    up = lin("w_up", x, f"{prefix}_up", f)
     if cfg.act == "swiglu":
-        h = F.silu(lin("w_gate", x, f"{prefix}_gate")) * up
+        h = F.silu(lin("w_gate", x, f"{prefix}_gate", f)) * up
     elif cfg.act == "geglu":
-        h = F.gelu(lin("w_gate", x, f"{prefix}_gate"),
+        h = F.gelu(lin("w_gate", x, f"{prefix}_gate", f),
                    approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return lin("w_down", h, f"{prefix}_down")
+    return lin("w_down", h, f"{prefix}_down", f)
 
 
 def init_embedding(g: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -530,19 +561,37 @@ def init_lm_head(g: torch.Generator, cfg: ModelConfig) -> Dict:
         0.0, 1.0 / math.sqrt(cfg.d_model), generator=g)}
 
 
-def embed_tokens(p: Dict, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(cfg.compute_dtype)
+def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 mesh=None) -> torch.Tensor:
+    """The token table's rows of ``tokens`` in the compute dtype. A table
+    cut over the vocabulary (a tensor-parallel ``mesh``) looks up the
+    tokens of its own block, zeros for the others, and one
+    ``all_reduce(SUM)`` assembles the rows (exact)."""
+    tok = p["tok"]
+    ids = tokens.long()
+    if tensor_parallel_size(mesh) == 1 or tok.shape[0] == cfg.vocab_size:
+        return tok[ids].to(cfg.compute_dtype)
+    vl = tok.shape[0]
+    loc = ids - mesh.coords["model"] * vl
+    hit = (loc >= 0) & (loc < vl)
+    x = torch.where(hit[..., None], tok[torch.clamp(loc, 0, vl - 1)], 0.0)
+    return mesh.all_reduce(x.to(cfg.compute_dtype))
 
 
 def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """f32 logits ``x @ w`` (tied: ``x @ tok.T``); a multi-codebook head
-    ``(C, d, V)`` gives ``(B, S, C, V)``."""
+    ``(C, d, V)`` gives ``(B, S, C, V)``. A head cut over the vocabulary
+    (a tensor-parallel ``mesh``) computes its block of every row of ``x``,
+    and one ``all_gather`` assembles the blocks: every rank ends with the
+    same bits."""
     xf = x.float()
     if cfg.tie_embeddings:
-        return xf @ p_embed["tok"].float().T
-    w = p_head["w"].float()
-    if cfg.n_codebooks > 1:
-        return torch.einsum("bsd,cdv->bscv", xf, w)
-    return xf @ w
+        y = xf @ p_embed["tok"].float().T
+    elif cfg.n_codebooks > 1:
+        y = torch.einsum("bsd,cdv->bscv", xf, p_head["w"].float())
+    else:
+        y = xf @ p_head["w"].float()
+    if tensor_parallel_size(mesh) > 1 and y.shape[-1] != cfg.vocab_size:
+        y = mesh.gather(y)
+    return y

@@ -19,6 +19,13 @@ per call (the dictionary with ``decompress_ws_entry``, each expert's W_D
 with ``decompress_wd_leaf``) before two batched products. No expert goes
 through the DMM or SMM kernels, as none does in the reference.
 
+On a mesh (``moe_ffn(..., mesh=)``) the function is the reference's
+``_moe_sharded_body`` on one rank: experts cut over the ``data`` axis
+(expert parallelism) and their contraction over ``model`` (a dense
+expert's ``d_ff`` slice, a factorized one's rank), exchanged by a tiled
+``all_to_all`` over ``data`` (none on a ``(1, N)`` mesh), with the
+rank's tokens routed and their capacity counted per source shard.
+
 ``ROUTER_COUNTS`` keeps, per device, the claims routed and the claims
 dropped by every call since ``reset_router_counts`` (on the device, no
 host sync; ``router_counts()`` reads them).
@@ -31,8 +38,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
+from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import (DictionaryBank, decompress_wd_leaf,
-                                        decompress_ws_entry, init_linear)
+                                        decompress_ws_entry, init_linear,
+                                        parallel_linear)
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["init_moe", "moe_ffn", "router_counts", "reset_router_counts",
@@ -185,10 +196,23 @@ def _capacity(T: int, k: int, E: int, cf: float) -> int:
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
-            dicts: Optional[Dict] = None) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+            dicts: Optional[Dict] = None, mesh=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed-expert FFN over ``x (B, S, d)``: ``(y (B, S, d) in the
-    compute dtype, aux)`` — the reference's ``moe_ffn(mesh=None)``."""
+    compute dtype, aux)`` — the reference's ``moe_ffn(mesh=None)``. On a
+    mesh of more than one rank, :func:`_moe_sharded` on this rank's
+    shards: ``p`` as ``launch.sharding.shard_params`` cut it and ``x``
+    this rank's batch block over ``data`` (replicated over ``model``)."""
+    if mesh is not None and mesh.size > 1:
+        if any("wd_vq" in p[n] for n in ("w_gate", "w_up", "w_down")):
+            raise UnsupportedConfigError(
+                "compressed expert weights (wd_vq streams) are local-only "
+                "for now: the EP/TP placement shards the dense 'wd' leaf, "
+                "not the streaming format. Either serve compressed MoE "
+                "without a mesh (mesh=None / a 1-device mesh), or serve "
+                "dense-factorized params (skip Model.compress_params) on "
+                "the mesh.")
+        return _moe_sharded(p, x, cfg, dicts, mesh)
     B, S, d = x.shape
     m = cfg.moe
     dt = cfg.compute_dtype
@@ -200,3 +224,53 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     buf_out = _expert_ffn(buf, p, dicts, dt)
     y = _combine(buf_out, gates, eidx, pos, keep).reshape(B, S, d).to(dt)
     return y, aux
+
+
+def _all_to_all(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Tiled ``all_to_all`` over ``data``: block ``j`` of ``t``'s leading
+    axis goes to rank ``j``; the result holds the blocks received, in
+    source order."""
+    if mesh.shape["data"] == 1:
+        return t
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=mesh.groups["data"])
+    return out
+
+
+def _moe_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 dicts: Optional[Dict], mesh) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """The reference's ``_moe_sharded_body`` on this rank: route the
+    rank's tokens, dispatch them into ``(E, C, d)`` with the capacity of
+    its own token count, send expert block ``j`` to rank ``j`` of the
+    ``data`` axis (``E / D`` experts each), run the received tokens
+    through the local experts (the ``d_ff`` slice or rank block of
+    ``model``, one ``all_reduce`` per contraction over it), send them back
+    and combine. ``aux`` is averaged over ``data``."""
+    B, S, d = x.shape
+    m = cfg.moe
+    dt = cfg.compute_dtype
+    n_ep = mesh.shape["data"]
+    E = m.n_experts
+    E_loc = E // n_ep
+    tokens = x.reshape(B * S, d)
+    gates, eidx, aux = _router(tokens, p["router"], m.top_k)
+    C = _capacity(B * S, m.top_k, E, m.capacity_factor)
+    buf, pos, keep = _dispatch(tokens, eidx, E, C)
+    _count(keep)
+    recv = _all_to_all(buf, mesh)  # (n_ep * E_loc, C, d) by source
+    recv = recv.reshape(n_ep, E_loc, C, d).transpose(0, 1).reshape(
+        E_loc, n_ep * C, d)
+    kw = dict(mesh=mesh, fcfg=cfg.factorization, width=m.d_ff_expert,
+              compute_dtype=dt)
+    up = parallel_linear(p["w_up"], recv, dicts, "moe_up", kind="col", **kw)
+    gate = parallel_linear(p["w_gate"], recv, dicts, "moe_gate", kind="col",
+                           **kw)
+    h = (F.silu(gate.float()) * up.float()).to(dt)
+    out = parallel_linear(p["w_down"], h, dicts, "moe_down", kind="row",
+                          **kw).to(dt)
+    back = out.reshape(E_loc, n_ep, C, d).transpose(0, 1).reshape(
+        n_ep * E_loc, C, d)
+    y = _combine(_all_to_all(back, mesh), gates, eidx, pos, keep)
+    aux = mesh.all_reduce(aux.reshape(1), "data")[0] / n_ep
+    return y.reshape(B, S, d).to(dt), aux

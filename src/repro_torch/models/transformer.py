@@ -24,6 +24,15 @@ Factorized models add the shared ``params["dicts"]``. So
 ``compress_params`` tree unchanged. ``Model.init`` draws its own weights
 from a ``torch.Generator``; they cannot match the reference's numbers, so
 every parity test uses bridged parameters.
+
+**Tensor parallelism.** Every step (:meth:`Model.hidden`,
+:meth:`Model.prefill`, :meth:`Model.decode_step`, :meth:`Model.mixed_step`,
+:meth:`Model.logits`) takes ``mesh=``, one rank's
+:class:`~repro_torch.launch.mesh.Mesh`; :meth:`Model.prepare` cuts that
+rank's slice of the weights (``launch/sharding.py``) and
+:meth:`Model.init_cache` gives lanes of its ``Hkv / N`` kv heads. The
+attention stacks serve on a ``(1, N)`` mesh; a recurrent block refuses one
+(its head counts do not split).
 """
 from __future__ import annotations
 
@@ -35,6 +44,8 @@ import torch
 from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import DictionaryBank, compress_model_params
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import tensor_parallel_size
+from repro_torch.launch.sharding import param_specs, shard_params
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as SSD
@@ -177,8 +188,13 @@ class Model:
             params["dicts"] = bank.dicts
         return params
 
-    def prepare(self, params: Dict) -> Dict:
-        """Serving copy of ``params``: the layers' dense ``w``, factorized
+    def prepare(self, params: Dict, mesh=None) -> Dict:
+        """Serving copy of ``params`` on the model's device — on a
+        tensor-parallel ``mesh``, of this rank's slice of them
+        (:func:`~repro_torch.launch.sharding.shard_params` over
+        :func:`~repro_torch.launch.sharding.param_specs`, cut before it is
+        moved: a tree on the host, even memory-mapped, sends only the
+        slice to the card). The layers' dense ``w``, factorized
         ``wd`` and biases, the raw dictionaries and the token embedding in
         the compute dtype, made once here instead of on every step.
         Compressed streams, nibble-packed codes and LUTs stay as they are.
@@ -193,6 +209,10 @@ class Model:
         f32) and the LM head stay as they are: the reference computes
         norms, routing, recurrences and logits in f32."""
         dt = self.cfg.compute_dtype
+        if tensor_parallel_size(mesh) > 1:
+            params = shard_params(params, param_specs(params, mesh), mesh)
+        params = _tree_map(
+            lambda t: t.to(self.device).contiguous(), params)
 
         def cast(node):
             return {k: (cast(v) if isinstance(v, dict)
@@ -229,14 +249,14 @@ class Model:
             else self.cfg.sliding_window
 
     def _block_cache(self, kind: str, batch: int, max_len: int, ring: bool,
-                     lead=()) -> Dict[str, torch.Tensor]:
+                     lead=(), tp: int = 1) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if kind == "ssd":
             return SSD.init_ssd_cache(cfg, batch, lead, self.device)
         if kind == "rglru":
             return R.init_rglru_cache(cfg, batch, lead, self.device)
         shape = tuple(lead) + (batch, self._block_ring(kind, max_len, ring),
-                               cfg.kv_heads, cfg.head_dim)
+                               cfg.kv_heads // tp, cfg.head_dim)
 
         def zeros(shp, dt):
             return torch.zeros(shp, dtype=dt, device=self.device)
@@ -249,8 +269,8 @@ class Model:
         return {"k": zeros(shape, cfg.compute_dtype),
                 "v": zeros(shape, cfg.compute_dtype)}
 
-    def init_cache(self, batch: int, max_len: int, ring: bool = True
-                   ) -> Dict[str, Any]:
+    def init_cache(self, batch: int, max_len: int, ring: bool = True,
+                   mesh=None) -> Dict[str, Any]:
         """Zero caches for ``batch`` rows. Attention leaves are contiguous
         lanes ``(batch, width, Hkv, D)`` in the compute dtype, or, with
         ``kv_quant``, int8 codes plus f32 ``k_scale``/``v_scale`` ``(batch,
@@ -259,13 +279,16 @@ class Model:
         fixed-shape states (``models/ssd.py``, ``models/rglru.py``). A
         uniform stack's leaves carry a leading L axis; a heterogeneous
         stack's caches are ``{"layer_XX": {...}}``. (The page pools of the
-        slot table are shaped from these leaves.)"""
+        slot table are shaped from these leaves.) On a tensor-parallel
+        ``mesh`` the attention leaves hold this rank's ``Hkv / N`` heads
+        (``launch.sharding.slot_cache_specs``)."""
         cfg = self.cfg
+        tp = tensor_parallel_size(mesh)
         if cfg.uniform_layers:
             return self._block_cache(cfg.block_kind(0), batch, max_len, ring,
-                                     lead=(cfg.n_layers,))
+                                     lead=(cfg.n_layers,), tp=tp)
         return {f"layer_{i:02d}": self._block_cache(cfg.block_kind(i), batch,
-                                                    max_len, ring)
+                                                    max_len, ring, tp=tp)
                 for i in range(cfg.n_layers)}
 
     def _layer_tree(self, fn) -> Dict[str, Any]:
@@ -312,7 +335,7 @@ class Model:
 
     def _stack(self, params, x, *, positions, caches, cache_index=None,
                slot_mask=None, pages=None, n_new=None, seg_ids=None,
-               prefix_kv=None):
+               prefix_kv=None, mesh=None):
         cfg = self.cfg
         lay = params["layers"]
         dicts = params.get("dicts")
@@ -336,6 +359,11 @@ class Model:
                            "v": prefix_kv["v"][name],
                            "len": prefix_kv["len"]}
             h = L.apply_norm(lp["norm1"], x)
+            if kind in ("ssd", "rglru") and tensor_parallel_size(mesh) > 1:
+                raise UnsupportedConfigError(
+                    f"{cfg.name}: a {kind} block has no tensor-parallel "
+                    "form (its head counts do not split); serve it "
+                    "without a mesh")
             if kind == "ssd":
                 x = x + SSD.ssd_block(lp["ssd"], h, cfg=cfg, dicts=dicts,
                                       cache=cache_l, layer_idx=li,
@@ -351,30 +379,37 @@ class Model:
                     cache=cache_l, layer_idx=li, cache_index=cache_index,
                     pages=pages_l, slot_mask=slot_mask, n_new=n_new,
                     seg_ids=seg_ids, prefix_kv=pre,
-                    window=self._window(kind))
+                    window=self._window(kind), mesh=mesh)
             h2 = L.apply_norm(lp["norm2"], x)
             if "moe" not in lp:
-                x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts)
+                x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts,
+                                    mesh=mesh)
             else:
                 # The reference's order: the routed experts, then arctic's
                 # parallel dense FFN on the same normed input. The aux
                 # loss belongs to training.
-                x = x + moe_ffn(lp["moe"], h2, cfg=cfg, dicts=dicts)[0]
+                x = x + moe_ffn(lp["moe"], h2, cfg=cfg, dicts=dicts,
+                                mesh=mesh)[0]
                 if cfg.moe.dense_residual:
                     x = x + L.ffn_block(lp["dense_ffn"], h2, cfg=cfg,
-                                        dicts=dicts, prefix="densefn")
+                                        dicts=dicts, prefix="densefn",
+                                        d_ff=cfg.moe.d_ff_dense, mesh=mesh)
         return L.apply_norm(params["final_norm"], x)
 
-    def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
-        return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg)
+    def logits(self, params: Dict, h: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+        return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg,
+                           mesh)
 
-    def _embed_in(self, params: Dict, batch: Dict) -> torch.Tensor:
+    def _embed_in(self, params: Dict, batch: Dict,
+                  mesh=None) -> torch.Tensor:
         """``batch["embeds"]`` (B, S, d) cast to the compute dtype for a
         model fed external embeddings, else the token table's rows of
         ``batch["inputs"]``."""
         if self.cfg.external_embeddings:
             return batch["embeds"].to(self.cfg.compute_dtype)
-        return L.embed_tokens(params["embed"], batch["inputs"], self.cfg)
+        return L.embed_tokens(params["embed"], batch["inputs"], self.cfg,
+                              mesh)
 
     def _batch_shape(self, batch: Dict) -> Tuple[int, int]:
         ref = batch["embeds"] if self.cfg.external_embeddings \
@@ -383,7 +418,8 @@ class Model:
 
     def hidden(self, params: Dict, batch: Dict, *,
                caches: Optional[Dict] = None,
-               prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+               prefix_kv: Optional[Dict] = None,
+               mesh=None) -> Tuple[torch.Tensor, Any]:
         """Full-sequence forward up to the final norm: ``(h (B, S, d),
         caches)``. batch ``{"inputs": (B, S)}`` (or ``{"embeds": (B, S,
         d)}`` with external embeddings) with optional ``"positions"``
@@ -398,40 +434,42 @@ class Model:
         prepends to its keys; the batch then holds only the suffix, at
         absolute ``positions``."""
         B, S = self._batch_shape(batch)
-        x = self._embed_in(params, batch)
+        x = self._embed_in(params, batch, mesh)
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
         h = self._stack(params, x, positions=positions.long(),
                         caches=caches, seg_ids=batch.get("seg_ids"),
-                        prefix_kv=prefix_kv)
+                        prefix_kv=prefix_kv, mesh=mesh)
         return h, caches
 
     def apply(self, params: Dict, batch: Dict, *,
               caches: Optional[Dict] = None,
-              prefix_kv: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+              prefix_kv: Optional[Dict] = None,
+              mesh=None) -> Tuple[torch.Tensor, Any]:
         """:meth:`hidden` with all-position logits ``(B, S, V)`` f32
         (``(B, S, C, V)`` for a multi-codebook head). (The reference also
         returns an aux loss, which only MoE stacks make.)"""
         h, caches = self.hidden(params, batch, caches=caches,
-                                prefix_kv=prefix_kv)
-        return self.logits(params, h), caches
+                                prefix_kv=prefix_kv, mesh=mesh)
+        return self.logits(params, h, mesh), caches
 
-    def prefill(self, params: Dict, batch: Dict, *,
-                max_len: int = 0) -> Tuple[torch.Tensor, Any]:
+    def prefill(self, params: Dict, batch: Dict, *, max_len: int = 0,
+                mesh=None) -> Tuple[torch.Tensor, Any]:
         """Forward that fills fresh caches of ``max(max_len, S)`` positions
         (rings of the window for a windowed layer, the prompt's last ring
         positions in canonical ring phase; recurrent layers their end
         state); returns the last position's logits and the caches."""
         B, S = self._batch_shape(batch)
-        caches = self.init_cache(B, max(max_len, S))
-        h, caches = self.hidden(params, batch, caches=caches)
-        return self.logits(params, h[:, -1:]), caches
+        caches = self.init_cache(B, max(max_len, S), mesh=mesh)
+        h, caches = self.hidden(params, batch, caches=caches, mesh=mesh)
+        return self.logits(params, h[:, -1:], mesh), caches
 
     def decode_step(self, params: Dict, batch: Dict, caches,
                     cache_index: torch.Tensor, *,
                     slot_mask: Optional[torch.Tensor] = None,
-                    pages: Optional[Dict] = None) -> Tuple[torch.Tensor, Any]:
+                    pages: Optional[Dict] = None,
+                    mesh=None) -> Tuple[torch.Tensor, Any]:
         """One-token step over contiguous lanes, or paged lanes when
         ``pages`` is given. batch ``{"inputs": (B, 1)}`` or ``{"embeds":
         (B, 1, d)}``; ``cache_index`` (B,) tokens resident per row (the new
@@ -442,17 +480,17 @@ class Model:
         ``(logits (B, 1, V) f32, caches)``; the caches are updated in
         place."""
         B, _ = self._batch_shape(batch)
-        x = self._embed_in(params, batch)
+        x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64).expand(B)
         h = self._stack(params, x, positions=ci.reshape(-1, 1),
                         caches=caches, cache_index=ci, slot_mask=slot_mask,
-                        pages=pages)
-        return self.logits(params, h), caches
+                        pages=pages, mesh=mesh)
+        return self.logits(params, h, mesh), caches
 
     def mixed_hidden(self, params: Dict, batch: Dict, caches,
                      cache_index: torch.Tensor, n_new: torch.Tensor, *,
                      slot_mask: Optional[torch.Tensor] = None,
-                     pages: Dict) -> Tuple[torch.Tensor, Any]:
+                     pages: Dict, mesh=None) -> Tuple[torch.Tensor, Any]:
         """:meth:`mixed_step` up to the final norm: ``(h (B, S, d),
         caches)``. The engine takes logits only at each row's last fresh
         column instead of all ``B * S``."""
@@ -462,18 +500,18 @@ class Model:
                              "a recurrent block has no multi-token decode "
                              "form")
         _, S = self._batch_shape(batch)
-        x = self._embed_in(params, batch)
+        x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64)
         positions = ci[:, None] + torch.arange(S, device=x.device)[None]
         h = self._stack(params, x, positions=positions, caches=caches,
                         cache_index=ci, slot_mask=slot_mask, pages=pages,
-                        n_new=n_new.reshape(-1))
+                        n_new=n_new.reshape(-1), mesh=mesh)
         return h, caches
 
     def mixed_step(self, params: Dict, batch: Dict, caches,
                    cache_index: torch.Tensor, n_new: torch.Tensor, *,
                    slot_mask: Optional[torch.Tensor] = None,
-                   pages: Dict) -> Tuple[torch.Tensor, Any]:
+                   pages: Dict, mesh=None) -> Tuple[torch.Tensor, Any]:
         """One mixed step: up to ``S`` fresh tokens per row — prefill-chunk
         rows (``n_new > 1``), decode rows (``n_new == 1``) and inert rows
         (``n_new == 0``). batch ``{"inputs": (B, S)}`` (or ``{"embeds"}``)
@@ -482,5 +520,6 @@ class Model:
         all-position logits ``(B, S, V)`` and the caches (chunk K/V
         scattered in place after attention)."""
         h, caches = self.mixed_hidden(params, batch, caches, cache_index,
-                                      n_new, slot_mask=slot_mask, pages=pages)
-        return self.logits(params, h), caches
+                                      n_new, slot_mask=slot_mask, pages=pages,
+                                      mesh=mesh)
+        return self.logits(params, h, mesh), caches

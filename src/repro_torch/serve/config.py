@@ -12,6 +12,12 @@ preemption, audits — so ``EngineConfig()`` is valid. The reference's own
 refusals raise :class:`~repro_torch.core.errors.UnsupportedConfigError`,
 and so do models fed external embeddings (llava, musicgen), which the
 reference's Engine cannot serve either: it feeds token ids only.
+
+On a mesh (``Engine(..., mesh=)``) the port serves the reference's
+documented serving mesh, ``("data", "model")`` with ``data = 1``
+(``docs/serving.md``, "Sharded decode"), and refuses what the reference
+refuses there: compressed MoE experts on more than one rank, and head
+counts the ``model`` axis does not divide.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.launch.mesh import tensor_parallel_size
 
 RECURRENT_KINDS = frozenset({"ssd", "rglru"})
 
@@ -70,9 +77,40 @@ class EngineConfig:
                 "mixed_ok": (has_attn and not recurrent and paged
                              and not model_cfg.kv_quant)}
 
-    def validate(self, model_cfg) -> dict:
+    def validate(self, model_cfg, mesh=None) -> dict:
         """Refuse what the port does not serve; returns the model traits."""
         traits = self._model_traits(model_cfg)
+        if mesh is not None and mesh.shape["data"] > 1:
+            raise UnsupportedConfigError(
+                f"the Engine serves on a (1, N) mesh: got data="
+                f"{mesh.shape['data']}. The serving mesh is ('data', "
+                "'model') with data = 1 (docs/serving.md, 'Sharded "
+                "decode'): K/V lanes shard over 'model' and page ownership "
+                "is host metadata every rank shares; run data-parallel "
+                "replicas as separate engines (serve/dispatch.py).")
+        # Compressed MoE expert streams (wd_vq) cannot ride moe_ffn's
+        # sharded EP/TP path, whose placement cuts the dense 'wd' leaf.
+        if (mesh is not None and model_cfg.moe is not None
+                and model_cfg.weight_format == "compressed"
+                and mesh.size > 1):
+            raise UnsupportedConfigError(
+                "cannot serve compressed MoE expert weights (wd_vq "
+                f"streams) on a {mesh.size}-device mesh: moe_ffn's "
+                "EP/TP in_specs shard the dense 'wd' leaf, not the "
+                "streaming format. Either serve without a mesh (mesh=None "
+                "or a 1-device mesh), or serve dense-factorized params "
+                "(skip Model.compress_params) on the mesh.")
+        # Tensor-parallel decode shards the KV-head axis, so the head
+        # counts must split evenly across the mesh's 'model' axis.
+        tp = tensor_parallel_size(mesh)
+        if tp > 1 and (model_cfg.kv_heads % tp or model_cfg.n_heads % tp):
+            raise UnsupportedConfigError(
+                f"cannot shard decode over a {tp}-way 'model' mesh "
+                f"axis: kv_heads={model_cfg.kv_heads} / "
+                f"n_heads={model_cfg.n_heads} must both be divisible by "
+                "the tensor-parallel size (KV-head sharding gives each "
+                "rank a whole number of heads). Use a mesh whose 'model' "
+                "axis divides the head counts, or serve unsharded.")
         if model_cfg.external_embeddings:
             raise UnsupportedConfigError(
                 f"{model_cfg.name}: the Engine feeds token ids only (as the "

@@ -65,8 +65,22 @@ the sampler, stall ticks on the clock) and opt-in per-step audits
 ``serve/dispatch.py`` calls): a
 :class:`~repro_torch.serve.pages.FleetPrefixIndex` shared by replicas;
 publishes mirror full prefix pages to its host tier, probes restore
-fleet-only pages into the local pool first. The only reference option the
-port still refuses is ``mesh`` (ROADMAP Queue 1 item 11).
+fleet-only pages into the local pool first.
+
+**Tensor parallelism** (``mesh=``, one rank's
+:class:`~repro_torch.launch.mesh.Mesh` of a ``(1, N)`` grid, each rank
+its own process: ``launch.mesh.run_ranks``): every rank builds the same
+Engine over its slice of the weights (``Model.prepare``) and its ``Hkv /
+N`` heads of every lane and page, and runs the same host schedule — the
+scheduler, the page pool, the fault plan and the sampling keys are host
+state that every rank computes from the same inputs, and every rank ends
+each step with the same logits (the vocabulary blocks gathered by an
+``all_gather``), so every rank picks the same tokens. The reference's
+contract holds: token identity with ``mesh=None`` at float32.
+``decode_stats`` reports ``tp_ranks`` and the K/V bytes each rank
+streams; audits check each rank's view of the pool and compare the
+ranks' host state with one ``all_reduce``; the fleet refuses a mesh, as
+the reference's does.
 
 **Recurrent stacks** (mamba2, recurrentgemma): the phase-serialized
 engine (no recurrent block has a multi-token decode form), admitting one
@@ -102,6 +116,7 @@ their f32 scales under ``kv_quant``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import time
 import warnings
@@ -115,6 +130,7 @@ from repro_torch.core.factorized import params_stream_bits
 from repro_torch.core.packing import chunk_prompt
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ref import block_stats
+from repro_torch.launch.mesh import tensor_parallel_size
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.kv_slots import SlotKVCache
 from repro_torch.serve.faults import FaultInjector, FaultPlan
@@ -198,11 +214,10 @@ class Engine:
     def __init__(self, model, params, config: Optional[EngineConfig] = None,
                  *, mesh=None, faults=None, fleet=None, **legacy):
         cfg_e = _resolve_engine_config(config, legacy)
-        if mesh is not None:
-            raise UnsupportedConfigError(
-                "Engine(mesh=...) comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 11)")
-        traits = cfg_e.validate(model.cfg)
+        traits = cfg_e.validate(model.cfg, mesh)
+        self.mesh = mesh
+        self._tp = tensor_parallel_size(mesh)
+        self._rank = mesh.coords["model"] if self._tp > 1 else 0
         self.config = cfg_e
         self.device = model.device
         self.model = model
@@ -241,7 +256,7 @@ class Engine:
         self.slots = SlotKVCache(model, num_slots, self.cache_len,
                                  page_size=self.page_size,
                                  pool_frac=cfg_e.pool_frac,
-                                 page_cap=cfg_e.page_cap)
+                                 page_cap=cfg_e.page_cap, mesh=mesh)
         # Prefix sharing: paged stacks whose every lane is a per-token kv
         # lane. A recurrent layer would need its end-of-prefix state, which
         # is neither paged nor content-addressable, so recurrent stacks
@@ -285,7 +300,8 @@ class Engine:
                                 if c.kv_quant else
                                 2 * c.kv_heads * c.head_dim
                                 * c.compute_dtype.itemsize)
-        self.params = self._dmodel.prepare(params) if params is not None \
+        self.params = self._dmodel.prepare(params, mesh) \
+            if params is not None \
             else None
         # Per-slot sampling state, resolved at admission (temps 0: greedy;
         # topks 0: no truncation).
@@ -728,10 +744,11 @@ class Engine:
         h, sl.caches = self._dmodel.mixed_hidden(
             self.params, {"inputs": self._tensor(toks)}, sl.caches,
             self._tensor(sl.lengths), nn,
-            slot_mask=self._tensor(sl.active), pages=self._pages_arg())
+            slot_mask=self._tensor(sl.active), pages=self._pages_arg(),
+            mesh=self.mesh)
         last = torch.clamp(nn.long() - 1, 0, toks.shape[1] - 1)
         row = h[torch.arange(h.shape[0], device=h.device), last]
-        logits = self._dmodel.logits(self.params, row)
+        logits = self._dmodel.logits(self.params, row, self.mesh)
         # the step's host sync
         return self._choose(logits, nan_mask, sampling).cpu().numpy()
 
@@ -742,7 +759,7 @@ class Engine:
         logits, sl.caches = self._dmodel.decode_step(
             self.params, {"inputs": self._tensor(cur[:, None])}, sl.caches,
             self._tensor(sl.lengths), slot_mask=self._tensor(sl.active),
-            pages=self._pages_arg())
+            pages=self._pages_arg(), mesh=self.mesh)
         return self._choose(logits[:, 0], nan_mask, sampling).cpu().numpy()
 
     def finish_run(self) -> List[Request]:
@@ -785,9 +802,10 @@ class Engine:
                                        * self._weight_stream_bits / 8.0
                                        / max(st.decoded_tokens, 1)),
             "kv_bytes_per_token": st.kv_bytes / max(st.decoded_tokens, 1),
-            "tp_ranks": 1,
-            "kv_bytes_per_token_per_rank": (st.kv_bytes
-                                            / max(st.decoded_tokens, 1)),
+            # Each rank streams its Hkv / N heads of every visited page.
+            "tp_ranks": self._tp,
+            "kv_bytes_per_token_per_rank": (
+                st.kv_bytes / max(st.decoded_tokens, 1) / self._tp),
             "bytes_per_token": ((st.steps * self._weight_stream_bits / 8.0
                                  + st.kv_bytes)
                                 / max(st.decoded_tokens, 1)),
@@ -978,6 +996,12 @@ class Engine:
                 "a fleet prefix index needs local prefix sharing: this "
                 "engine has prefix_share disabled (or contiguous lanes that "
                 "cannot share)")
+        if self._tp > 1:
+            raise UnsupportedConfigError(
+                "fleet prefix sharing reads/writes whole pages on the "
+                "host and is single-rank: a KV-head-sharded cache would "
+                "need per-rank page slices. Serve fleet replicas "
+                "unsharded, or drop the fleet index.")
         self._fleet = fleet
 
     def _publish_prefix(self, slot: int, tokens) -> None:
@@ -1272,16 +1296,18 @@ class Engine:
             pk, pv = self.slots.gather_prefix(ids)
             prefix_kv = {"k": pk, "v": pv, "len": self._tensor(plen)}
         # Full-length caches: the lane gather addresses every row position.
-        caches = self._dmodel.init_cache(*tokens.shape, ring=False)
+        caches = self._dmodel.init_cache(*tokens.shape, ring=False,
+                                         mesh=self.mesh)
         h, caches = self._dmodel.hidden(
             self.params, {"inputs": self._tensor(tokens),
                           "positions": self._tensor(positions),
                           "seg_ids": self._tensor(seg)}, caches=caches,
-            prefix_kv=prefix_kv)
+            prefix_kv=prefix_kv, mesh=self.mesh)
         last = np.array([[r, s + n - 1] for r, s, n, _ in slots_of],
                         np.int64)
         logits = self._dmodel.logits(self.params, h[self._tensor(last[:, 0]),
-                                                    self._tensor(last[:, 1])])
+                                                    self._tensor(last[:, 1])],
+                                     self.mesh)
         sampling = None
         res = [self._resolve_sampling(getattr(r, "_origin", r))
                for r in adm.requests]
@@ -1416,13 +1442,15 @@ class Engine:
         """The opt-in per-iteration audit (``audit=True``), after page growth
         and admissions, before the dispatch: the pool's refcount, partition
         and index invariants, each active lane's block-table bounds and
-        private write target, and each slot's length bound. A violation is
-        counted and raised as :class:`AuditError`."""
+        private write target, and each slot's length bound; on a mesh, the
+        ranks' host state against each other (:meth:`_audit_ranks`). A
+        violation is counted and raised as :class:`AuditError`."""
         sl = self.slots
+        err = None
         try:
             active = np.flatnonzero(sl.active)
             if self.paged:
-                sl.pool.check_invariants()
+                sl.pool.check_invariants(ranks=self._tp, rank=self._rank)
                 for s in active:
                     sl.pool.check_lane_bounds(int(s), int(sl.lengths[s]))
                     sl.pool.check_write_private(int(s), int(sl.lengths[s]))
@@ -1432,9 +1460,48 @@ class Engine:
                         "slot-length-bounds",
                         f"slot {int(s)} length {int(sl.lengths[s])} "
                         f"outside [0, {self.cache_len})")
-        except AuditError:
+        except AuditError as e:
+            err = e
+        if self._tp > 1:
+            err = self._audit_ranks(err)
+        if err is not None:
             self._audit_violations += 1
-            raise
+            raise err
+
+    def _audit_ranks(self, err: Optional[AuditError]
+                     ) -> Optional[AuditError]:
+        """Every rank decides admission, paging and preemption on its own
+        copy of the host state, so the copies must stay equal. A digest of
+        the slot table (active slots, lengths, requests) and of the pool
+        (:meth:`PagePool.digest`), with whether this rank's own checks
+        failed, goes through one ``all_reduce(MAX)`` as ``(d, -d,
+        failed)``: every rank takes part whatever its own result, and every
+        rank raises when one rank's checks failed (``rank-failed``) or two
+        digests differ (``rank-drift``). Returns the error to raise."""
+        sl = self.slots
+        h = hashlib.blake2b(digest_size=8)
+        h.update(sl.active.tobytes())
+        h.update(sl.lengths.tobytes())
+        h.update(repr([None if r is None else r.rid
+                       for r in sl.request]).encode())
+        if sl.pool is not None:
+            h.update(sl.pool.digest())
+        d = int.from_bytes(h.digest(), "little") >> 1
+        t = torch.tensor([d, -d, int(err is not None)], dtype=torch.int64,
+                         device=self.mesh.device)
+        hi, neg_lo, failed = self.mesh.all_reduce(t, op="max").tolist()
+        if err is not None:
+            return err
+        view = f"[rank {self._rank}/{self._tp} view]"
+        if failed:
+            return AuditError("rank-failed",
+                              f"another rank's own audit failed {view}")
+        if hi != -neg_lo:
+            return AuditError(
+                "rank-drift", f"host state differs across the {self._tp} "
+                f"ranks: digest {d:#x}, ranks' range [{-neg_lo:#x}, "
+                f"{hi:#x}] {view}")
+        return None
 
     def _resolve_sampling(self, target: Request) -> Tuple[float, int, int]:
         """A request's ``(temperature, top_k, seed)``: its

@@ -42,6 +42,12 @@ reads a shared prefix out of the pool for a suffix prefill, and an
 engine mapped from the prefix cache. All are plain indexing on the
 cache's device. ``read_page`` / ``write_page`` move one page of every
 leaf to host numpy and back, for the fleet's host tier.
+
+On a tensor-parallel ``mesh`` every kv leaf holds this rank's ``Hkv / N``
+heads of every lane and page (``launch.sharding.slot_cache_specs``): the
+block tables, lengths and page ownership are the same host metadata on
+every rank, and every gather, copy and copy-on-write above acts on the
+rank's own head slice.
 """
 from __future__ import annotations
 
@@ -91,7 +97,7 @@ class SlotKVCache:
 
     def __init__(self, model, num_slots: int, cache_len: int,
                  page_size: Optional[int] = None, pool_frac: float = 1.0,
-                 page_cap: Optional[int] = None):
+                 page_cap: Optional[int] = None, mesh=None):
         if num_slots <= 0 or cache_len <= 0:
             raise ValueError("num_slots and cache_len must be positive")
         self.num_slots = num_slots
@@ -127,7 +133,7 @@ class SlotKVCache:
             # Leaf shapes and dtypes from a one-row, one-position cache:
             # kv leaves become pools of their class's pages, state leaves
             # per-slot states.
-            tmpl = model.init_cache(1, 1, ring=False)
+            tmpl = model.init_cache(1, 1, ring=False, mesh=mesh)
             ba = 1 if self._stacked else 0
             self.caches: Dict[str, Any] = {}
             for p in self._paths:
@@ -141,7 +147,7 @@ class SlotKVCache:
                 _set(self.caches, p, torch.zeros(shape, dtype=leaf.dtype,
                                                  device=self.device))
         else:
-            self.caches = model.init_cache(num_slots, cache_len)
+            self.caches = model.init_cache(num_slots, cache_len, mesh=mesh)
         self.active = np.zeros(num_slots, bool)
         self.lengths = np.zeros(num_slots, np.int32)
         self.request: List[Optional[Any]] = [None] * num_slots

@@ -495,11 +495,44 @@ class PagePool:
 
     # -- invariants ----------------------------------------------------
 
-    def check_invariants(self) -> None:
+    def check_invariants(self, ranks: int = 1, rank: int = 0) -> None:
         """Refcounts equal block-table references, free / retained / mapped
         partition the pool, the sentinel row is all ``FREE`` and the prefix
         index is a bijection. Raises
-        :class:`~repro_torch.core.errors.AuditError` naming the check."""
+        :class:`~repro_torch.core.errors.AuditError` naming the check.
+
+        ``ranks > 1``: this pool is rank ``rank``'s view of a
+        KV-head-sharded deployment. Every rank holds its head slice of the
+        same physical pages through its own copy of the same block tables
+        (page ownership is host metadata over partitioned bytes; N head
+        slices of one page are one allocation, never N), so each rank
+        checks its own view once and a failure names the rank. Whether the
+        ranks' views agree is :meth:`digest`'s to show (the engine's audit
+        compares it across the ranks)."""
+        try:
+            self._check_view()
+        except AuditError as e:
+            if ranks > 1:
+                raise AuditError(
+                    e.check, f"{e.detail} [rank {rank}/{ranks} view]")
+            raise
+
+    def digest(self) -> bytes:
+        """8 bytes hashed from the pool's host metadata: every class's
+        block table, refcounts, free list and retained LRU (both in
+        order: they decide the next allocation) and prefix index. Ranks
+        that took the same page decisions give the same bytes."""
+        h = hashlib.blake2b(digest_size=8)
+        for w in sorted(self.classes):
+            c = self.classes[w]
+            for a in (c.table, c.refcount, np.asarray(c.free, np.int64),
+                      np.asarray(list(c.retained), np.int64)):
+                h.update(repr(a.shape).encode())
+                h.update(np.ascontiguousarray(a).tobytes())
+            h.update(repr(sorted(c.index.items())).encode())
+        return h.digest()
+
+    def _check_view(self) -> None:
         for c in self.classes.values():
             if c.table[self.num_slots].tolist() != [c.FREE] * c.lane_pages:
                 raise AuditError(

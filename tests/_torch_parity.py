@@ -199,3 +199,132 @@ def moe_pair(arch: str, fmt: str = "dense", cf=MOE_CF):
         _MOE_PARAMS[key] = (jp, params_from_numpy(to_numpy_tree(jp), CPU))
     jp, tparams = _MOE_PARAMS[key]
     return JM(jcfg), jp, TM(tcfg, device=CPU), tparams
+
+
+# ---- tensor-parallel helpers (tests/test_torch_tp_*.py, ..._sharded_*) ----
+# Rank functions run in the processes of repro_torch.launch.mesh.run_ranks
+# (spawned: they are pickled by import path, so they live here).
+
+
+def rank_sharded_decode(shapes, cases):
+    """One rank: ``sharded_decode_attention`` on the rank's block of kv
+    heads of each case (a dict of numpy arrays: ``q`` (B, 1, Hq, D), ``k``
+    / ``v`` lanes or pools, optional ``k_scale`` / ``v_scale``, ``bt``,
+    ``lengths``, ``window``), on each mesh of ``shapes``
+    (``(data, model)``: the model axis is the tensor-parallel one, so a
+    ``(2, 2)`` grid of four ranks runs two 2-rank cases side by side).
+    Returns ``{shape: outputs}``."""
+    from repro_torch.kernels.tda.sharded import sharded_decode_attention
+    from repro_torch.launch.mesh import make_local_mesh
+    res = {}
+    for shape in shapes:
+        mesh = make_local_mesh(*shape)
+        dev = mesh.device
+        out = []
+        for c in cases:
+            def local(name, dim, c=c):
+                if c.get(name) is None:
+                    return None
+                return mesh.block(t(c[name], dev), dim).contiguous()
+
+            o = sharded_decode_attention(
+                t(c["q"], dev), local("k", -2), local("v", -2),
+                t(c["lengths"], dev), mesh=mesh, window=c.get("window"),
+                k_scale=local("k_scale", -1), v_scale=local("v_scale", -1),
+                block_table=None if c.get("bt") is None
+                else t(c["bt"], dev))
+            out.append(o.cpu().numpy())
+        res[shape] = out
+    return res
+
+
+def rank_moe(cases):
+    """One rank of a ``(2, 2)`` mesh: ``moe_ffn(mesh=)`` on the rank's
+    slice of each case's params (``{"layers": {"moe": ...}, "dicts":
+    ...}``, cut by ``shard_params``) and its batch block of ``x`` over
+    ``data``. Returns ``(data coordinate, y, aux, router_counts())`` per
+    case."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import FactorizationConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import param_specs, shard_params
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models import moe
+    mesh = make_local_mesh(2, 2)
+    out = []
+    for c in cases:
+        cfg = get_config("dbrx-132b", "smoke", dtype="float32")
+        if c["dicts"]:
+            cfg = dc.replace(cfg, factorization=FactorizationConfig(
+                **MOE_FCFG))
+        cfg = dc.replace(cfg, moe=dc.replace(
+            cfg.moe, capacity_factor=c["cf"]))
+        tree = params_from_numpy({"layers": {"moe": c["moe"]},
+                                  "dicts": c["dicts"]}, CPU)
+        loc = shard_params(tree, param_specs(tree, mesh), mesh)
+        x = mesh.block(t(c["x"]), 0, "data")
+        moe.reset_router_counts()
+        y, aux = moe.moe_ffn(loc["layers"]["moe"], x, cfg=cfg,
+                             dicts=loc["dicts"], mesh=mesh)
+        out.append((mesh.coords["data"], y.numpy(), float(aux),
+                    moe.router_counts()))
+    return out
+
+
+def rank_audit_ranks(cfg, params):
+    """One rank of a ``(1, 2)`` mesh: an audited paged Engine's
+    ``_audit_step`` three times: as built, after rank 1 reversed a free
+    list (a drift its own checks cannot see) and after rank 1 broke a
+    refcount (its own checks fail). Returns each audit's ``(check,
+    detail)`` or None, and the count of violations."""
+    from repro_torch.core.errors import AuditError
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Engine, EngineConfig
+    mesh = make_local_mesh(1, 2)
+    eng = Engine(Model(cfg, device=mesh.device), params,
+                 config=EngineConfig(max_len=16, audit=True), mesh=mesh)
+    c = next(iter(eng.slots.pool.classes.values()))
+    out = []
+    for corrupt in (None, "order", "refcount"):
+        if mesh.coords["model"] == 1:
+            if corrupt == "order":
+                c.free.reverse()
+            elif corrupt == "refcount":
+                c.refcount[0] += 1
+        try:
+            eng._audit_step()
+            out.append(None)
+        except AuditError as e:
+            out.append((e.check, e.detail))
+    return out, eng._audit_violations
+
+
+def tp_rounds(lengths, budgets, ticks=None, seed: int = 1, vocab: int = 256):
+    """One round of ``(tick, rid, prompt, max_new_tokens)`` for
+    ``launch.tp_serve``, prompts from :func:`prompts`."""
+    ticks = ticks or [0] * len(lengths)
+    return [[(tk, i, p, b) for i, (p, b, tk) in enumerate(
+        zip(prompts(vocab, lengths, seed), budgets, ticks))]]
+
+
+def ref_serve(model, params, rounds, faults=None, **cfg_kw):
+    """The reference Engine (``mesh=None``) on ``tp_rounds``-style rounds:
+    ``({rid: (tokens, status)}, decode_stats)``."""
+    from repro.serve import Engine, EngineConfig, Request
+    eng = Engine(model, params, config=EngineConfig(**cfg_kw), faults=faults)
+    out = {}
+    for rnd in rounds:
+        arrivals = []
+        for tick, rid, prompt, budget in rnd:
+            req = Request(rid=rid, prompt=np.asarray(prompt, np.int32),
+                          max_new_tokens=budget)
+            if tick:
+                arrivals.append((tick, req))
+            else:
+                eng.submit(req)
+        done = eng.run(arrivals=arrivals)
+        out.update({r.rid: (list(map(int, r.output)), r.status)
+                    for r in done})
+    return out, eng.decode_stats

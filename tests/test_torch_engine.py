@@ -134,6 +134,7 @@ def _refusals():
     reference does: the exception it raises, or None when it accepts)."""
     from repro_torch.core.errors import UnsupportedConfigError as U
     from repro_torch.serve import EngineConfig
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.serve.pages import FleetPrefixIndex
     base = dict(prefix_share=False)
     return {
@@ -152,8 +153,11 @@ def _refusals():
                    TypeError),
         "fleet": (EngineConfig(**base), {"fleet": FleetPrefixIndex()}, {},
                   U),
-        # served by a later slice of the port (ROADMAP Queue 1 item 11)
-        "mesh": (EngineConfig(**base), {"mesh": object()}, {}, U),
+        # a mesh is served on (1, N) only, the reference's serving mesh:
+        # a data axis above 1 is refused at construction
+        "mesh": (EngineConfig(**base), {"mesh": Mesh(
+            {"data": 2, "model": 1}, {"data": 0, "model": 0}, {},
+            torch.device("cpu"))}, {}, U),
     }
 
 
@@ -162,8 +166,9 @@ def test_refused_engine_settings(name):
     """Each setting does what the reference does with it: the reference's
     refusals raise as there (an explicit mixed step on int8 or contiguous
     lanes, ``faults`` of an unknown type, a fleet without prefix sharing),
-    sampling and audits are accepted, and ``mesh``, the one option the
-    port does not serve yet, raises UnsupportedConfigError."""
+    sampling and audits are accepted, and a ``mesh`` whose ``data`` axis
+    is above 1 (the Engine serves the reference's ``(1, N)`` serving
+    mesh) raises UnsupportedConfigError."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import Model

@@ -328,20 +328,25 @@ def test_mixed_wrapper_all_columns_on_the_cpu():
 
 
 def test_refusals_name_their_items():
-    """The MoE family constructs; ``Engine(mesh=...)`` stays refused (item
-    11) and learned positions (item 12), each refusal naming its item; the
+    """The MoE family constructs; compressed experts on a mesh of two
+    ranks stay refused with the reference's message (item 11 serves the
+    rest on a mesh) and learned positions name their item (12); the
     families of items 10b and 10c construct."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig
     for arch in ARCHS:
         for variant in ("smoke", "full"):
             Model(get_config(arch, variant), device="cpu")
-    m = Model(get_config("dbrx-132b", "smoke", dtype="float32"),
-              device="cpu")
-    with pytest.raises(UnsupportedConfigError, match="item 11"):
-        Engine(m, m.init(0), config=EngineConfig(max_len=16), mesh=object())
+    m = Model(get_config("dbrx-132b", "smoke", dtype="float32",
+                         weight_format="compressed"), device="cpu")
+    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0}, {},
+                torch.device("cpu"))
+    with pytest.raises(UnsupportedConfigError,
+                       match="compressed MoE expert weights"):
+        Engine(m, None, config=EngineConfig(max_len=16), mesh=mesh)
     with pytest.raises(UnsupportedConfigError, match="item 12"):
         Model(get_config("dbrx-132b", "smoke", learned_pos=True),
               device="cpu")
