@@ -304,6 +304,38 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               must launch the paged decode and mixed kernels on its heads.
               Each rank's weight bytes on the card and peak host RSS are
               printed.
+11. train   — the trainer (``train/loop.py``, ``launch/steps.py``,
+              ``optim/adamw.py``, ``Model.loss`` with ``chunked_xent``,
+              ``checkpoint/``), TF32 off. (a) qwen2.5 smoke at float32,
+              ``train`` on the card against the CPU from the same params
+              and ``lm_batches`` stream: 12 dense steps with ids >= V at
+              step 7 (a NaN loss: the step must be skipped, the state's
+              step one behind the loop's), then 12 factorized steps
+              (``min_dim`` 32, sparse from step 4, a projection every 4):
+              the same steps recorded, losses within ``TRAIN_LOSS_TOL``,
+              final params within ``TRAIN_PARAM_TOL`` / ``_FRAC``; every
+              W_D column with exactly ``nnz_for(r)`` non-zeros in the
+              step-8 checkpoint and at the end; a restart from the step-8
+              checkpoint alone gives steps 8-11 the uninterrupted run's
+              losses (1e-6); ``launch/serve.py --ckpt`` serves the dense
+              run's checkpoint on the card (the paged decode and mixed TDA
+              kernels must launch) with the CPU serve's tokens and host
+              counters. (b) qwen2.5-32b at its published widths, depth 64
+              -> ``TRAIN_FULL_LAYERS`` = 2, f32 masters, bf16 compute,
+              AdamW with f32 state, ``lm_batches`` at 8 x 64, the config's
+              remat: 6 dense steps, then the factorized model (``min_dim``
+              256) for 6, sparse from step 2, a projection every 3; no
+              step bad, every loss and grad norm finite, the step-0 loss
+              within ``TRAIN_BF16_LOSS_TOL`` of an f32 forward of the same
+              params and batch, exact nnz per W_D column after each
+              projection; per step loss, ms (synchronized wall) and grad
+              norm, one more step split into forward, backward and update
+              (CUDA events), and the peak ``max_memory_allocated`` against
+              the bytes predicted from the shapes (params, grads, m and v
+              in f32, two update temporaries of the largest leaf, one
+              logits chunk and its gradient), with the card's name and
+              power limit. The training path adds no kernel: its attention
+              is the plain flash attention of a forward without caches.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
@@ -4153,6 +4185,362 @@ def phase_tp_serve(torch, np):
     return tp2
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the trainer
+# ---------------------------------------------------------------------------
+
+# Part (a): qwen2.5 smoke at float32, the card against the CPU.
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, schedule="constant")
+TRAIN_SMOKE = dict(batch=2, seq=16)
+TRAIN_STEPS = 12
+TRAIN_POISON = 7        # ids >= V at this step: a NaN loss, skipped
+TRAIN_RESTART = 8       # the checkpoint the factorized run restarts from
+# Card against CPU at f32 (TF32 off): cuBLAS and the CPU's BLAS sum in
+# other orders, ~1e-7 relative, and the trajectory amplifies it: on the
+# CPU alone, initial params perturbed by 1e-7 relative move step 9's loss
+# of this run by up to 8.3e-5 (Adam moves entries whose gradient is at
+# the noise level by up to lr a step, and RoPE makes the k bias such a
+# direction only nearly). So losses of ~6 within 1e-3; parameters: at
+# most TRAIN_PARAM_FRAC of the entries more than TRAIN_PARAM_TOL apart and
+# none more than 2 lr a step.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_PARAM_FRAC = 1e-3
+TRAIN_SERVE = ["--arch", "qwen2.5-32b", "--dtype", "float32", "--requests",
+               "8", "--max-len", "64", "--max-new", "8"]
+TRAIN_SERVE_COUNTERS = ("steps", "mixed_steps", "decoded_tokens",
+                        "prefix_hit_ratio", "pages_shared", "preemptions",
+                        "kv_blocks_visited", "status_counts")
+# Part (b): qwen2.5-32b at its published widths, depth 64 -> 2.
+TRAIN_FULL_LAYERS = 2
+TRAIN_FULL_STEPS = 6
+TRAIN_FULL_BATCH = (8, 64)  # launch/train.py's defaults
+# bf16 compute against an f32 forward of the same params and batch: bf16
+# keeps 8 mantissa bits (2^-9 relative rounding) on every product input;
+# through 2 layers the hidden state moves by ~1e-2 relative, O(1) logits
+# by ~1e-2 each and their mean NLL (~12 at init) by less: 0.05 absolute.
+TRAIN_BF16_LOSS_TOL = 0.05
+
+
+def _flat(tree):
+    from repro_torch.core.tree import tree_leaves
+    return {"/".join(p): v for p, v in tree_leaves(tree)}
+
+
+def _poison(np, steps, vocab):
+    def hook(step, batch):
+        if step in steps:
+            batch = dict(batch)
+            batch["inputs"] = np.full_like(batch["inputs"], vocab + 7)
+        return batch
+    return hook
+
+
+def _wd_nnz_exact(torch, params, fcfg, label):
+    """Every W_D column of ``params`` holds exactly ``nnz_for(r)``
+    non-zeros. Returns the number of W_D matrices checked."""
+    n = 0
+    for k, v in _flat(params).items():
+        if k.endswith("/wd"):
+            want = fcfg.nnz_for(v.shape[-2])
+            nz = (v != 0).sum(-2)
+            if not bool((nz == want).all()):
+                fail(f"train: {label}: {k} has columns with "
+                     f"{sorted(set(nz.flatten().tolist()))} non-zeros, "
+                     f"want {want}")
+            n += v.reshape(-1, *v.shape[-2:]).shape[0]
+    if not n:
+        fail(f"train: {label}: no W_D leaf")
+    return n
+
+
+def train_card_cpu(torch, np, cfg, tmp, hook=None, **loop_kw):
+    """The port's ``train`` on the card and on the CPU from the same host
+    params (``Model.init`` seed 0) and the same ``lm_batches`` stream.
+    Returns ``{"card" | "cpu": train's result}``, each run's checkpoints
+    under ``tmp / "card"`` and ``tmp / "cpu"``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import lm_batches
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, train
+    host = Model(cfg, device="cpu").init(seed=0)
+    out = {}
+    for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+        out[run] = train(
+            Model(cfg, device=dev),
+            lm_batches(cfg.vocab_size, seed=0, **TRAIN_SMOKE),
+            OptConfig(**TRAIN_OPT), TrainLoopConfig(
+                total_steps=TRAIN_STEPS, ckpt_dir=str(tmp / run),
+                ckpt_every=4, log_every=1, **loop_kw),
+            hooks={"inject_fault": hook} if hook else None,
+            params=tree_map(lambda t: t.to(dev, copy=True), host))
+    return out
+
+
+def train_compare(np, out, label):
+    """Card against CPU: the same steps recorded, losses within
+    TRAIN_LOSS_TOL, final params within TRAIN_PARAM_TOL / _FRAC."""
+    hg, hc = out["card"]["history"], out["cpu"]["history"]
+    steps = [h["step"] for h in hg]
+    if steps != [h["step"] for h in hc]:
+        fail(f"train: {label}: card steps {steps}, CPU "
+             f"{[h['step'] for h in hc]}")
+    dl = max(abs(a["loss"] - b["loss"]) for a, b in zip(hg, hc))
+    if not dl <= TRAIN_LOSS_TOL:
+        fail(f"train: {label}: card losses {dl} from the CPU's")
+    g = _flat(out["card"]["state"]["params"])
+    c = _flat(out["cpu"]["state"]["params"])
+    diff = np.concatenate([(g[k].cpu() - c[k]).abs().numpy().ravel()
+                           for k in c])
+    frac = float((diff > TRAIN_PARAM_TOL).mean())
+    cap = 2 * TRAIN_OPT["lr"] * TRAIN_STEPS
+    if not (frac <= TRAIN_PARAM_FRAC and float(diff.max()) <= cap):
+        fail(f"train: {label}: final params: {frac} of entries beyond "
+             f"{TRAIN_PARAM_TOL} (limit {TRAIN_PARAM_FRAC}), max "
+             f"{float(diff.max())} (limit {cap})")
+    return {"steps": steps, "max_loss_diff": dl,
+            "max_grad_norm_rel_diff": max(
+                abs(a["grad_norm"] - b["grad_norm"]) / max(b["grad_norm"],
+                                                           1e-9)
+                for a, b in zip(hg, hc)),
+            "params_share_beyond_tol": frac,
+            "params_max_diff": float(diff.max()),
+            "losses": [round(h["loss"], 6) for h in hg],
+            "step_ms_card": [round(h["dt"] * 1e3, 3) for h in hg]}
+
+
+def train_smoke(torch, np, smi, tmp):
+    """Part (a): qwen2.5 smoke at float32 (TF32 off), the port's ``train``
+    on the card against the CPU: 12 dense steps with a NaN batch at step
+    7, then 12 factorized steps (``min_dim`` 32, sparse from step 4, a
+    projection every 4) with a restart from the step-8 checkpoint; then
+    ``launch/serve.py --ckpt`` serves the dense run's checkpoint on the
+    card (the mixed engine's TDA kernels) and on the CPU."""
+    import shutil
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import FactorizationConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels.tda import tda
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, train
+    cfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
+    V = cfg.vocab_size
+    dense = train_card_cpu(torch, np, cfg, tmp / "dense",
+                           hook=_poison(np, {TRAIN_POISON}, V))
+    dres = train_compare(np, dense, "dense")
+    if TRAIN_POISON in dres["steps"] or len(dres["steps"]) != TRAIN_STEPS - 1:
+        fail(f"train: the NaN batch at step {TRAIN_POISON} was not skipped: "
+             f"{dres['steps']}")
+    if int(dense["card"]["state"]["step"]) != TRAIN_STEPS - 1:
+        fail("train: the skipped step changed the state's step")
+    line("train", case="a", part="dense", card=smi, model=cfg.name,
+         dtype="float32", skipped=[TRAIN_POISON], **dres)
+
+    fcfg = FactorizationConfig(enabled=True, min_dim=32)
+    fc = dataclasses.replace(cfg, factorization=fcfg)
+    sparse_kw = dict(sparse_from_step=4, project_every=4)
+    fact = train_card_cpu(torch, np, fc, tmp / "fact", **sparse_kw)
+    fres = train_compare(np, fact, "factorized")
+    # after each projection (steps 7 and 11): the step-8 checkpoint and
+    # the final params
+    model = Model(fc, device="cuda")
+    like = fact["card"]["state"]
+    ck, _ = restore_checkpoint(tmp / "fact" / "card", like,
+                               step=TRAIN_RESTART)
+    n_wd = _wd_nnz_exact(torch, ck["params"], fcfg, "step-8 checkpoint")
+    _wd_nnz_exact(torch, like["params"], fcfg, "final params")
+    # restart from the step-8 checkpoint alone, the stream at batch 8
+    rdir = tmp / "restart"
+    rdir.mkdir()
+    name = f"step_{TRAIN_RESTART:08d}"
+    shutil.copytree(tmp / "fact" / "card" / name, rdir / name)
+    data = lm_batches(V, seed=0, **TRAIN_SMOKE)
+    for _ in range(TRAIN_RESTART):
+        next(data)
+    rest = train(model, data, OptConfig(**TRAIN_OPT), TrainLoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_dir=str(rdir), ckpt_every=4,
+        log_every=1, **sparse_kw))["history"]
+    ref = [h for h in fact["card"]["history"] if h["step"] >= TRAIN_RESTART]
+    if [h["step"] for h in rest] != [h["step"] for h in ref]:
+        fail(f"train: restart recorded {[h['step'] for h in rest]}")
+    dr = max(abs(a["loss"] - b["loss"]) for a, b in zip(rest, ref))
+    if not dr <= 1e-6:
+        fail(f"train: the restart's losses {dr} from the run's")
+    line("train", case="a", part="factorized", card=smi, model=cfg.name,
+         dtype="float32", fcfg={"min_dim": 32, **sparse_kw},
+         wd_matrices_exact_nnz=n_wd, restart_from=TRAIN_RESTART,
+         restart_max_loss_diff=dr, **fres)
+
+    # serve the dense run's checkpoint: card (TDA kernels) against CPU
+    runs = {}
+    for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+        tda.reset_launch_counts()
+        eng, done = serve.main(TRAIN_SERVE + [
+            "--ckpt", str(tmp / "dense" / run), "--device", dev])
+        torch.cuda.synchronize()
+        runs[run] = ({r.rid: (list(map(int, r.output)), r.status)
+                      for r in done},
+                     {k: eng.decode_stats[k] for k in TRAIN_SERVE_COUNTERS},
+                     dict(tda.LAUNCHES))
+    (tok_g, st_g, la), (tok_c, st_c, _) = runs["card"], runs["cpu"]
+    if tok_g != tok_c:
+        fail(f"train: the card's serve of the checkpoint differs from the "
+             f"CPU's: {[r for r in tok_c if tok_g.get(r) != tok_c[r]]}")
+    if st_g != st_c:
+        fail(f"train: serve host counters {st_g} vs the CPU's {st_c}")
+    if not (la["tda_paged_decode_attention"] and la["tda_mixed_attention"]):
+        fail(f"train: the card's serve did not run the TDA kernels: {la}")
+    if any(s != "ok" for _, s in tok_g.values()):
+        fail("train: a served request is not ok")
+    line("train", case="a", part="serve", card=smi, requests=len(tok_g),
+         tokens_equal_cpu=True, host_counters_equal=True, counters=st_g,
+         launches={k: v for k, v in la.items() if v})
+
+
+def train_step_parts(torch, model, state, batch, opt_cfg, sparse):
+    """One more train step at the state ``train`` left, timed with CUDA
+    events in two parts by the step's own guard (``launch/steps.py``:
+    called between the backward pass and the update), after a forward
+    alone (``Model.loss``) on the same batch: ``forward``, ``backward``
+    (the guard's time less the forward's) and ``update``
+    (``apply_updates`` in place). Returns ms each."""
+    from repro_torch.launch.steps import make_train_step
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    model.loss(state["params"], batch, sparse_train=sparse)
+    ev[1].record()
+    step = make_train_step(model, opt_cfg, sparse_train=sparse)
+    ev[2].record()
+    step(state, batch, guard=lambda m: ev[3].record() is None)
+    ev[4].record()
+    torch.cuda.synchronize()
+    fwd = ev[0].elapsed_time(ev[1])
+    return {"forward": round(fwd, 3),
+            "backward": round(ev[2].elapsed_time(ev[3]) - fwd, 3),
+            "update": round(ev[3].elapsed_time(ev[4]), 3)}
+
+
+def train_full(torch, np, smi, tmp):
+    """Part (b): qwen2.5-32b at its published widths, depth 64 ->
+    TRAIN_FULL_LAYERS, f32 masters and bf16 compute, AdamW with f32
+    state, ``lm_batches`` at 8 x 64, the config's remat: 6 dense steps,
+    then the factorized model (``min_dim`` 256) for 6 steps, sparse from
+    step 2, a projection every 3. No checkpoint (``ckpt_every`` past the
+    run: the state is ~40 GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import FactorizationConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.data.loader import to_device
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, train
+    base = get_config("qwen2.5-32b", "full", n_layers=TRAIN_FULL_LAYERS)
+    B, S = TRAIN_FULL_BATCH
+    fcfg = FactorizationConfig(enabled=True, min_dim=256)
+    for part, cfg in (("dense", base), ("factorized", dataclasses.replace(
+            base, factorization=fcfg))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device="cuda")
+        params = model.init(seed=0)
+        leaves = list(_flat(params).values())
+        n = sum(t.numel() for t in leaves)
+        # params, grads, m, v in f32; the update's two leaf-sized
+        # temporaries at its largest leaf; one (B, S, V) f32 logits chunk
+        # and its gradient
+        predicted = 16 * n + 2 * max(t.numel() * 4 for t in leaves) \
+            + 2 * B * S * cfg.vocab_size * 4
+        first = next(lm_batches(cfg.vocab_size, B, S))
+        ref = None
+        if part == "dense":
+            b0 = to_device(first, model.device)
+            m32 = Model(dataclasses.replace(cfg, dtype="float32"),
+                        device="cuda")
+            with torch.no_grad():
+                ref = float(m32.loss(params, b0)[1]["loss"])
+            del m32, b0
+        checks = {}
+
+        def hook(step, batch, params=params, checks=checks, cfg=cfg):
+            # after the projection at step 2 (the W_D tensors are updated
+            # in place, so ``params`` is the live tree)
+            if cfg.factorization.enabled and step == 3:
+                checks["after_step_2"] = _wd_nnz_exact(
+                    torch, params, cfg.factorization, "full width, step 2")
+            return batch
+
+        opt_cfg = OptConfig(lr=3e-3, warmup_steps=10,
+                            total_steps=TRAIN_FULL_STEPS)
+        out = train(model, lm_batches(cfg.vocab_size, B, S), opt_cfg,
+                    TrainLoopConfig(
+                        total_steps=TRAIN_FULL_STEPS, ckpt_every=10**9,
+                        ckpt_dir=str(tmp / f"full_{part}"), log_every=1,
+                        sparse_from_step=2 if cfg.factorization.enabled
+                        else 10**9, project_every=3),
+                    hooks={"inject_fault": hook}, params=params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        hist = out["history"]
+        if [h["step"] for h in hist] != list(range(TRAIN_FULL_STEPS)):
+            fail(f"train: full width {part}: bad steps "
+                 f"{[h['step'] for h in hist]}")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(
+                h["grad_norm"]) for h in hist):
+            fail(f"train: full width {part}: non-finite loss or grad norm")
+        extra = {}
+        if ref is not None:
+            gap = abs(hist[0]["loss"] - ref)
+            if not gap <= TRAIN_BF16_LOSS_TOL:
+                fail(f"train: full width: step-0 bf16 loss {hist[0]['loss']}"
+                     f" vs f32 {ref} (limit {TRAIN_BF16_LOSS_TOL})")
+            extra = {"step0_loss_f32": ref, "step0_bf16_gap": gap}
+        else:
+            checks["after_step_5"] = _wd_nnz_exact(
+                torch, out["state"]["params"], fcfg, "full width, end")
+            extra = {"wd_matrices_exact_nnz": checks}
+        extra["step_parts_ms"] = train_step_parts(
+            torch, model, out["state"], to_device(first, model.device),
+            opt_cfg, cfg.factorization.enabled)
+        line("train", case="b", part=part, card=smi, model=cfg.name,
+             d_model=cfg.d_model, n_layers=cfg.n_layers,
+             reduced={"n_layers": f"64 -> {cfg.n_layers} (depth only)"},
+             dtype="bfloat16 compute, float32 params and AdamW state",
+             batch=[B, S], remat=cfg.remat, params=n,
+             steps=[{"step": h["step"], "loss": h["loss"],
+                     "ms": round(h["dt"] * 1e3, 3),
+                     "grad_norm": h["grad_norm"], "sparse": h["sparse"]}
+                    for h in hist],
+             peak_mem_gb=peak / 1e9, predicted_gb=predicted / 1e9,
+             peak_over_predicted=peak / predicted, **extra)
+        del model, params, out, leaves, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, np):
+    """The trainer (``train/loop.py``, ``optim/adamw.py``,
+    ``launch/steps.py``, ``checkpoint/``): part (a), the card against the
+    CPU at smoke width, then part (b), full width. TF32 off."""
+    import tempfile
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    with tempfile.TemporaryDirectory(prefix="train_") as tmp:
+        train_smoke(torch, np, smi, Path(tmp))
+        train_full(torch, np, smi, Path(tmp))
+    line("train", seconds=round(time.perf_counter() - t0, 3))
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4208,6 +4596,7 @@ def main():
     reclaunches = timed("recurrent_serve", phase_recurrent_serve, torch, np)
     timed("embeds", phase_embeds, torch, np)
     tplaunches = timed("tp_serve", phase_tp_serve, torch, np)
+    timed("train", phase_train, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT

@@ -131,14 +131,18 @@ def init_linear(g: torch.Generator, d_in: int, d_out: int,
 def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  dicts: Optional[Dict] = None, family: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None, *,
-                 mesh=None, fcfg: Optional[FactorizationConfig] = None
-                 ) -> torch.Tensor:
+                 mesh=None, fcfg: Optional[FactorizationConfig] = None,
+                 sparse_train: bool = False) -> torch.Tensor:
     """``y = x @ W (+ b)``, dispatching on the keys of ``p``: compressed
     streams (``wd_vq``), dense ``w``, or factorized ``wd`` through
     ``dicts[family]``. On a ``mesh`` whose ``model`` axis cut the family
     dictionary's rank (``fcfg`` gives its full rank), a factorized leaf
     gives the replicated ``y``: the rank's partial product over its rank
-    columns, all-reduced (:func:`_factorized`).
+    columns, all-reduced (:func:`_factorized`). With ``sparse_train`` and
+    ``fcfg.ste_in_forward`` a factorized ``wd`` (r, d_out) goes through
+    the straight-through top-``nnz_for(r)`` projection first
+    (:func:`~repro_torch.core.sparsity.ste_sparse`), as the reference's
+    sparse training does.
 
     Dense and factorized weights are used in ``x``'s (the compute) dtype;
     ``Model.prepare`` makes that copy once at load time, so on the serving
@@ -157,8 +161,11 @@ def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
         y = _factorized(p["wd"].to(x.dtype), x, dicts[family].to(x.dtype),
                         mesh, fcfg)
     else:
+        wd = p["wd"]
+        if sparse_train and fcfg.ste_in_forward:
+            wd = sparsity.ste_sparse(wd, fcfg.nnz_for(wd.shape[0]))
         # Sequential MM — (X @ W_S) @ W_D, the paper's compute order.
-        y = (x @ dicts[family].to(x.dtype)) @ p["wd"].to(x.dtype)
+        y = (x @ dicts[family].to(x.dtype)) @ wd.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       [--variant full] [--n-layers 8] [--requests 8] [--max-len 64] \\
       [--max-new 8] [--serialized] [--contiguous] [--kv-quant] \\
-      [--param-dtype bfloat16] [--device cuda]
+      [--param-dtype bfloat16] [--dtype float32] [--ckpt DIR] \\
+      [--device cuda]
 
 Every stack the Engine serves: qwen2.5-32b, yi-34b, qwen1.5-4b,
 starcoder2-15b (LayerNorm, GELU, sliding-window ring lanes), the MoE
@@ -19,9 +20,13 @@ at full depth, ~16 B parameters, fits one 80 GB card so),
 the engine's lanes and prefill (``--serialized``: packed / chunked prefill
 sweeps instead of mixed steps; ``--contiguous``: contiguous lanes instead
 of page pools; ``--kv-quant``: int8 K/V lanes — the last two imply the
-serialized engine) and ``--device``. Weights are random (``Model.init``,
-seed 0); ``--ckpt`` is refused until checkpoints are ported. Runs on the
-CUDA device unless ``--device cpu`` is given.
+serialized engine), ``--dtype`` (the compute dtype) and ``--device``.
+Weights are random (``Model.init``, seed 0) unless ``--ckpt DIR`` holds a
+checkpoint: then its latest step is restored as the reference restores
+it, first as ``{"params": ...}`` (a train state, ``launch/train.py``'s)
+and else as a bare params tree, written by either package. Runs on the
+CUDA device unless ``--device cpu`` is given. ``main`` returns the
+Engine and its finished requests.
 """
 from __future__ import annotations
 
@@ -30,21 +35,11 @@ import time
 
 import numpy as np
 
+from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.core.errors import UnsupportedConfigError
+from repro_torch.data import request_lengths
 from repro_torch.models.transformer import Model
 from repro_torch.serve import Engine, EngineConfig, Request
-
-
-def request_lengths(n: int, max_len: int, seed: int = 0):
-    """The reference's ``repro.data.request_lengths`` ("bert" profile):
-    mostly short prompts, bucketed at max_len/8, /4, /2 and max_len."""
-    rng = np.random.default_rng(seed)
-    buckets = [max_len // 8, max_len // 4, max_len // 2, max_len]
-    idx = rng.choice(len(buckets), size=n, p=[0.25, 0.4, 0.25, 0.1])
-    jitter = rng.integers(-max_len // 16, 1, size=n)
-    return [int(np.clip(buckets[i] + j, 1, max_len))
-            for i, j in zip(idx, jitter)]
 
 
 def main(argv=None):
@@ -60,17 +55,16 @@ def main(argv=None):
     ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--param-dtype", default=None)
+    ap.add_argument("--dtype", default=None)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise UnsupportedConfigError(
-            "--ckpt: checkpoint restore comes with a later slice of the "
-            "port (ROADMAP Queue 1 item 12)")
     over = {} if args.n_layers is None else {"n_layers": args.n_layers}
     if args.kv_quant:
         over["kv_quant"] = True
     if args.param_dtype:
         over["param_dtype"] = args.param_dtype
+    if args.dtype:
+        over["dtype"] = args.dtype
     cfg = get_config(args.arch, args.variant, **over)
     econf = EngineConfig(max_len=args.max_len, max_new_tokens=args.max_new,
                          paged=not args.contiguous,
@@ -78,6 +72,16 @@ def main(argv=None):
     econf.validate(cfg)  # refuse before drawing any weight
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        try:
+            restored, step = restore_checkpoint(args.ckpt,
+                                                {"params": params})
+            params = restored["params"]
+            print(f"loaded checkpoint step {step}")
+        except KeyError:
+            # a checkpoint of a bare params tree has no "params/" prefix
+            params, step = restore_checkpoint(args.ckpt, params)
+            print(f"partial restore: params only (step {step})")
     eng = Engine(model, params, config=econf)
     rng = np.random.default_rng(0)
     for rid, n in enumerate(request_lengths(args.requests, args.max_len)):
@@ -98,6 +102,7 @@ def main(argv=None):
           f"{'paged' if eng.paged else 'contiguous'} "
           f"{'int8' if cfg.kv_quant else 'fp'} lanes | prefix hit ratio "
           f"{ds['prefix_hit_ratio']:.2f}, {ds['preemptions']} preemptions")
+    return eng, done
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.factorized import (DictionaryBank, apply_linear,
                                         init_linear, parallel_linear)
@@ -40,7 +41,7 @@ __all__ = ["init_norm", "apply_norm", "rope_tables", "apply_rope", "flash_attent
            "kv_quantize", "kv_dequantize", "decode_attention",
            "init_attention", "attention_block", "init_ffn", "ffn_block",
            "init_embedding", "init_lm_head", "embed_tokens", "lm_logits",
-           "layer_view", "NEG_INF"]
+           "cross_entropy", "chunked_xent", "layer_view", "NEG_INF"]
 
 
 def init_norm(cfg: ModelConfig, lead=(),
@@ -257,9 +258,11 @@ _PARALLEL = {"wq": "col", "wk": "col", "wv": "col", "wo": "row",
              "w_up": "col", "w_gate": "col", "w_down": "row"}
 
 
-def _linear_fn(p: Dict, dicts: Optional[Dict], cfg: ModelConfig, mesh=None):
+def _linear_fn(p: Dict, dicts: Optional[Dict], cfg: ModelConfig, mesh=None,
+               sparse_train: bool = False):
     """``lin(name, x, family, width)``: linear ``p[name]`` in the compute
-    dtype; on a tensor-parallel ``mesh`` its Megatron half
+    dtype (``sparse_train``: factorized W_D through the straight-through
+    projection); on a tensor-parallel ``mesh`` its Megatron half
     (:func:`~repro_torch.core.factorized.parallel_linear`) over the
     ``width`` features that the model axis splits."""
     dt = cfg.compute_dtype
@@ -267,8 +270,9 @@ def _linear_fn(p: Dict, dicts: Optional[Dict], cfg: ModelConfig, mesh=None):
 
     def lin(name, x, family, width):
         if not tp:
-            return apply_linear(p[name], x, dicts, family,
-                                compute_dtype=dt).to(dt)
+            return apply_linear(p[name], x, dicts, family, compute_dtype=dt,
+                                fcfg=cfg.factorization,
+                                sparse_train=sparse_train).to(dt)
         return parallel_linear(p[name], x, dicts, family, mesh=mesh,
                                fcfg=cfg.factorization, kind=_PARALLEL[name],
                                width=width, compute_dtype=dt).to(dt)
@@ -313,6 +317,7 @@ def attention_block(
     # Hkv, D) post-RoPE shared prefix, "len": (B,) valid prefix length}
     window=...,                       # None, a window, or ...: the config's
     mesh=None,                        # tensor-parallel mesh: this rank's heads
+    sparse_train: bool = False,       # W_D through the STE (training)
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
@@ -362,7 +367,7 @@ def attention_block(
     B, S, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.compute_dtype
-    lin = _linear_fn(p, dicts, cfg, mesh)
+    lin = _linear_fn(p, dicts, cfg, mesh, sparse_train)
     qw, kvw = cfg.n_heads * hd, cfg.kv_heads * hd
     q = lin("wq", x, "attn_q", qw).reshape(B, S, -1, hd)
     k = lin("wk", x, "attn_k", kvw).reshape(B, S, -1, hd)
@@ -513,17 +518,18 @@ def init_ffn(g: torch.Generator, cfg: ModelConfig,
 
 def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
               dicts: Optional[Dict] = None, prefix: str = "ffn",
-              d_ff: Optional[int] = None, mesh=None) -> torch.Tensor:
+              d_ff: Optional[int] = None, mesh=None,
+              sparse_train: bool = False) -> torch.Tensor:
     """``w_down(h)`` with ``h = silu(w_gate x) * w_up x`` (``swiglu``),
     ``gelu(w_gate x) * w_up x`` (``geglu``) or ``gelu(w_up x)`` (``gelu``);
     the GELU is the tanh approximation, ``jax.nn.gelu``'s default.
     Factorized weights go through the ``{prefix}_*`` dictionaries. On a
     tensor-parallel ``mesh`` each rank computes its slice of the width
     ``d_ff`` (default ``cfg.d_ff``) and ``w_down`` gives the replicated
-    output."""
+    output. ``sparse_train``: factorized W_D through the STE."""
     if cfg.act not in ("swiglu", "geglu", "gelu"):
         raise ValueError(f"unknown FFN activation {cfg.act!r}")
-    lin = _linear_fn(p, dicts, cfg, mesh)
+    lin = _linear_fn(p, dicts, cfg, mesh, sparse_train)
     f = d_ff or cfg.d_ff
     up = lin("w_up", x, f"{prefix}_up", f)
     if cfg.act == "swiglu":
@@ -563,14 +569,22 @@ def init_lm_head(g: torch.Generator, cfg: ModelConfig) -> Dict:
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                  mesh=None) -> torch.Tensor:
-    """The token table's rows of ``tokens`` in the compute dtype. A table
+    """The token table's rows of ``tokens`` in the compute dtype, as
+    ``jnp.take`` gives them: an id in ``[-V, 0)`` counts from the end, and
+    an id outside ``[-V, V)`` gets a row of NaN (no host sync, no
+    device-side assert), so a corrupt batch shows as a NaN loss. A table
     cut over the vocabulary (a tensor-parallel ``mesh``) looks up the
     tokens of its own block, zeros for the others, and one
     ``all_reduce(SUM)`` assembles the rows (exact)."""
     tok = p["tok"]
     ids = tokens.long()
     if tensor_parallel_size(mesh) == 1 or tok.shape[0] == cfg.vocab_size:
-        return tok[ids].to(cfg.compute_dtype)
+        V = tok.shape[0]
+        ids = torch.where(ids < 0, ids + V, ids)
+        bad = (ids < 0) | (ids >= V)
+        x = tok[torch.clamp(ids, 0, V - 1)]
+        return torch.where(bad[..., None], float("nan"),
+                           x).to(cfg.compute_dtype)
     vl = tok.shape[0]
     loc = ids - mesh.coords["model"] * vl
     hit = (loc >= 0) & (loc < vl)
@@ -595,3 +609,61 @@ def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,
     if tensor_parallel_size(mesh) > 1 and y.shape[-1] != cfg.vocab_size:
         y = mesh.gather(y)
     return y
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL over weighted positions: logits (..., V) f32,
+    labels (...); with ``weights`` the weighted sum over ``max(sum w,
+    1)``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if weights is None:
+        return nll.mean()
+    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def _chunk_nll(p_head: Dict, p_embed: Dict, h: torch.Tensor,
+               labels: torch.Tensor, w: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's weighted NLL sum and weight sum (multi-codebook: the
+    NLL averaged over codebooks first)."""
+    logits = lm_logits(p_head, p_embed, h, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if nll.dim() > w.dim():
+        nll = nll.mean(-1)
+    return (nll * w).sum(), w.sum()
+
+
+def chunked_xent(p_head: Dict, p_embed: Dict, h: torch.Tensor,
+                 labels: torch.Tensor, cfg: ModelConfig,
+                 weights: Optional[torch.Tensor] = None,
+                 chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy of the LM head over ``h`` (B, S, d) without holding
+    every position's (B, S, V) logits: a loop over sequence chunks of
+    ``c = min(chunk, S)`` positions, each computing its logits, logsumexp
+    and gold logit. Each chunk runs under ``torch.utils.checkpoint``, so
+    its logits are recomputed in the backward pass instead of saved (the
+    reference's ``jax.checkpoint(nothing_saveable)`` over its scan). When
+    ``c`` does not divide ``S``: :func:`cross_entropy` over the full
+    logits, as in the reference. Labels ``(B, S)``, or ``(B, S, C)`` for a
+    multi-codebook head."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    if S % c != 0:
+        return cross_entropy(lm_logits(p_head, p_embed, h, cfg), labels,
+                             weights)
+    if weights is None:
+        weights = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a in range(0, S, c):
+        n_i, w_i = checkpoint(_chunk_nll, p_head, p_embed, h[:, a:a + c],
+                              labels[:, a:a + c], weights[:, a:a + c], cfg,
+                              use_reentrant=False)
+        nll_sum = nll_sum + n_i
+        w_sum = w_sum + w_i
+    return nll_sum / torch.clamp(w_sum, min=1.0)

@@ -40,8 +40,10 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
+from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
-from repro_torch.core.factorized import (DictionaryBank, decompress_wd_leaf,
+from repro_torch.core.factorized import (DictionaryBank, FactorizationConfig,
+                                        decompress_wd_leaf,
                                         decompress_ws_entry, init_linear,
                                         parallel_linear)
 from repro_torch.models.common import ModelConfig
@@ -167,8 +169,13 @@ def _combine(buf_out: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor,
 
 
 def _expert_mat(pp: Dict, x: torch.Tensor, dicts: Optional[Dict],
-                family: str, dt: torch.dtype) -> torch.Tensor:
-    """``x (E, C, d_in)`` through every expert's matrix: ``(E, C, d_out)``."""
+                family: str, dt: torch.dtype,
+                ste: Optional[FactorizationConfig] = None) -> torch.Tensor:
+    """``x (E, C, d_in)`` through every expert's matrix: ``(E, C, d_out)``.
+    ``ste`` (sparse training): a factorized ``wd`` (E, r, d_out) through
+    the straight-through projection as the reference applies it, over the
+    ``E * r`` rows of all experts together with ``nnz_for(r)`` kept per
+    column."""
     if "w" in pp:
         return torch.bmm(x, pp["w"].to(dt))
     if "wd_vq" in pp:
@@ -178,17 +185,23 @@ def _expert_mat(pp: Dict, x: torch.Tensor, dicts: Optional[Dict],
             {s: pp[s][e] for s in _STREAMS if s in pp}, ws.shape[1], dt)
             for e in range(x.shape[0])])  # (E, r, d_out)
         return torch.bmm(y1, wd)
+    wd = pp["wd"]
+    if ste is not None and ste.ste_in_forward:
+        nnz = max(1, ste.nnz_for(wd.shape[1]))
+        wd = sparsity.ste_sparse(wd.reshape(-1, wd.shape[-1]),
+                                 nnz).reshape(wd.shape)
     y1 = x @ dicts[family].to(dt)
-    return torch.bmm(y1, pp["wd"].to(dt))
+    return torch.bmm(y1, wd.to(dt))
 
 
 def _expert_ffn(buf: torch.Tensor, p: Dict, dicts: Optional[Dict],
-                dt: torch.dtype) -> torch.Tensor:
+                dt: torch.dtype,
+                ste: Optional[FactorizationConfig] = None) -> torch.Tensor:
     """SwiGLU experts on the dispatch buffer: ``(E, C, d) -> (E, C, d)``."""
-    up = _expert_mat(p["w_up"], buf, dicts, "moe_up", dt)
-    gate = _expert_mat(p["w_gate"], buf, dicts, "moe_gate", dt)
+    up = _expert_mat(p["w_up"], buf, dicts, "moe_up", dt, ste)
+    gate = _expert_mat(p["w_gate"], buf, dicts, "moe_gate", dt, ste)
     h = (F.silu(gate.float()) * up.float()).to(dt)
-    return _expert_mat(p["w_down"], h, dicts, "moe_down", dt)
+    return _expert_mat(p["w_down"], h, dicts, "moe_down", dt, ste)
 
 
 def _capacity(T: int, k: int, E: int, cf: float) -> int:
@@ -196,14 +209,20 @@ def _capacity(T: int, k: int, E: int, cf: float) -> int:
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
-            dicts: Optional[Dict] = None, mesh=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            dicts: Optional[Dict] = None, mesh=None,
+            sparse_train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed-expert FFN over ``x (B, S, d)``: ``(y (B, S, d) in the
-    compute dtype, aux)`` — the reference's ``moe_ffn(mesh=None)``. On a
-    mesh of more than one rank, :func:`_moe_sharded` on this rank's
-    shards: ``p`` as ``launch.sharding.shard_params`` cut it and ``x``
-    this rank's batch block over ``data`` (replicated over ``model``)."""
+    compute dtype, aux)`` — the reference's ``moe_ffn(mesh=None)``
+    (``sparse_train``: factorized experts through the STE). On a mesh of
+    more than one rank, :func:`_moe_sharded` on this rank's shards: ``p``
+    as ``launch.sharding.shard_params`` cut it and ``x`` this rank's batch
+    block over ``data`` (replicated over ``model``); sparse training
+    there is item 12b of the roadmap."""
     if mesh is not None and mesh.size > 1:
+        if sparse_train:
+            raise UnsupportedConfigError(
+                "sparse training of sharded experts comes with sharded "
+                "training (ROADMAP Queue 1 item 12b)")
         if any("wd_vq" in p[n] for n in ("w_gate", "w_up", "w_down")):
             raise UnsupportedConfigError(
                 "compressed expert weights (wd_vq streams) are local-only "
@@ -221,7 +240,8 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     C = _capacity(B * S, m.top_k, m.n_experts, m.capacity_factor)
     buf, pos, keep = _dispatch(tokens, eidx, m.n_experts, C)
     _count(keep)
-    buf_out = _expert_ffn(buf, p, dicts, dt)
+    buf_out = _expert_ffn(buf, p, dicts, dt,
+                          cfg.factorization if sparse_train else None)
     y = _combine(buf_out, gates, eidx, pos, keep).reshape(B, S, d).to(dt)
     return y, aux
 

@@ -149,17 +149,21 @@ def rglru_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 layer_idx: Optional[int] = None,
                 seg_ids: Optional[torch.Tensor] = None,
-                slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                slot_mask: Optional[torch.Tensor] = None,
+                sparse_train: bool = False) -> torch.Tensor:
     """The RG-LRU block on x (B, S, d): with ``cache`` and ``S == 1`` the
     decode step (rows outside ``slot_mask`` frozen), otherwise the scan
     over the sequence, which fills ``cache`` (when given) with each row's
     last ``h`` and conv inputs. Returns (B, S, d) in the compute dtype."""
     dt = cfg.compute_dtype
     S = x.shape[1]
+    # ``sparse_train``: factorized W_D through the STE (training)
+    lin_kw = dict(fcfg=cfg.factorization, sparse_train=sparse_train)
     y_gate = F.gelu(apply_linear(p["w_y"], x, dicts, "rglru_y",
-                                 compute_dtype=dt).float(),
+                                 compute_dtype=dt, **lin_kw).float(),
                     approximate="tanh")
-    u = apply_linear(p["w_x"], x, dicts, "rglru_x", compute_dtype=dt).to(dt)
+    u = apply_linear(p["w_x"], x, dicts, "rglru_x", compute_dtype=dt,
+                     **lin_kw).to(dt)
     seg_mask = None
     if seg_ids is not None and S > 1:  # padding: identity steps
         seg_mask = (seg_ids > 0)[..., None]
@@ -191,7 +195,7 @@ def rglru_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
             h_l.copy_(ht[:, -1])
             c_l.copy_(conv_state.to(c_l.dtype))
     out = apply_linear(p["w_out"], (ht * y_gate).to(dt), dicts, "rglru_out",
-                       compute_dtype=dt)
+                       compute_dtype=dt, **lin_kw)
     return out.to(dt)
 
 

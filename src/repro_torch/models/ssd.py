@@ -151,7 +151,8 @@ def ssd_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               layer_idx: Optional[int] = None,
               seg_ids: Optional[torch.Tensor] = None,
-              slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              slot_mask: Optional[torch.Tensor] = None,
+              sparse_train: bool = False) -> torch.Tensor:
     """The SSD mixer on x (B, S, d): with ``cache`` and ``S == 1`` the
     recurrent decode step (rows outside ``slot_mask`` keep their state),
     otherwise the chunked scan over the sequence, which fills ``cache``
@@ -160,11 +161,13 @@ def ssd_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     (B, S, d) in the compute dtype."""
     s, d_in, H, _ = _dims(cfg)
     dt_c = cfg.compute_dtype
+    # ``sparse_train``: factorized W_D through the STE (training)
+    lin_kw = dict(fcfg=cfg.factorization, sparse_train=sparse_train)
     B_, S, _ = x.shape
     G, N, P = s.n_groups, s.d_state, s.head_dim
 
     zxbcdt = apply_linear(p["in_proj"], x, dicts, "ssd_in",
-                          compute_dtype=dt_c).to(dt_c)
+                          compute_dtype=dt_c, **lin_kw).to(dt_c)
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [d_in, d_in, G * N, G * N, H],
                                     dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
@@ -220,7 +223,7 @@ def ssd_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     var = (gt * gt).mean(-1, keepdim=True)
     gt = gt * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()
     out = apply_linear(p["out_proj"], gt.to(dt_c), dicts, "ssd_out",
-                       compute_dtype=dt_c)
+                       compute_dtype=dt_c, **lin_kw)
     return out.to(dt_c)
 
 

@@ -40,9 +40,13 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
-from repro_torch.core.factorized import DictionaryBank, compress_model_params
+from repro_torch.core.factorized import (DictionaryBank, FactorizationConfig,
+                                        compress_model_params)
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.mesh import tensor_parallel_size
 from repro_torch.launch.sharding import param_specs, shard_params
@@ -52,19 +56,19 @@ from repro_torch.models import ssd as SSD
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import init_moe, moe_ffn
 
-__all__ = ["Model", "check_supported"]
+__all__ = ["Model", "check_supported", "factorization_regularizer"]
 
 BLOCK_KINDS = ("attn", "local", "ssd", "rglru")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port does not serve: learned positions and the
-    encoder-decoder paper models (ROADMAP Queue 1 item 12), and blocks it
+    encoder-decoder paper models (ROADMAP Queue 1 item 12c), and blocks it
     does not know."""
     if cfg.learned_pos or cfg.n_encoder_layers:
         raise UnsupportedConfigError(
             f"{cfg.name}: learned positions come with the paper models "
-            "(ROADMAP Queue 1 item 12)")
+            "(ROADMAP Queue 1 item 12c)")
     kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
     if kinds - set(BLOCK_KINDS) or cfg.act not in ("swiglu", "geglu", "gelu") \
             or cfg.norm not in ("rmsnorm", "layernorm") \
@@ -75,10 +79,20 @@ def check_supported(cfg: ModelConfig) -> None:
             f"act={cfg.act!r}, norm={cfg.norm!r})")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def factorization_regularizer(params: Dict,
+                              fcfg: FactorizationConfig) -> torch.Tensor:
+    """Sum of :func:`~repro_torch.core.sparsity.out_of_support_l1` over
+    every matrix of every W_D leaf (any leading dims: layers, experts)."""
+    total = 0.0
+    for path, leaf in tree_leaves(params):
+        if path[-1] != "wd":
+            continue
+        r, d_out = leaf.shape[-2], leaf.shape[-1]
+        nnz = fcfg.nnz_for(r)
+        per = torch.stack([sparsity.out_of_support_l1(w, nnz)
+                           for w in leaf.reshape(-1, r, d_out)])
+        total = total + per.sum()
+    return total if torch.is_tensor(total) else torch.zeros(())
 
 
 _CAST_KEYS = ("w", "wd", "b")  # linear leaves used in the compute dtype
@@ -211,7 +225,7 @@ class Model:
         dt = self.cfg.compute_dtype
         if tensor_parallel_size(mesh) > 1:
             params = shard_params(params, param_specs(params, mesh), mesh)
-        params = _tree_map(
+        params = tree_map(
             lambda t: t.to(self.device).contiguous(), params)
 
         def cast(node):
@@ -333,16 +347,70 @@ class Model:
 
         return fill(specs, widths)
 
+    def _block(self, lp: Dict, x: torch.Tensor, *, kind: str, dicts,
+               positions, cache_l, li, cache_index, pages_l, slot_mask,
+               n_new, seg_ids, prefix_l, mesh, sparse_train):
+        """One layer: ``(x, aux)``, ``aux`` the MoE load-balance loss (0.0
+        for other blocks)."""
+        cfg = self.cfg
+        h = L.apply_norm(lp["norm1"], x)
+        if kind in ("ssd", "rglru") and tensor_parallel_size(mesh) > 1:
+            raise UnsupportedConfigError(
+                f"{cfg.name}: a {kind} block has no tensor-parallel "
+                "form (its head counts do not split); serve it "
+                "without a mesh")
+        if kind == "ssd":
+            return x + SSD.ssd_block(lp["ssd"], h, cfg=cfg, dicts=dicts,
+                                     cache=cache_l, layer_idx=li,
+                                     seg_ids=seg_ids, slot_mask=slot_mask,
+                                     sparse_train=sparse_train), 0.0
+        if kind == "rglru":
+            x = x + R.rglru_block(lp["rglru"], h, cfg=cfg, dicts=dicts,
+                                  cache=cache_l, layer_idx=li,
+                                  seg_ids=seg_ids, slot_mask=slot_mask,
+                                  sparse_train=sparse_train)
+        else:
+            x = x + L.attention_block(
+                lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
+                cache=cache_l, layer_idx=li, cache_index=cache_index,
+                pages=pages_l, slot_mask=slot_mask, n_new=n_new,
+                seg_ids=seg_ids, prefix_kv=prefix_l,
+                window=self._window(kind), mesh=mesh,
+                sparse_train=sparse_train)
+        h2 = L.apply_norm(lp["norm2"], x)
+        if "moe" not in lp:
+            return x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts,
+                                   mesh=mesh, sparse_train=sparse_train), 0.0
+        # The reference's order: the routed experts, then arctic's parallel
+        # dense FFN on the same normed input.
+        y, aux = moe_ffn(lp["moe"], h2, cfg=cfg, dicts=dicts, mesh=mesh,
+                         sparse_train=sparse_train)
+        x = x + y
+        if cfg.moe.dense_residual:
+            x = x + L.ffn_block(lp["dense_ffn"], h2, cfg=cfg, dicts=dicts,
+                                prefix="densefn", d_ff=cfg.moe.d_ff_dense,
+                                mesh=mesh, sparse_train=sparse_train)
+        return x, aux
+
     def _stack(self, params, x, *, positions, caches, cache_index=None,
                slot_mask=None, pages=None, n_new=None, seg_ids=None,
-               prefix_kv=None, mesh=None):
+               prefix_kv=None, mesh=None, sparse_train=False):
+        """The block stack and the final norm: ``(h, aux)``, ``aux`` the
+        MoE load-balance loss summed over the layers (f32 0-d; ``0.0`` for
+        a stack without routed experts). With
+        ``cfg.remat != "none"``, a forward without caches under autograd
+        runs each layer under ``torch.utils.checkpoint`` (its activations
+        recomputed in the backward pass: memory, not values, as the
+        reference's ``jax.checkpoint``)."""
         cfg = self.cfg
         lay = params["layers"]
-        dicts = params.get("dicts")
+        remat = cfg.remat != "none" and caches is None \
+            and torch.is_grad_enabled()
+        aux = 0.0
         for i in range(cfg.n_layers):
             kind = cfg.block_kind(i)
             if cfg.uniform_layers:
-                lp = _tree_map(lambda t: t[i], lay)
+                lp = tree_map(lambda t: t[i], lay)
                 cache_l, li, pages_l = caches, i, pages
                 pre = None if prefix_kv is None else {
                     "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
@@ -358,43 +426,19 @@ class Model:
                     pre = {"k": prefix_kv["k"][name],
                            "v": prefix_kv["v"][name],
                            "len": prefix_kv["len"]}
-            h = L.apply_norm(lp["norm1"], x)
-            if kind in ("ssd", "rglru") and tensor_parallel_size(mesh) > 1:
-                raise UnsupportedConfigError(
-                    f"{cfg.name}: a {kind} block has no tensor-parallel "
-                    "form (its head counts do not split); serve it "
-                    "without a mesh")
-            if kind == "ssd":
-                x = x + SSD.ssd_block(lp["ssd"], h, cfg=cfg, dicts=dicts,
-                                      cache=cache_l, layer_idx=li,
-                                      seg_ids=seg_ids, slot_mask=slot_mask)
-                continue
-            if kind == "rglru":
-                x = x + R.rglru_block(lp["rglru"], h, cfg=cfg, dicts=dicts,
-                                      cache=cache_l, layer_idx=li,
-                                      seg_ids=seg_ids, slot_mask=slot_mask)
+            kw = dict(kind=kind, dicts=params.get("dicts"),
+                      positions=positions, cache_l=cache_l, li=li,
+                      cache_index=cache_index, pages_l=pages_l,
+                      slot_mask=slot_mask, n_new=n_new, seg_ids=seg_ids,
+                      prefix_l=pre, mesh=mesh, sparse_train=sparse_train)
+            if remat:
+                x, aux_l = checkpoint(self._block, lp, x, use_reentrant=False,
+                                      **kw)
             else:
-                x = x + L.attention_block(
-                    lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
-                    cache=cache_l, layer_idx=li, cache_index=cache_index,
-                    pages=pages_l, slot_mask=slot_mask, n_new=n_new,
-                    seg_ids=seg_ids, prefix_kv=pre,
-                    window=self._window(kind), mesh=mesh)
-            h2 = L.apply_norm(lp["norm2"], x)
-            if "moe" not in lp:
-                x = x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts,
-                                    mesh=mesh)
-            else:
-                # The reference's order: the routed experts, then arctic's
-                # parallel dense FFN on the same normed input. The aux
-                # loss belongs to training.
-                x = x + moe_ffn(lp["moe"], h2, cfg=cfg, dicts=dicts,
-                                mesh=mesh)[0]
-                if cfg.moe.dense_residual:
-                    x = x + L.ffn_block(lp["dense_ffn"], h2, cfg=cfg,
-                                        dicts=dicts, prefix="densefn",
-                                        d_ff=cfg.moe.d_ff_dense, mesh=mesh)
-        return L.apply_norm(params["final_norm"], x)
+                x, aux_l = self._block(lp, x, **kw)
+            if torch.is_tensor(aux_l):
+                aux = aux + aux_l
+        return L.apply_norm(params["final_norm"], x), aux
 
     def logits(self, params: Dict, h: torch.Tensor,
                mesh=None) -> torch.Tensor:
@@ -438,9 +482,9 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        h = self._stack(params, x, positions=positions.long(),
-                        caches=caches, seg_ids=batch.get("seg_ids"),
-                        prefix_kv=prefix_kv, mesh=mesh)
+        h, _ = self._stack(params, x, positions=positions.long(),
+                           caches=caches, seg_ids=batch.get("seg_ids"),
+                           prefix_kv=prefix_kv, mesh=mesh)
         return h, caches
 
     def apply(self, params: Dict, batch: Dict, *,
@@ -449,10 +493,52 @@ class Model:
               mesh=None) -> Tuple[torch.Tensor, Any]:
         """:meth:`hidden` with all-position logits ``(B, S, V)`` f32
         (``(B, S, C, V)`` for a multi-codebook head). (The reference also
-        returns an aux loss, which only MoE stacks make.)"""
+        returns the aux loss, which :meth:`loss` reads.)"""
         h, caches = self.hidden(params, batch, caches=caches,
                                 prefix_kv=prefix_kv, mesh=mesh)
         return self.logits(params, h, mesh), caches
+
+    def loss(self, params: Dict, batch: Dict, *,
+             sparse_train: bool = False) -> Tuple[torch.Tensor, Dict]:
+        """The training loss of one batch, ``(total, metrics)``: the
+        chunked next-token cross-entropy of ``batch["labels"]`` (``(B, S)``,
+        or ``(B, S, C)`` for a multi-codebook head; optional
+        ``batch["weights"]`` (B, S)), plus ``0.01 * aux`` (the MoE
+        load-balance loss summed over the layers) and, with
+        ``sparse_train`` on a factorized model, ``reg_coeff`` times
+        :func:`factorization_regularizer`; with ``sparse_train`` every
+        factorized W_D also goes through the straight-through projection.
+        ``metrics`` holds the reference's keys: ``xent``, ``aux``,
+        ``sparsity_reg`` (sparse training only) and ``loss``, as f32 0-d
+        tensors.
+
+        ``params`` is the training tree (f32 masters, as ``init`` gives
+        them), never :meth:`prepare`'s compute-dtype copy: gradients land
+        on the tensors passed here. Each linear casts its weight to the
+        compute dtype as it multiplies (at bf16 compute over f32 masters a
+        bf16 product, where the reference promotes to an f32 one; see
+        :meth:`prepare`). Single device: sharded training is item 12b of
+        the roadmap."""
+        cfg = self.cfg
+        B, S = self._batch_shape(batch)
+        x = self._embed_in(params, batch)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        h, aux = self._stack(params, x, positions=positions.long(),
+                             caches=None, seg_ids=batch.get("seg_ids"),
+                             sparse_train=sparse_train)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+        xe = L.chunked_xent(params["lm_head"], params["embed"], h,
+                            batch["labels"], cfg, batch.get("weights"))
+        total = xe + 0.01 * aux
+        metrics = {"xent": xe, "aux": aux}
+        if sparse_train and cfg.factorization.enabled:
+            reg = factorization_regularizer(params, cfg.factorization)
+            total = total + cfg.factorization.reg_coeff * reg
+            metrics["sparsity_reg"] = reg
+        metrics["loss"] = total
+        return total, metrics
 
     def prefill(self, params: Dict, batch: Dict, *, max_len: int = 0,
                 mesh=None) -> Tuple[torch.Tensor, Any]:
@@ -482,9 +568,9 @@ class Model:
         B, _ = self._batch_shape(batch)
         x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64).expand(B)
-        h = self._stack(params, x, positions=ci.reshape(-1, 1),
-                        caches=caches, cache_index=ci, slot_mask=slot_mask,
-                        pages=pages, mesh=mesh)
+        h, _ = self._stack(params, x, positions=ci.reshape(-1, 1),
+                           caches=caches, cache_index=ci,
+                           slot_mask=slot_mask, pages=pages, mesh=mesh)
         return self.logits(params, h, mesh), caches
 
     def mixed_hidden(self, params: Dict, batch: Dict, caches,
@@ -503,9 +589,9 @@ class Model:
         x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64)
         positions = ci[:, None] + torch.arange(S, device=x.device)[None]
-        h = self._stack(params, x, positions=positions, caches=caches,
-                        cache_index=ci, slot_mask=slot_mask, pages=pages,
-                        n_new=n_new.reshape(-1), mesh=mesh)
+        h, _ = self._stack(params, x, positions=positions, caches=caches,
+                           cache_index=ci, slot_mask=slot_mask, pages=pages,
+                           n_new=n_new.reshape(-1), mesh=mesh)
         return h, caches
 
     def mixed_step(self, params: Dict, batch: Dict, caches,

@@ -22,6 +22,15 @@ ATOL_LAYER = 1e-5
 ATOL_LOGITS = 1e-4
 # Model page pools at f32 (post-RoPE K/V written by the step).
 ATOL_POOL = 1e-5
+# Training losses of ~6 at f32: the same formulas summed in another order
+# by the two backends (measured <= 1e-6).
+ATOL_LOSS = 1e-5
+# Gradients at f32, per leaf, of max(1, max |ref|): the backward pass
+# compounds the same reordering over a few matmuls (measured <= 1.6e-6).
+RTOL_GRAD = 1e-5
+# The factorization of the training tests (min_dim 32 reaches every smoke
+# linear).
+FCFG = dict(enabled=True, min_dim=32, rank=32, nnz=8)
 
 ENGINE_KW = dict(max_len=16, max_new_tokens=8, num_slots=3,
                  max_prompt_len=40)
@@ -328,3 +337,72 @@ def ref_serve(model, params, rounds, faults=None, **cfg_kw):
         out.update({r.rid: (list(map(int, r.output)), r.status)
                     for r in done})
     return out, eng.decode_stats
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def flat_tree(tree, pre=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_tree(v, pre + k + "/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def _as_np(x):
+    return x.detach().float().numpy() if torch.is_tensor(x) \
+        else np.asarray(x, dtype=np.float32)
+
+
+def assert_tree_close(got, want, atol, rel=False):
+    g, w = flat_tree(got), flat_tree(want)
+    assert sorted(g) == sorted(w), set(g) ^ set(w)
+    for k in w:
+        a, b = _as_np(g[k]), np.asarray(w[k], dtype=np.float32)
+        assert a.shape == b.shape, (k, a.shape, b.shape)
+        scale = max(1.0, float(np.abs(b).max())) if rel and b.size else 1.0
+        err = float(np.abs(a - b).max()) if b.size else 0.0
+        assert err <= atol * scale, (k, err, atol * scale)
+
+
+def fcfg_over(pkg: str, factorized: bool):
+    if not factorized:
+        return {}
+    if pkg == "jax":
+        from repro.core.factorized import FactorizationConfig
+    else:
+        from repro_torch.core.factorized import FactorizationConfig
+    return {"factorization": FactorizationConfig(**FCFG)}
+
+
+def train_batch(cfg, rng, B=2, S=16):
+    b = {}
+    if cfg.external_embeddings:
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        b["inputs"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)
+    lbl = (B, S) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    b["labels"] = rng.integers(0, cfg.vocab_size, lbl).astype(np.int32)
+    return b
+
+
+def port_loss_grads(model, params, batch, sparse):
+    leaves = flat_tree(params)
+    for v in leaves.values():
+        v.requires_grad_(True)
+    total, metrics = model.loss(params, {k: t(v) for k, v in
+                                         batch.items()}, sparse_train=sparse)
+    names = sorted(leaves)
+    grads = torch.autograd.grad(total, [leaves[n] for n in names],
+                                allow_unused=True)
+    for v in leaves.values():
+        v.requires_grad_(False)
+    return metrics, {n: (torch.zeros_like(leaves[n]) if g is None else g)
+                     for n, g in zip(names, grads)}
