@@ -280,6 +280,32 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               bf16 compute the kernel path's drift within ``BF16_FACTOR``
               (2) times the plain path's; musicgen's logits (2, 1, 4,
               2048).
+   paper_models — the paper's four evaluation models
+              (``models/paper_models.py``: bert, vit, mt, s2t) at their
+              published widths and full depth (12, 12, 6 + 6, 12 + 6
+              layers), seed-0 weights drawn on the CPU, f32 compute: (a)
+              dense, factorized (W_D projected) and compressed
+              (``compress_model_params``), the card against the CPU on the
+              same trees: logits (bert 2 x 128 tokens, vit 2 x 197 patch
+              embeddings), logits and loss (mt 2 x 64 source ids, s2t 2 x
+              256 fbank frames, one source row padded; 2 x 48 targets),
+              within ``PAPER_CPU_REL`` (dense, factorized) and
+              ``PAPER_KERNEL_REL`` (compressed) of the largest logit (the
+              loss relative to itself); DMM and SMM launched once per
+              compressed linear per forward, never for the other formats;
+              (b) the compressed forward through DMM / SMM against the same
+              forward on the decompressed tree, within ``PAPER_KERNEL_REL``;
+              (c) the paper's dynamic batching on bert: 64 requests of
+              ``request_lengths(64, 128, "bert")`` packed by
+              ``pack_requests(PackingPolicy(128, 4))`` against one request
+              a row: utilization, each request's packed f32 logits against
+              its own forward, and the encoder forward's tokens/s, dense
+              and compressed, f32 and bf16, with the card's name and power
+              limit; (d) DMM's and SMM's launches in the bf16 compressed
+              packed forward (72 each, tensor-core bodies), which the rows
+              ``dmm_matmul.bert`` and ``smm_matmul.bert`` carry, timed at
+              that forward's shapes (M = the packed tokens; ffn_down's
+              dictionary, layer 0's ffn_up W_D).
 10. tp_serve — tensor-parallel serving on a (1, N) mesh of rank processes
               (``launch.mesh.run_ranks`` running ``launch.tp_serve.
               serve_rank``) that share the one card through gloo (NCCL
@@ -346,9 +372,11 @@ a rank's shapes of phase 10's bf16 run: 20 q / 4 kv heads) from rank 0 of
 that run (``serve:tp:bf16:rank0``), the ``.d256`` rows from phase 8
 (``serve:recurrent:recurrentgemma-2b``, paged; ``...contiguous``, the
 contiguous run), DMM and SMM from phase
-5 (``compressed_serve``), softmax_lut from the kernel_table phase
-(``kernel_table``); layernorm_residual, the TDA LUT and int8-mixed
-variants and the other ring-shape rows (contiguous decode at G = 12, every
+5 (``compressed_serve``), the ``.bert`` DMM and SMM rows from the bf16
+compressed packed forward of phase ``paper_models``
+(``paper_models:bert_packed_bf16_compressed``), softmax_lut from the
+kernel_table phase (``kernel_table``); layernorm_residual, the TDA LUT
+and int8-mixed variants and the other ring-shape rows (contiguous decode at G = 12, every
 G = 10 row), which no serve runs, from their check at the row's full-width
 shape in phase 2 (``check``: the one launch at that shape, two for
 LayerNorm's f32 and bf16 inputs; counted before they are timed). Then the
@@ -2187,6 +2215,9 @@ def decompressed(torch, cparams, params):
         if isinstance(c, dict) and "wd_vq" in c:
             r = p["wd"].shape[-2]
             out = {k: v for k, v in c.items() if not k.startswith("wd_")}
+            if c["wd_vq"].dim() == 2:  # one layer's own leaf (no L axis)
+                out["wd"] = decompress_wd_leaf(c, r)
+                return out
             layers = [decompress_wd_leaf({k: v[i] for k, v in c.items()}, r)
                       for i in range(c["wd_vq"].shape[0])]
             out["wd"] = torch.stack(layers)
@@ -3962,6 +3993,340 @@ def phase_embeds(torch, np):
     return out
 
 
+# The paper's evaluation models (phase paper_models): bert, vit, mt and s2t
+# at their published widths and full depth, f32 compute, TF32 off.
+PAPER_INPUTS = {"bert": (128, None), "vit": (197, None), "mt": (64, 48),
+                "s2t": (256, 48)}  # (source positions, target positions)
+PAPER_PAD = {"mt": 50, "s2t": 200}  # row 1's source is padded from here
+# Card against CPU: f32 sums in other orders through 12-18 layers and the
+# f32 head (the CPU tests measure 8.5e-7 of the largest logit at 2 narrow
+# layers), relative to the largest CPU logit; losses relative to the loss.
+PAPER_CPU_REL = 1e-4
+# The compressed forward through DMM / SMM against its decompressed plain
+# version on the card (and the card's compressed forward against the CPU's
+# plain one): each linear within phase 5's TOL of its largest output, the
+# SMM tensor-core body's bf16 parts within 2^-16 of each term; relative to
+# the largest logit.
+PAPER_KERNEL_REL = 1e-3
+PAPER_REQUESTS = 64  # bert requests of request_lengths(64, 128, "bert")
+PAPER_REPS = 5       # timed forwards per (format, dtype, layout)
+
+
+def paper_batch(torch, np, name, cfg):
+    """Seeded numpy inputs at ``PAPER_INPUTS``' lengths, two rows: bert
+    token ids, vit patch embeddings, mt source ids and s2t fbank frames
+    (row 1's source padded from ``PAPER_PAD``), targets and labels."""
+    rng = np.random.default_rng(0)
+    S, St = PAPER_INPUTS[name]
+    V = cfg.vocab_size
+    if name == "bert":
+        return {"inputs": rng.integers(0, V, (2, S)).astype(np.int32)}
+    if name == "vit":
+        return {"embeds": rng.standard_normal((2, S, cfg.d_model)).astype(
+            np.float32)}
+    seg = np.ones((2, S), np.int32)
+    seg[1, PAPER_PAD[name]:] = 0
+    b = {"src_seg": seg, "tgt": rng.integers(0, V, (2, St)).astype(np.int32),
+         "labels": rng.integers(0, V, (2, St)).astype(np.int32)}
+    if name == "s2t":
+        b["src_feats"] = rng.standard_normal((2, S, 80)).astype(np.float32)
+    else:
+        b["src"] = rng.integers(0, V, (2, S)).astype(np.int32)
+    return b
+
+
+def paper_forward(model, params, batch):
+    """(logits, loss or None) of one forward."""
+    if hasattr(model, "encode"):
+        logits = model.decode(params, model.encode(params, batch), batch)
+        return logits, model.loss(params, batch)[0]
+    return model.apply(params, batch)[0], None
+
+
+def paper_compare(torch, got, want, loss_got, loss_want, lim, what):
+    """Largest gap relative to the largest reference logit (and the loss
+    gap relative to the loss); fails past ``lim``."""
+    if not torch.isfinite(got).all():
+        fail(f"paper_models {what}: non-finite logits")
+    g, w = got.float().cpu(), want.float().cpu()
+    rel = ((g - w).abs().max() / w.abs().max()).item()
+    out = {"logits_rel": rel}
+    if loss_want is not None:
+        out["loss_rel"] = abs(float(loss_got) - float(loss_want)) \
+            / abs(float(loss_want))
+    if max(out.values()) > lim:
+        fail(f"paper_models {what}: {out} past {lim}")
+    return out
+
+
+def paper_bert_batching(torch, np, cfg, trees):
+    """(c) and (d): the paper's dynamic batching on bert. Requests of
+    ``request_lengths(PAPER_REQUESTS, 128, "bert")`` packed by
+    ``pack_requests(PackingPolicy(128, 4))`` (segment ids, within-request
+    positions) against one request a row (``max_len`` slots each, the
+    unpacked baseline). At f32: each request's logits in the packed forward
+    against a forward of that request alone (dense within PAPER_CPU_REL,
+    compressed within PAPER_KERNEL_REL). The encoder forward's
+    (``Model.hidden``) tokens/s over the live tokens (the median
+    synchronized host wall, ``host_ms``), packed and unpacked, dense and
+    compressed, at f32 and at the config's bf16, beside the forward's
+    device time alone (``device_ms``: its kernels back to back, the host's
+    dispatch hidden; far below ``host_ms``, the forward is host-bound).
+    The bf16
+    compressed packed forward is the phase's main path: its DMM and SMM
+    launches are counted alone. Returns (summary, launches, packed
+    tokens)."""
+    from repro_torch.core.packing import (PackingPolicy, pack_requests,
+                                          packing_utilization)
+    from repro_torch.data import request_lengths
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.smm import smm
+    from repro_torch.models.transformer import Model
+    rng = np.random.default_rng(0)
+    lens = request_lengths(PAPER_REQUESTS, 128, "bert")
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+    pk = pack_requests(reqs, PackingPolicy(128, 4))
+    unp = {"inputs": np.zeros((len(reqs), 128), np.int32),
+           "positions": np.zeros((len(reqs), 128), np.int32),
+           "seg_ids": np.zeros((len(reqs), 128), np.int32)}
+    for i, req in enumerate(reqs):
+        unp["inputs"][i, :len(req)] = req
+        unp["positions"][i, :len(req)] = np.arange(len(req))
+        unp["seg_ids"][i, :len(req)] = 1
+    layouts = {"packed": {"inputs": pk.tokens, "positions": pk.positions,
+                          "seg_ids": pk.segment_ids}, "unpacked": unp}
+    layouts = {k: {n: torch.from_numpy(a).cuda() for n, a in b.items()}
+               for k, b in layouts.items()}
+    n_tok = int(sum(lens))
+    out = {"requests": len(reqs), "tokens": n_tok, "packed_rows": pk.rows,
+           "packing_utilization": packing_utilization(pk),
+           "unpacked_utilization": n_tok / (len(reqs) * 128),
+           "alone_rel": {}, "tok_s": {}, "host_ms": {}, "device_ms": {}}
+    launches = None
+    for fmt in ("dense", "compressed"):
+        model = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+        params = trees[fmt]
+        with torch.inference_mode():
+            packed = model.apply(params, layouts["packed"])[0]
+            lim = PAPER_KERNEL_REL if fmt == "compressed" else PAPER_CPU_REL
+            worst = 0.0
+            for req, (row, start, n) in zip(reqs, pk.request_slots):
+                alone = model.apply(params, {"inputs": torch.from_numpy(
+                    req[None]).cuda()})[0][0]
+                got = packed[row, start:start + n]
+                worst = max(worst, ((got - alone).abs().max()
+                                    / alone.abs().max()).item())
+            if worst > lim:
+                fail(f"paper_models bert {fmt}: a packed request's logits "
+                     f"{worst} from its own forward (limit {lim})")
+            out["alone_rel"][fmt] = worst
+            del packed
+            for dt in ("float32", "bfloat16"):
+                m = Model(dataclasses.replace(cfg, dtype=dt), "cuda")
+                p = m.prepare(params)
+                if fmt == "compressed" and dt == "bfloat16":
+                    dmm.reset_launch_counts()
+                    smm.reset_launch_counts()
+                    m.hidden(p, layouts["packed"])
+                    torch.cuda.synchronize()
+                    launches = {**dmm.LAUNCHES, **smm.LAUNCHES,
+                                **dmm.BODY_LAUNCHES, **smm.BODY_LAUNCHES}
+                for lay, batch in layouts.items():
+                    m.hidden(p, batch)
+                    torch.cuda.synchronize()
+                    ts = []
+                    for _ in range(PAPER_REPS):
+                        t1 = time.perf_counter()
+                        m.hidden(p, batch)
+                        torch.cuda.synchronize()
+                        ts.append(time.perf_counter() - t1)
+                    ts.sort()
+                    key = f"{fmt}/{dt}/{lay}"
+                    out["tok_s"][key] = n_tok / ts[len(ts) // 2]
+                    out["host_ms"][key] = ts[len(ts) // 2] * 1e3
+                    out["device_ms"][key] = device_ms(
+                        torch, lambda: m.hidden(p, batch), PAPER_REPS)
+                del p
+    want = cfg.n_layers * 6  # q, k, v, o, up, down in every layer
+    if launches["dmm_matmul"] != want or launches["smm_matmul"] != want:
+        fail(f"paper_models bert: DMM / SMM launches {launches} in the bf16 "
+             f"compressed packed forward, want {want} each")
+    out["launches"] = launches
+    return out, launches, pk.rows * 128
+
+
+def paper_rows(torch, np, cparams, M, launches):
+    """(d) The kernels-line rows ``dmm_matmul.bert`` (ffn_down's dictionary:
+    K 3072, N = r 512, bf16 x) and ``smm_matmul.bert`` (layer 0's ffn_up
+    W_D: r 512, nnz 64, N 3072, f32 y) at M = the packed tokens of the bf16
+    compressed forward, with that forward's launches: against their plain
+    versions (phase 5's TOL), timed beside the f32 product on the
+    densified matrix, and their bounds."""
+    from repro_torch.core.factorized import decompress_wd_leaf
+    from repro_torch.kernels.dmm.ops import lut_matmul
+    from repro_torch.kernels.dmm.ref import unpack_nibbles
+    from repro_torch.kernels.smm.ops import compressed_matmul
+    g = torch.Generator(device="cuda").manual_seed(5)
+    d = cparams["dicts"]["ffn_down"]
+    codes, lut = d["codes_packed"], d["lut"]
+    K, N = codes.shape[0] * 2, codes.shape[1]
+    ws32 = lut[unpack_nibbles(codes).long()][:K]
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    x32 = x.float()
+    up = {k: v[0] for k, v in cparams["layers"]["ffn"]["w_up"].items()
+          if k.startswith("wd_")}
+    r = ws32.shape[1]
+    st = (up["wd_first"], up["wd_deltas"], up["wd_vq"], up["wd_scale"],
+          up["wd_offset"])
+    wd32 = decompress_wd_leaf(up, r)
+    nnz, N2 = up["wd_vq"].shape
+    y = torch.randn(M, r, generator=g, device="cuda")
+    calls = {
+        "dmm_matmul": (lambda: lut_matmul(x, codes, lut),
+                       lambda: lut_matmul(x, codes, lut, use_kernel=False),
+                       lambda: torch.matmul(x32, ws32),
+                       bound(x.numel() * 2 + codes.numel() + 64 + M * N * 4,
+                             2 * M * K * N, 2), "dmm.cu",
+                       "src/repro/kernels/dmm/dmm.py:51",
+                       {"family": "ffn_down", "M": M, "K": K, "N": N}),
+        "smm_matmul": (lambda: compressed_matmul(y, *st,
+                                                 value_bits=up["wd_bits"]),
+                       lambda: compressed_matmul(y, *st,
+                                                 value_bits=up["wd_bits"],
+                                                 use_kernel=False),
+                       lambda: torch.matmul(y, wd32),
+                       bound(y.numel() * 4 + N2 * 4
+                             + st[1].numel() * st[1].element_size()
+                             + st[2].numel() + M * N2 * 4,
+                             2 * M * nnz * N2, 4), "smm.cu",
+                       "src/repro/kernels/smm/smm.py:63",
+                       {"family": "ffn_up", "M": M, "r": r, "nnz": nnz,
+                        "N": N2, "delta_dtype": str(st[1].dtype)})}
+    rows = []
+    for name, (fn, plain, lib, (b, by), src, repl, shape) in calls.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        lim = TOL * max(1.0, want.abs().max().item())
+        if not err <= lim:
+            fail(f"{name}.bert vs plain: {err} (limit {lim}) at {shape}")
+        rows.append({
+            "name": f"{name}.bert", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": repl, "max_abs_err": err,
+            "ms": time_ms(torch, fn, 10),
+            "device_ms": device_ms(torch, fn, 10),
+            "plain_ms": time_ms(torch, plain, 5),
+            "library_ms": time_ms(torch, lib, 10),
+            "library_device_ms": device_ms(torch, lib, 10),
+            "bound_ms": b, "bound_by": by,
+            "launches": launches[name],
+            "launches_from": "paper_models:bert_packed_bf16_compressed",
+            "body_launches": {k: v for k, v in launches.items()
+                              if k.startswith(name + ".")},
+            "library": LINEAR_LIBRARY[name[:3]], "shape": shape})
+    return rows
+
+
+def phase_paper_models(torch, np):
+    """The paper's four evaluation models (``models/paper_models.py``) at
+    their published widths and full depth, weights from seed 0 drawn on
+    the CPU (factorized ones projected to nnz per column), f32 compute, TF32
+    off. (a) dense, factorized and compressed (``compress_model_params``),
+    the card against the CPU on the same trees and ``paper_batch`` inputs:
+    logits (bert, vit), logits and loss (mt, s2t); the compressed forward
+    launches DMM and SMM once per linear per forward, the others never.
+    (b) the compressed forward on the card through DMM / SMM against the
+    same forward on the decompressed tree (``decompressed``:
+    ``use_kernel=False``'s arithmetic). (c) and (d):
+    :func:`paper_bert_batching` and :func:`paper_rows`. Returns the two
+    kernel rows."""
+    from repro_torch.core.factorized import (compress_model_params,
+                                             project_wd_leaves)
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.dmm import dmm
+    from repro_torch.kernels.smm import smm
+    from repro_torch.models.paper_models import (PAPER_MODELS, EncDecModel,
+                                                 paper_model_config)
+    from repro_torch.models.transformer import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rows = []
+    for name in PAPER_MODELS:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfgs, trees = {}, {}
+        for fmt in ("dense", "factorized"):
+            cfg = dataclasses.replace(paper_model_config(
+                name, fmt == "factorized"), dtype="float32")
+            cls = EncDecModel if cfg.n_encoder_layers else Model
+            params = cls(cfg, device="cpu").init(seed=0)
+            if fmt == "factorized":
+                params = project_wd_leaves(params, cfg.factorization)
+                trees["compressed"], stats = compress_model_params(
+                    params, cfg.factorization)
+                cfgs["compressed"] = cfg
+            cfgs[fmt], trees[fmt] = cfg, params
+        n_params = {f: sum(t.numel() for _, t in tree_leaves(trees[f]))
+                    for f in ("dense", "factorized")}
+        n_lin = sum(v.numel() // (v.shape[-2] * v.shape[-1])
+                    for path, v in tree_leaves(trees["compressed"])
+                    if path[-1] == "wd_vq")
+        passes = 2 if cfg.n_encoder_layers else 1  # loss: a second forward
+        batch = paper_batch(torch, np, name, cfg)
+        cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
+        gpu_b = {k: v.cuda() for k, v in cpu_b.items()}
+        res, card = {}, {}
+        for fmt, tree in trees.items():
+            m_cpu, m_gpu = cls(cfgs[fmt], device="cpu"), \
+                cls(cfgs[fmt], device="cuda")
+            gtree = tree_map(lambda t: t.cuda(), tree)
+            lim = PAPER_KERNEL_REL if fmt == "compressed" else PAPER_CPU_REL
+            with torch.inference_mode():
+                want, want_loss = paper_forward(m_cpu, tree, cpu_b)
+                dmm.reset_launch_counts()
+                smm.reset_launch_counts()
+                got, got_loss = paper_forward(m_gpu, gtree, gpu_b)
+                torch.cuda.synchronize()
+                res[fmt] = paper_compare(torch, got, want, got_loss,
+                                         want_loss, lim, f"{name} {fmt}")
+                n = [dmm.LAUNCHES["dmm_matmul"], smm.LAUNCHES["smm_matmul"]]
+                if n != [n_lin * passes if fmt == "compressed" else 0] * 2:
+                    fail(f"paper_models {name} {fmt}: DMM / SMM launches {n}"
+                         f" ({n_lin} compressed linears, {passes} forwards)")
+                res[fmt]["dmm_smm_launches"] = n
+                if fmt == "compressed":
+                    plain = decompressed(torch, gtree, tree_map(
+                        lambda t: t.cuda(), trees["factorized"]))
+                    p_logits, p_loss = paper_forward(m_gpu, plain, gpu_b)
+                    res["kernel_vs_plain"] = paper_compare(
+                        torch, got, p_logits, got_loss, p_loss,
+                        PAPER_KERNEL_REL, f"{name} kernels vs plain")
+                    del plain, p_logits
+            card[fmt] = gtree
+            del got, want
+        extra = {}
+        if name == "bert":
+            extra, launches, M = paper_bert_batching(torch, np, cfg, card)
+            rows = paper_rows(torch, np, card["compressed"], M, launches)
+        line("paper_models", model=name,
+             seconds=round(time.perf_counter() - t0, 3),
+             layers=[cfg.n_encoder_layers, cfg.n_layers], d_model=cfg.d_model,
+             d_ff=cfg.d_ff, heads=cfg.n_heads, vocab=cfg.vocab_size,
+             inputs=list(PAPER_INPUTS[name]), n_params=n_params,
+             compressed_linears=n_lin,
+             weight_stream_bits=stats["weight_stream_bits"],
+             weight_stream_bits_dense=stats["weight_stream_bits_dense"],
+             limits={"cpu": PAPER_CPU_REL, "kernel": PAPER_KERNEL_REL},
+             results=res, card=smi, **extra)
+        del trees, card
+    return rows
+
+
 # The tensor-parallel serves (phase tp_serve): ranks of a (1, N) mesh, each
 # its own process, sharing the one card through gloo (NCCL refuses two ranks
 # on one GPU). (a) qwen2.5-32b at its published widths, depth 64 -> 4, f32
@@ -4595,6 +4960,7 @@ def main():
     mlaunches = timed("moe_serve", phase_moe_serve, torch, np)
     reclaunches = timed("recurrent_serve", phase_recurrent_serve, torch, np)
     timed("embeds", phase_embeds, torch, np)
+    rows += timed("paper_models", phase_paper_models, torch, np)
     tplaunches = timed("tp_serve", phase_tp_serve, torch, np)
     timed("train", phase_train, torch, np)
     # Each kernel's launches come from the run that drives it, named in the
@@ -4653,7 +5019,7 @@ def main():
     print(json.dumps({"kernels": [{k: r[k] for k in keys + (
         "device_ms", "library_device_ms", "library_bf16_ms", "M8",
         "body_launches", "other_shapes", "skip_mode_ms",
-        "skip_mode_device_ms") if k in r} for r in rows]}))
+        "skip_mode_device_ms", "shape") if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

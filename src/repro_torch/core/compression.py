@@ -13,9 +13,12 @@ The arithmetic follows the reference's numpy step for step: the quantile
 init is numpy's "linear" interpolation written out (``torch.quantile``
 refuses more than 2^24 elements), the k-means sums are taken in float64
 (as ``np.bincount(weights=...)`` takes them), ``searchsorted`` takes the
-left side, and the top-nnz rows of each column are sorted ascending. The
-row reorder (``reorder_for_delta``) is not ported: the serving path never
-runs it (``compress_model_params`` shares one W_S per family).
+left side, and the top-nnz rows of each column are sorted ascending.
+
+The row reorder of the offline tooling (:func:`reorder_for_delta`, used by
+``core/factorized.py::compress_linear``) is host-side numpy, as in the
+reference; the serving path never runs it (``compress_model_params``
+shares one W_S per family, which cannot take a per-layer row order).
 """
 from __future__ import annotations
 
@@ -37,8 +40,11 @@ __all__ = [
     "delta_encode",
     "delta_decode",
     "bits_needed",
+    "reorder_for_delta",
     "compress_ws",
     "compress_wd",
+    "decompress_ws_dense",
+    "decompress_wd_dense",
     "ws_compressed_bits",
     "wd_compressed_bits",
 ]
@@ -171,7 +177,7 @@ def dequantize_uniform(q: torch.Tensor, scale, offset,
 
 
 # --------------------------------------------------------------------------
-# 3. Delta encoding for indices of W_D
+# 3. Delta encoding + row reordering for indices of W_D
 # --------------------------------------------------------------------------
 
 
@@ -189,6 +195,54 @@ def delta_encode(indices: torch.Tensor) -> torch.Tensor:
 
 def delta_decode(deltas: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(deltas, dim=0)
+
+
+def reorder_for_delta(idx, r: int) -> np.ndarray:
+    """Greedy co-occurrence order of the ``r`` rows of W_D (the paper's
+    joint W_S column / W_D row rearrangement, so consecutive nonzero rows
+    of a column lie close and their deltas fit 5 bits): start from the row
+    in the most columns, then repeatedly take the unused row sharing the
+    most columns with the last one taken, or, when none shares any, the
+    unused row in the most columns. Ties go to the lowest row, as
+    ``np.argmax`` takes them, so the order is the reference's element for
+    element. ``idx`` (nnz, n_cols) (numpy or a tensor) holds each column's
+    row indices.
+
+    The occupancy is the reference's bitmap of 64-column words, built the
+    same way: one fancy-indexed ``|=`` per rank ``k``, in which a row met
+    twice within one word keeps only the last column's bit (numpy's
+    buffered scatter), so the counts are those of that bitmap, not of the
+    columns. The co-occurrence counts then come from one matrix product of
+    its bits (exact in f32 below 2^24 columns), where the reference pops
+    bits one row pair at a time. Returns ``order`` (int64) with ``wd_new
+    = wd[order]`` and ``ws_new = ws[:, order]``."""
+    idx = idx.cpu().numpy() if torch.is_tensor(idx) else np.asarray(idx)
+    nnz, n_cols = idx.shape
+    words = (n_cols + 63) // 64
+    occ = np.zeros((r, words), np.uint64)
+    cols = np.arange(n_cols)
+    bit = np.uint64(1) << (cols % 64).astype(np.uint64)
+    for k in range(nnz):
+        occ[idx[k], cols // 64] |= bit
+    bits = np.unpackbits(occ.view(np.uint8), axis=1).astype(np.float32)
+    co = np.rint(bits @ bits.T).astype(np.int64)  # (r, r) shared bits
+    freq = np.diag(co).copy()
+    order = np.empty(r, np.int64)
+    used = np.zeros(r, bool)
+    cur = int(freq.argmax())
+    order[0] = cur
+    used[cur] = True
+    for i in range(1, r):
+        inter = co[cur].copy()
+        inter[used] = -1
+        nxt = int(inter.argmax())
+        if inter[nxt] <= 0:  # no co-occurrence left: most frequent unused
+            rem = np.where(~used)[0]
+            nxt = int(rem[freq[rem].argmax()])
+        order[i] = nxt
+        used[nxt] = True
+        cur = nxt
+    return order
 
 
 # --------------------------------------------------------------------------
@@ -246,11 +300,15 @@ def compress_ws(ws: torch.Tensor, bits: int = 4) -> CompressedWS:
     return CompressedWS(codes=q.codes, lut=q.lut, bits=bits)
 
 
-def compress_wd(wd: torch.Tensor, nnz: int,
-                value_bits: int = 6) -> CompressedWD:
+def compress_wd(wd: torch.Tensor, nnz: int, value_bits: int = 6,
+                order=None) -> CompressedWD:
     """Compress an (r, d_out) sparse-by-construction matrix: the top-nnz
-    rows of each column by magnitude, sorted ascending, delta-encoded."""
+    rows of each column by magnitude, sorted ascending, delta-encoded.
+    ``order`` (from :func:`reorder_for_delta`) permutes the rows first;
+    the caller permutes the W_S columns the same way."""
     wd = wd.float()
+    if order is not None:
+        wd = wd[torch.as_tensor(order, dtype=torch.long, device=wd.device)]
     r = wd.shape[0]
     keep = torch.topk(wd.abs(), nnz, dim=0).indices  # (nnz, d_out)
     idx = torch.sort(keep, dim=0).values
@@ -259,6 +317,26 @@ def compress_wd(wd: torch.Tensor, nnz: int,
     return CompressedWD(deltas=delta_encode(idx).to(torch.int32),
                         values_q=uq.q, scale=uq.scale, offset=uq.offset,
                         value_bits=value_bits, r=r)
+
+
+def decompress_ws_dense(cws: CompressedWS,
+                        dtype=torch.float32) -> torch.Tensor:
+    return dequantize_nonuniform(cws.codes, cws.lut).to(dtype)
+
+
+def decompress_wd_dense(cwd: CompressedWD,
+                        dtype=torch.float32) -> torch.Tensor:
+    """Dense (r, d_out) reconstruction (duplicate indices add, as the
+    reference's scatter-add), the plain oracle of the SMM kernel."""
+    idx = delta_decode(cwd.deltas.long())  # (nnz, d_out)
+    vals = dequantize_uniform(cwd.values_q, cwd.scale, cwd.offset,
+                              cwd.value_bits)
+    dense = torch.zeros((cwd.r, cwd.d_out), dtype=torch.float32,
+                        device=vals.device)
+    cols = torch.arange(cwd.d_out, device=vals.device).expand_as(idx)
+    dense.index_put_((idx.reshape(-1), cols.reshape(-1)), vals.reshape(-1),
+                     accumulate=True)
+    return dense.to(dtype)
 
 
 # --------------------------------------------------------------------------

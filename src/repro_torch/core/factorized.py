@@ -35,6 +35,9 @@ __all__ = [
     "init_linear",
     "apply_linear",
     "parallel_linear",
+    "linear_macs",
+    "linear_param_bits",
+    "compress_linear",
     "pack_nibbles",
     "unpack_nibbles",
     "decompress_ws_entry",
@@ -232,9 +235,83 @@ def parallel_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y
 
 
+def linear_macs(tokens: int, d_in: int, d_out: int,
+                fcfg: FactorizationConfig) -> int:
+    """MACs of one linear over ``tokens`` rows: ``d_in * d_out`` a token
+    dense, ``d_in * r + nnz * d_out`` factorized (the sequential MM)."""
+    if not fcfg.applies_to(d_in, d_out):
+        return tokens * d_in * d_out
+    r = fcfg.rank_for(d_in, d_out)
+    nnz = fcfg.nnz_for(r)
+    return tokens * (d_in * r + nnz * d_out)
+
+
+def linear_param_bits(d_in: int, d_out: int, n_layers: int,
+                      fcfg: FactorizationConfig, dense_bits: int = 16,
+                      compressed: bool = True) -> int:
+    """Stored bits of one matrix family over ``n_layers`` layers: dense at
+    ``dense_bits``, or one W_S (4b codes + a 16-entry 16b LUT, or dense
+    bits) plus each layer's W_D (first index, 5b deltas, 6b values and
+    2 x 16b scale / offset; or values at ``dense_bits`` plus 8b
+    indices)."""
+    if not fcfg.applies_to(d_in, d_out):
+        return n_layers * d_in * d_out * dense_bits
+    r = fcfg.rank_for(d_in, d_out)
+    nnz = fcfg.nnz_for(r)
+    if compressed:
+        ws_bits = d_in * r * 4 + 16 * 16
+        first = comp.bits_needed(r - 1)
+        wd_bits = d_out * (first + (nnz - 1) * 5 + nnz * 6) + 32
+    else:
+        ws_bits = d_in * r * dense_bits
+        wd_bits = nnz * d_out * (dense_bits + 8)  # values + 8b indices
+    return ws_bits + n_layers * wd_bits
+
+
 # --------------------------------------------------------------------------
 # Compressed runtime representation (serve path)
 # --------------------------------------------------------------------------
+
+
+def compress_linear(p: Dict[str, torch.Tensor], dicts: Optional[Dict],
+                    family: str, fcfg: FactorizationConfig,
+                    reorder: bool = True,
+                    value_bits: int = 6) -> Dict[str, torch.Tensor]:
+    """Offline: one factorized layer ``{"wd": (r, d_out)}`` in the T-REX
+    streaming format, on its device: ``wd_first`` int32 (d_out,),
+    ``wd_deltas`` uint8 (int16 past 8 bits) (nnz - 1, d_out), ``wd_vq``
+    uint8 (nnz, d_out), ``wd_scale`` / ``wd_offset`` f32 and ``wd_bits``
+    int32 0-d; the bias passes through. With ``reorder`` the rows go in
+    :func:`~repro_torch.core.compression.reorder_for_delta`'s order first,
+    and ``_order`` (int32) tells the caller how to permute the W_S columns
+    (``dicts`` is not read: a shared dictionary is compressed once per
+    family, by the caller). A dense layer passes through unchanged."""
+    if "w" in p:
+        return dict(p)
+    wd = p["wd"].float()
+    r = wd.shape[0]
+    nnz = fcfg.nnz_for(r)
+    order = None
+    if reorder:
+        dense_idx = torch.sort(torch.topk(wd.abs(), nnz, dim=0).indices,
+                               dim=0).values
+        order = comp.reorder_for_delta(dense_idx, r)
+    cwd = comp.compress_wd(wd, nnz, value_bits=value_bits, order=order)
+    dev = wd.device
+    out = {
+        "wd_first": comp.delta_decode(cwd.deltas)[0].to(torch.int32),
+        "wd_deltas": cwd.deltas[1:].to(
+            torch.uint8 if cwd.achieved_delta_bits <= 8 else torch.int16),
+        "wd_vq": cwd.values_q,
+        "wd_scale": cwd.scale.float(),
+        "wd_offset": cwd.offset.float(),
+        "wd_bits": torch.tensor(value_bits, dtype=torch.int32, device=dev),
+    }
+    if "b" in p:
+        out["b"] = p["b"]
+    if order is not None:
+        out["_order"] = torch.as_tensor(order, dtype=torch.int32, device=dev)
+    return out
 
 
 def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,11 @@ run into ``--ckpt``, and with ``--factorized`` (``min_dim`` 32 at smoke
 size, 256 at full) sparse training from a third of the run. Plus the
 port's ``--n-layers`` (cut the depth: the full 64-layer qwen2.5-32b's
 train state does not fit one card) and ``--device`` (default: the CUDA
-device). The reference's mesh flags
-(``--mesh-data``, ``--mesh-model``, ``--production-mesh``,
-``--multi-pod``) are refused: sharded training is item 12b of the
-roadmap. Serve the result with ``python -m repro_torch.launch.serve
---ckpt DIR``.
+device). The reference's mesh flags (``--mesh-data``, ``--mesh-model``,
+``--production-mesh``, ``--multi-pod``) are taken for a one-device mesh
+(``--mesh-data 1 [--mesh-model 1]``), which trains as no mesh, and
+refused for more devices: sharded training is item 12b of the roadmap.
+Serve the result with ``python -m repro_torch.launch.serve --ckpt DIR``.
 """
 from __future__ import annotations
 
@@ -51,12 +51,15 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.mesh_data or args.mesh_model != 1 or args.production_mesh \
+    # A one-device mesh is no mesh (the reference's serving rule,
+    # ``tensor_parallel_size``): its training is the unsharded step.
+    if args.mesh_data > 1 or args.mesh_model != 1 or args.production_mesh \
             or args.multi_pod:
         raise UnsupportedConfigError(
-            "training on a mesh (--mesh-data, --mesh-model, "
-            "--production-mesh, --multi-pod) comes with sharded training "
-            "(ROADMAP Queue 1 item 12b); the port trains on one device")
+            "training on a mesh of more than one device (--mesh-data, "
+            "--mesh-model, --production-mesh, --multi-pod) comes with "
+            "sharded training (ROADMAP Queue 1 item 12b); the port trains "
+            "on one device")
 
     over = {} if args.n_layers is None else {"n_layers": args.n_layers}
     cfg = get_config(args.arch, args.variant, **over)

@@ -6,7 +6,8 @@ The port never sees JAX: a caller holding reference parameters converts
 them first, e.g. ``jax.tree.map(np.asarray, params)``, and hands the
 numpy tree here. The layout is kept as it is (uniform stacks carry the
 leading L axis on ``params["layers"]``; MoE experts ``(L, E, ...)``, and
-their compressed streams the same leading dims)."""
+their compressed streams the same leading dims; an ``EncDecModel`` tree
+its ``encoder`` / ``decoder`` ``layer_XX`` dicts)."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union

@@ -1,9 +1,11 @@
 """Shared neural layers (``repro.models.layers``, the serving-path parts):
 norms (RMSNorm, LayerNorm with bias), RoPE, the plain flash (prefill)
-attention, the int8 KV codec, the attention block (prefill, contiguous
-decode, paged decode and the mixed step; full or sliding-window ring
-lanes), the dense decode attention, the FFN (SwiGLU, GeGLU or plain tanh
-GELU), embeddings and logits, and the init of the norms and of the
+attention (its probability-block dtype and causal wedge), the int8 KV
+codec, the attention block (prefill, contiguous decode, paged decode and
+the mixed step; full or sliding-window ring lanes; cross-attention over an
+encoder's memory), the dense decode attention, the FFN (SwiGLU, GeGLU or
+plain tanh GELU), embeddings (tokens, learned positions) and logits, and
+the init of the norms and of the
 attention and FFN linears (dense or factorized through the family
 dictionaries).
 
@@ -33,14 +35,15 @@ from repro_torch.kernels.tda.ops import (
     gather_paged_lanes,
 )
 from repro_torch.launch.mesh import tensor_parallel_size
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, torch_dtype
 
 NEG_INF = -1e30
 
 __all__ = ["init_norm", "apply_norm", "rope_tables", "apply_rope", "flash_attention",
            "kv_quantize", "kv_dequantize", "decode_attention",
            "init_attention", "attention_block", "init_ffn", "ffn_block",
-           "init_embedding", "init_lm_head", "embed_tokens", "lm_logits",
+           "init_embedding", "init_lm_head", "take_rows", "embed_tokens",
+           "lm_logits",
            "cross_entropy", "chunked_xent", "layer_view", "NEG_INF"]
 
 
@@ -95,16 +98,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     seg_q: Optional[torch.Tensor] = None,
                     seg_kv: Optional[torch.Tensor] = None,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, block_dtype=torch.float32,
+                    wedge: bool = False) -> torch.Tensor:
     """Masked attention of the prefill (``layers.flash_attention``, which
     the reference writes in jnp): q (B, Sq, Hq, D) against k/v (B, Skv,
     Hkv, D), GQA. Query ``i`` sits at kv position ``i + Skv - Sq`` and sees
     key ``j`` when both carry the same nonzero segment id (``None``: all
-    ones), ``j <= i`` (``causal``) and ``i - j < window``. Scores and the
+    ones), ``j <= i`` (``causal``) and ``i - j < window``. Without
+    ``causal`` or a window every query sees every key of its segment,
+    whatever ``Sq`` and ``Skv`` are (cross-attention). Scores and the
     softmax are f32, over query blocks of ``chunk`` rows so the score
     tensor stays bounded. A query with no visible key (a pad row or column)
     gets what the reference's online softmax gives it (:func:`_dead_rows`).
-    Returns ``q.dtype``."""
+    Returns ``q.dtype``.
+
+    ``block_dtype`` other than f32: the reference's online softmax over
+    key chunks, step for step (:func:`_flash_online`), so the probability
+    blocks are rounded to that dtype before the PV product from the same
+    running maxima; the statistics and the accumulator stay f32.
+
+    ``wedge`` (the reference's causal wedge: taken only when ``causal``,
+    no window, ``Sq == Skv`` and more than two query chunks): each query
+    block scores only the keys ``[0, b)`` its causal mask can reach,
+    about half the score work of the masked grid."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -113,29 +129,155 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         seg_q = torch.ones((B, Sq), dtype=torch.int32, device=dev)
     if seg_kv is None:
         seg_kv = torch.ones((B, Skv), dtype=torch.int32, device=dev)
+    c = min(chunk, Sq, Skv)
+    wedge = wedge and causal and window is None and Sq == Skv \
+        and -(-Sq // c) > 2
+    if block_dtype != torch.float32:
+        return _flash_online(q, k, v, causal=causal, window=window,
+                             seg_q=seg_q, seg_kv=seg_kv, c=c,
+                             block_dtype=block_dtype, wedge=wedge)
     kf, vf = k.float(), v.float()
     ik = torch.arange(Skv, device=dev)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
-    dead_o = _dead_rows(vf, Sq, chunk, window)  # (B, Sq, Hkv, D)
+    if wedge:  # c == chunk here: the query blocks are the reference's
+        reach = _wedge_reach(-(-Sq // c))
+        pad = torch.zeros((B, len(reach) * c - Skv) + tuple(vf.shape[2:]),
+                          dtype=vf.dtype, device=dev)
+        csum = torch.cat([vf, pad], 1).reshape(
+            B, len(reach), c, *vf.shape[2:]).sum(2).cumsum(1)
+    else:
+        dead_o = _dead_rows(vf, Sq, chunk, window)  # (B, Sq, Hkv, D)
     for a in range(0, Sq, chunk):
         b = min(a + chunk, Sq)
+        kb = b if wedge else Skv  # keys this block can reach
         qg = q[:, a:b].float().reshape(B, b - a, Hkv, G, D)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (1.0 / math.sqrt(D))
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, :kb]) \
+            * (1.0 / math.sqrt(D))
         sq = seg_q[:, a:b]
-        m = (sq[:, :, None] == seg_kv[:, None, :]) & (sq[:, :, None] > 0)
+        m = (sq[:, :, None] == seg_kv[:, None, :kb]) & (sq[:, :, None] > 0)
         iq = torch.arange(a, b, device=dev) + (Skv - Sq)
         if causal:
-            m &= (iq[:, None] >= ik[None, :])[None]
+            m &= (iq[:, None] >= ik[None, :kb])[None]
         if window is not None:
-            m &= ((iq[:, None] - ik[None, :]) < window)[None]
+            m &= ((iq[:, None] - ik[None, :kb]) < window)[None]
         s = torch.where(m[:, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, :kb])
         dead = ~m.any(-1)  # (B, b - a): no visible key
-        o = torch.where(dead[:, :, None, None, None],
-                        dead_o[:, a:b, :, None], o)
+        if wedge:  # the chunks the reference's triangle tasks visit
+            n = reach[a // c]
+            d_o = (csum[:, n - 1] / (n * c))[:, None]
+        else:
+            d_o = dead_o[:, a:b]
+        o = torch.where(dead[:, :, None, None, None], d_o[:, :, :, None], o)
         out[:, a:b] = o.reshape(B, b - a, Hq, D).to(q.dtype)
     return out
+
+
+def _wedge_tasks(lo: int, hi: int):
+    """The reference's static triangle decomposition of the causal chunk
+    grid ``[lo, hi)``: ``(q_lo, q_hi, k_lo, k_hi)`` tasks, the diagonal
+    leaves (at most two chunks, masked) and the full rectangles below
+    them, in the reference's order."""
+    n = hi - lo
+    if n <= 2:
+        return [(lo, hi, lo, hi)]
+    h = n // 2
+    return (_wedge_tasks(lo, lo + h) + [(lo + h, hi, lo, lo + h)]
+            + _wedge_tasks(lo + h, hi))
+
+
+def _wedge_reach(nq: int):
+    """Key chunks each query chunk visits under the wedge: ``[0, n)``,
+    ``n`` the end of its diagonal leaf (one chunk past the causal cut for
+    the first chunk of a two-chunk leaf)."""
+    reach = [0] * nq
+    for qlo, qhi, _, khi in _wedge_tasks(0, nq):
+        for qi in range(qlo, qhi):
+            reach[qi] = max(reach[qi], khi)
+    return reach
+
+
+def _flash_online(q, k, v, *, causal, window, seg_q, seg_kv, c, block_dtype,
+                  wedge):
+    """The reference's online-softmax flash attention (chunks of ``c``
+    positions, both axes padded with segment 0), with the probability block
+    cast to ``block_dtype`` before each PV product: per query chunk, runs
+    over key chunks (all of them; with a window the ``ceil(window / c) +
+    1`` behind it, indices below 0 clipped and masked; with the wedge each
+    triangle task's range as its own run, the runs merged in the
+    reference's order), each run carrying f32 ``(o, m, l)``."""
+    B, Sq0, Hq, D = q.shape
+    Skv0, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    nq, nk = -(-Sq0 // c), -(-Skv0 // c)
+
+    def pad(t, n):
+        shape = (t.shape[0], n * c - t.shape[1]) + tuple(t.shape[2:])
+        return torch.cat([t, t.new_zeros(shape)], 1)
+
+    qc = pad(q.float(), nq).reshape(B, nq, c, Hkv, G, D)
+    kc = pad(k.float(), nk).reshape(B, nk, c, Hkv, D)
+    vc = pad(v.float(), nk).reshape(B, nk, c, Hkv, D)
+    sq = pad(seg_q, nq).reshape(B, nq, c)
+    sk = pad(seg_kv, nk).reshape(B, nk, c)
+    off = Skv0 - Sq0  # decode-style alignment: queries at the end
+    scale = 1.0 / math.sqrt(D)
+    iota = torch.arange(c, device=dev)
+
+    def run(qi, kis):
+        o = torch.zeros((B, Hkv, G, c, D), dtype=torch.float32, device=dev)
+        m = torch.full((B, Hkv, G, c), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, c), dtype=torch.float32, device=dev)
+        for ki in kis:
+            kk = min(max(ki, 0), nk - 1)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc[:, qi], kc[:, kk]) \
+                * scale
+            skb = sk[:, kk] if ki >= 0 else torch.zeros_like(sk[:, kk])
+            msk = (sq[:, qi, :, None] == skb[:, None, :]) \
+                & (sq[:, qi, :, None] > 0)
+            iq = qi * c + iota + off
+            ik = kk * c + iota
+            if causal:
+                msk = msk & (iq[:, None] >= ik[None, :])[None]
+            if window is not None:
+                msk = msk & ((iq[:, None] - ik[None, :]) < window)[None]
+            s = torch.where(msk[:, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(block_dtype).float(), vc[:, kk])
+            m = m_new
+        return o, m, l
+
+    if wedge:
+        runs = [[] for _ in range(nq)]
+        for qlo, qhi, klo, khi in _wedge_tasks(0, nq):
+            for qi in range(qlo, qhi):
+                runs[qi].append(range(klo, khi))
+    elif window is None:
+        runs = [[range(nk)] for _ in range(nq)]
+    else:
+        w = -(-window // c)
+        runs = [[range(qi + off // c - w, qi + off // c + 1)]
+                for qi in range(nq)]
+    outs = []
+    for qi in range(nq):
+        o, m, l = run(qi, runs[qi][0])
+        for kis in runs[qi][1:]:  # online-softmax merge of two key ranges
+            o2, m2, l2 = run(qi, kis)
+            mm = torch.maximum(m, m2)
+            a1, a2 = torch.exp(m - mm), torch.exp(m2 - mm)
+            o = o * a1[..., None] + o2 * a2[..., None]
+            m, l = mm, l * a1 + l2 * a2
+        outs.append(o / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, 1)  # (B, nq, Hkv, G, c, D)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * c, Hq, D)
+    return out[:, :Sq0].to(q.dtype)
 
 
 def _dead_rows(vf: torch.Tensor, Sq: int, chunk: int,
@@ -318,6 +460,9 @@ def attention_block(
     window=...,                       # None, a window, or ...: the config's
     mesh=None,                        # tensor-parallel mesh: this rank's heads
     sparse_train: bool = False,       # W_D through the STE (training)
+    kv: Optional[torch.Tensor] = None,      # (B, Skv, d) cross-attention
+    seg_kv: Optional[torch.Tensor] = None,  # (B, Skv) memory's segments
+    prefix: str = "attn",             # dictionary families {prefix}_q ...
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
@@ -363,16 +508,30 @@ def attention_block(
     heads (``Hq / N`` query and ``Hkv / N`` kv heads, the GQA group
     unchanged) against the rank's head slice of the cache, through the
     same kernels; ``wo`` is row-parallel, so the output is replicated.
+
+    **Cross-attention** (``kv``, the encoder-decoder's memory; no cache):
+    keys and values come from ``kv``, no RoPE, no causal mask, so every
+    query sees every memory position of its ``seg_kv`` segment (a padded
+    source: ``seg_kv`` 0 on its pad). Prefill attention casts its
+    probability blocks to ``cfg.flash_block_dtype`` and, without a
+    prefix, takes ``cfg.causal_wedge``. The linears go through the
+    ``{prefix}_q`` ... ``{prefix}_o`` dictionaries (the paper models'
+    ``enc_attn``, ``dec_attn``, ``dec_xattn``).
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.compute_dtype
+    if kv is not None and (cache is not None or cache_index is not None
+                           or prefix_kv is not None):
+        raise ValueError("cross-attention (kv=) runs without caches, as the "
+                         "reference's encoder-decoder does")
     lin = _linear_fn(p, dicts, cfg, mesh, sparse_train)
     qw, kvw = cfg.n_heads * hd, cfg.kv_heads * hd
-    q = lin("wq", x, "attn_q", qw).reshape(B, S, -1, hd)
-    k = lin("wk", x, "attn_k", kvw).reshape(B, S, -1, hd)
-    v = lin("wv", x, "attn_v", kvw).reshape(B, S, -1, hd)
-    if cfg.rope:
+    x_kv = x if kv is None else kv
+    q = lin("wq", x, f"{prefix}_q", qw).reshape(B, S, -1, hd)
+    k = lin("wk", x_kv, f"{prefix}_k", kvw).reshape(B, x_kv.shape[1], -1, hd)
+    v = lin("wv", x_kv, f"{prefix}_v", kvw).reshape(B, x_kv.shape[1], -1, hd)
+    if cfg.rope and kv is None:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -381,11 +540,15 @@ def attention_block(
     if window is ...:
         window = cfg.sliding_window
     impl = resolve_decode_attn(cfg.decode_attn, x.device)
+    block_dtype = torch_dtype(cfg.flash_block_dtype)
     if cache_index is None:
         if prefix_kv is None:
-            o = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                seg_q=seg_ids, seg_kv=seg_ids,
-                                chunk=cfg.attn_chunk)
+            o = flash_attention(q, k, v, causal=cfg.causal and kv is None,
+                                window=window, seg_q=seg_ids,
+                                seg_kv=seg_ids if kv is None else seg_kv,
+                                chunk=cfg.attn_chunk,
+                                block_dtype=block_dtype,
+                                wedge=cfg.causal_wedge)
         else:
             pk, pv = prefix_kv["k"].to(dt), prefix_kv["v"].to(dt)
             sq = seg_ids if seg_ids is not None else torch.ones(
@@ -396,14 +559,15 @@ def attention_block(
             o = flash_attention(q, torch.cat([pk, k], 1),
                                 torch.cat([pv, v], 1), causal=cfg.causal,
                                 seg_q=sq, seg_kv=torch.cat([pseg, sq], 1),
-                                chunk=cfg.attn_chunk)
+                                chunk=cfg.attn_chunk,
+                                block_dtype=block_dtype)
         if cache is not None:
             ring = layer_view(cache, "k", layer_idx).shape[1]
             for name, t in _kv_leaves(_ring_layout(k, ring),
                                       _ring_layout(v, ring), quant).items():
                 lane = layer_view(cache, name, layer_idx)
                 lane[:, :t.shape[1]] = t.to(lane.dtype)
-        return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
+        return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
 
     ci = cache_index.reshape(-1).to(torch.int64).expand(B)
     if n_new is not None:
@@ -438,7 +602,7 @@ def attention_block(
         phys = torch.where(wvalid, page * ps + lanepos % ps, P * ps)
         _write_pool(kpool, phys.reshape(-1), k.reshape(B * S, *k.shape[2:]))
         _write_pool(vpool, phys.reshape(-1), v.reshape(B * S, *v.shape[2:]))
-        return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
+        return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
 
     if S != 1:
         raise ValueError("decode takes one token per row")
@@ -496,7 +660,7 @@ def attention_block(
         else:
             kc, vc = view("k"), view("v")
         o = decode_attention(q, kc, vc, hi)
-    return lin("wo", o.reshape(B, S, -1), "attn_o", qw)
+    return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
 
 
 def init_ffn(g: torch.Generator, cfg: ModelConfig,
@@ -543,15 +707,20 @@ def ffn_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
 
 
 def init_embedding(g: torch.Generator, cfg: ModelConfig) -> Dict:
-    """The token table ``N(0, 0.02^2)`` ``(V, d)``, or nothing for a model
-    fed external embeddings (llava, musicgen), as the reference's
-    ``init_embedding``."""
-    if cfg.external_embeddings:
-        return {}
-    return {"tok": torch.empty((cfg.vocab_size, cfg.d_model),
+    """The token table ``N(0, 0.02^2)`` ``(V, d)`` (none for a model fed
+    external embeddings: llava, musicgen, vit) and, with ``learned_pos``,
+    the position table ``N(0, 0.02^2)`` ``(max_len, d)``, as the
+    reference's ``init_embedding``."""
+    p = {}
+    if not cfg.external_embeddings:
+        p["tok"] = torch.empty((cfg.vocab_size, cfg.d_model),
                                dtype=cfg.params_dtype,
-                               device=g.device).normal_(0.0, 0.02,
-                                                        generator=g)}
+                               device=g.device).normal_(0.0, 0.02, generator=g)
+    if cfg.learned_pos:
+        p["pos"] = torch.empty((cfg.max_len, cfg.d_model),
+                               dtype=cfg.params_dtype,
+                               device=g.device).normal_(0.0, 0.02, generator=g)
+    return p
 
 
 def init_lm_head(g: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -567,29 +736,43 @@ def init_lm_head(g: torch.Generator, cfg: ModelConfig) -> Dict:
         0.0, 1.0 / math.sqrt(cfg.d_model), generator=g)}
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: an id in ``[-V, 0)`` counts from
+    the end, and an id outside ``[-V, V)`` gets a row of NaN (no host sync,
+    no device-side assert)."""
+    V = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + V, ids)
+    bad = (ids < 0) | (ids >= V)
+    x = table[torch.clamp(ids, 0, V - 1)]
+    return torch.where(bad[..., None], float("nan"), x)
+
+
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The token table's rows of ``tokens`` in the compute dtype, as
-    ``jnp.take`` gives them: an id in ``[-V, 0)`` counts from the end, and
-    an id outside ``[-V, V)`` gets a row of NaN (no host sync, no
-    device-side assert), so a corrupt batch shows as a NaN loss. A table
-    cut over the vocabulary (a tensor-parallel ``mesh``) looks up the
-    tokens of its own block, zeros for the others, and one
-    ``all_reduce(SUM)`` assembles the rows (exact)."""
+    ``jnp.take`` gives them (:func:`take_rows`), so a corrupt batch shows
+    as a NaN loss; with ``learned_pos`` and ``positions`` given, plus the
+    position table's rows of ``positions`` (the same rule), as the
+    reference adds them. A table cut over the vocabulary (a
+    tensor-parallel ``mesh``) looks up the tokens of its own block, zeros
+    for the others, and one ``all_reduce(SUM)`` assembles the rows
+    (exact)."""
     tok = p["tok"]
-    ids = tokens.long()
     if tensor_parallel_size(mesh) == 1 or tok.shape[0] == cfg.vocab_size:
-        V = tok.shape[0]
-        ids = torch.where(ids < 0, ids + V, ids)
-        bad = (ids < 0) | (ids >= V)
-        x = tok[torch.clamp(ids, 0, V - 1)]
-        return torch.where(bad[..., None], float("nan"),
-                           x).to(cfg.compute_dtype)
-    vl = tok.shape[0]
-    loc = ids - mesh.coords["model"] * vl
-    hit = (loc >= 0) & (loc < vl)
-    x = torch.where(hit[..., None], tok[torch.clamp(loc, 0, vl - 1)], 0.0)
-    return mesh.all_reduce(x.to(cfg.compute_dtype))
+        x = take_rows(tok, tokens).to(cfg.compute_dtype)
+    else:
+        ids = tokens.long()
+        vl = tok.shape[0]
+        loc = ids - mesh.coords["model"] * vl
+        hit = (loc >= 0) & (loc < vl)
+        x = torch.where(hit[..., None], tok[torch.clamp(loc, 0, vl - 1)],
+                        0.0)
+        x = mesh.all_reduce(x.to(cfg.compute_dtype))
+    if cfg.learned_pos and positions is not None:
+        x = x + take_rows(p["pos"], positions).to(cfg.compute_dtype)
+    return x
 
 
 def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,

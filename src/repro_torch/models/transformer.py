@@ -1,6 +1,7 @@
 """The composable model (``repro.models.transformer``): embeds -> block
-stack -> norm -> logits, for every architecture of the registry but the
-paper's encoder-decoder models:
+stack -> norm -> logits, for every architecture of the registry and the
+paper's encoders (bert, vit: ``causal=False``, learned positions); the
+paper's encoder-decoders are ``models/paper_models.py``'s ``EncDecModel``:
 
 * attention stacks (RMSNorm or LayerNorm; full or sliding-window
   attention) whose FFN is dense (SwiGLU, GeGLU or GELU) or routed (the MoE
@@ -62,12 +63,14 @@ BLOCK_KINDS = ("attn", "local", "ssd", "rglru")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not serve: learned positions and the
-    encoder-decoder paper models (ROADMAP Queue 1 item 12c), and blocks it
-    does not know."""
-    if cfg.learned_pos or cfg.n_encoder_layers:
+    """Refuse what this model does not run: an encoder-decoder (the
+    paper's mt and s2t run through ``models/paper_models.py``'s
+    ``EncDecModel``) and blocks it does not know."""
+    if cfg.n_encoder_layers:
         raise UnsupportedConfigError(
-            f"{cfg.name}: learned positions come with the paper models "
+            f"{cfg.name}: an encoder-decoder (n_encoder_layers="
+            f"{cfg.n_encoder_layers}) runs through "
+            "repro_torch.models.paper_models.EncDecModel, not Model "
             "(ROADMAP Queue 1 item 12c)")
     kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
     if kinds - set(BLOCK_KINDS) or cfg.act not in ("swiglu", "geglu", "gelu") \
@@ -239,7 +242,8 @@ class Model:
             out["dicts"] = {f: (e if isinstance(e, dict) else e.to(dt))
                             for f, e in params["dicts"].items()}
         if not self.cfg.tie_embeddings and "tok" in params["embed"]:
-            out["embed"] = {"tok": params["embed"]["tok"].to(dt)}
+            out["embed"] = dict(params["embed"],
+                                tok=params["embed"]["tok"].to(dt))
         return out
 
     # ------------------------------------------------------------------
@@ -445,15 +449,27 @@ class Model:
         return L.lm_logits(params["lm_head"], params["embed"], h, self.cfg,
                            mesh)
 
-    def _embed_in(self, params: Dict, batch: Dict,
+    def _embed_in(self, params: Dict, batch: Dict, positions: torch.Tensor,
                   mesh=None) -> torch.Tensor:
         """``batch["embeds"]`` (B, S, d) cast to the compute dtype for a
-        model fed external embeddings, else the token table's rows of
-        ``batch["inputs"]``."""
+        model fed external embeddings (no positions added, with
+        ``learned_pos`` too: the reference's vit), else the token table's
+        rows of ``batch["inputs"]``, plus the learned positions'
+        rows of ``positions`` with ``learned_pos``."""
         if self.cfg.external_embeddings:
             return batch["embeds"].to(self.cfg.compute_dtype)
         return L.embed_tokens(params["embed"], batch["inputs"], self.cfg,
-                              mesh)
+                              mesh, positions=positions)
+
+    def _positions(self, batch: Dict) -> torch.Tensor:
+        """``batch["positions"]``, or ``0..S-1`` on every row."""
+        B, S = self._batch_shape(batch)
+        pos = batch.get("positions")
+        if pos is None:
+            ref = batch["embeds"] if self.cfg.external_embeddings \
+                else batch["inputs"]
+            pos = torch.arange(S, device=ref.device)[None].expand(B, S)
+        return pos.long()
 
     def _batch_shape(self, batch: Dict) -> Tuple[int, int]:
         ref = batch["embeds"] if self.cfg.external_embeddings \
@@ -477,12 +493,9 @@ class Model:
         array or None}), "len": (B,)}``, which every attention layer
         prepends to its keys; the batch then holds only the suffix, at
         absolute ``positions``."""
-        B, S = self._batch_shape(batch)
-        x = self._embed_in(params, batch, mesh)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        h, _ = self._stack(params, x, positions=positions.long(),
+        positions = self._positions(batch)
+        x = self._embed_in(params, batch, positions, mesh)
+        h, _ = self._stack(params, x, positions=positions,
                            caches=caches, seg_ids=batch.get("seg_ids"),
                            prefix_kv=prefix_kv, mesh=mesh)
         return h, caches
@@ -520,12 +533,9 @@ class Model:
         :meth:`prepare`). Single device: sharded training is item 12b of
         the roadmap."""
         cfg = self.cfg
-        B, S = self._batch_shape(batch)
-        x = self._embed_in(params, batch)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        h, aux = self._stack(params, x, positions=positions.long(),
+        positions = self._positions(batch)
+        x = self._embed_in(params, batch, positions)
+        h, aux = self._stack(params, x, positions=positions,
                              caches=None, seg_ids=batch.get("seg_ids"),
                              sparse_train=sparse_train)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
@@ -566,8 +576,8 @@ class Model:
         ``(logits (B, 1, V) f32, caches)``; the caches are updated in
         place."""
         B, _ = self._batch_shape(batch)
-        x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64).expand(B)
+        x = self._embed_in(params, batch, ci.reshape(-1, 1), mesh)
         h, _ = self._stack(params, x, positions=ci.reshape(-1, 1),
                            caches=caches, cache_index=ci,
                            slot_mask=slot_mask, pages=pages, mesh=mesh)
@@ -586,9 +596,9 @@ class Model:
                              "a recurrent block has no multi-token decode "
                              "form")
         _, S = self._batch_shape(batch)
-        x = self._embed_in(params, batch, mesh)
         ci = cache_index.reshape(-1).to(torch.int64)
-        positions = ci[:, None] + torch.arange(S, device=x.device)[None]
+        positions = ci[:, None] + torch.arange(S, device=ci.device)[None]
+        x = self._embed_in(params, batch, positions, mesh)
         h, _ = self._stack(params, x, positions=positions, caches=caches,
                            cache_index=ci, slot_mask=slot_mask, pages=pages,
                            n_new=n_new.reshape(-1), mesh=mesh)

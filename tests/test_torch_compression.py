@@ -284,3 +284,97 @@ def test_compress_model_params_int16_deltas_match_reference():
         {np.dtype(np.int16): torch.int16}[ref["wd_deltas"].dtype]
     for k in ("wd_first", "wd_deltas", "wd_vq", "wd_bits", "b"):
         np.testing.assert_array_equal(got[k].numpy(), ref[k])
+
+
+# ---- the offline tooling: reorder, compress_linear, accounting -------------
+
+@pytest.mark.parametrize("r,d_out,nnz", [(64, 48, 8), (128, 96, 16),
+                                         (200, 70, 3), (130, 300, 40)])
+def test_reorder_for_delta_matches_reference(r, d_out, nnz):
+    """The greedy co-occurrence order, element for element, on each
+    column's top-nnz rows (the reference's lossy 64-column bitmap, ties
+    to the lowest row); and on a tie-only case (every row in every
+    column)."""
+    from repro.core import compression as rc
+    from repro_torch.core import compression as tc
+    wd = np.random.default_rng(r).standard_normal((r, d_out)).astype(
+        np.float32)
+    idx = np.sort(np.argsort(-np.abs(wd), axis=0)[:nnz], axis=0)
+    want = rc.reorder_for_delta(idx, r)
+    got = tc.reorder_for_delta(tp.t(idx), r)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    ties = np.tile(np.arange(4)[:, None], (1, 10))
+    np.testing.assert_array_equal(tc.reorder_for_delta(ties, 12),
+                                  rc.reorder_for_delta(ties, 12))
+
+
+@pytest.mark.parametrize("reorder", [True, False])
+@pytest.mark.parametrize("r,d_out,nnz", [(64, 48, 8), (200, 70, 3),
+                                         (1024, 40, 2)])
+def test_compress_linear_matches_reference(r, d_out, nnz, reorder):
+    """``compress_linear``: the same order and integer streams (and
+    dtypes: int16 deltas past 8 bits at r 1024, nnz 2), scale / offset to
+    rtol 1e-6, the bias passed through; a dense layer unchanged. Then
+    ``compress_wd(order=)`` and the dense reconstructions
+    ``decompress_wd_dense`` / ``decompress_ws_dense`` against the
+    reference's (rtol 1e-6: the same f32 dequantization)."""
+    from repro.core import compression as rc
+    from repro.core import factorized as rf
+    from repro_torch.core import compression as tc
+    from repro_torch.core import factorized as tf
+    rng = np.random.default_rng(r + nnz)
+    wd = rng.standard_normal((r, d_out)).astype(np.float32)
+    b = rng.standard_normal(d_out).astype(np.float32)
+    kw = dict(enabled=True, min_dim=8, rank=r, nnz=nnz)
+    want = rf.compress_linear({"wd": wd, "b": b}, {}, "f",
+                              rf.FactorizationConfig(**kw), reorder=reorder)
+    got = tf.compress_linear({"wd": tp.t(wd), "b": tp.t(b)}, {}, "f",
+                             tf.FactorizationConfig(**kw), reorder=reorder)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g, w = got[k].numpy(), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k in ("wd_scale", "wd_offset"):
+            np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+    dense = {"w": tp.t(wd)}
+    assert tf.compress_linear(dense, {}, "f", tf.FactorizationConfig(
+        **kw)) == dense
+    order = want.get("_order")
+    cw = rc.compress_wd(wd, nnz, order=order)
+    ct = tc.compress_wd(tp.t(wd), nnz, order=order)
+    np.testing.assert_array_equal(ct.deltas.numpy(), cw.deltas)
+    np.testing.assert_allclose(tc.decompress_wd_dense(ct).numpy(),
+                               np.asarray(rc.decompress_wd_dense(cw)),
+                               rtol=1e-6, atol=0)
+    ws = rng.standard_normal((48, r)).astype(np.float32)
+    sw, st = rc.compress_ws(ws), tc.compress_ws(tp.t(ws))
+    np.testing.assert_allclose(
+        tc.decompress_ws_dense(st).numpy(),
+        np.asarray(rc.decompress_ws_dense(sw)), rtol=1e-6, atol=0)
+
+
+def test_linear_macs_and_param_bits_match_reference():
+    """``linear_macs`` and ``linear_param_bits`` (compressed and not, two
+    dense widths) equal the reference's integers over a grid of shapes
+    and factorizations, dense ones included."""
+    from repro.core import factorized as rf
+    from repro_torch.core import factorized as tf
+    shapes = [(64, 64), (768, 3072), (3072, 768), (256, 2048), (384, 1536),
+              (100, 30), (512, 512), (5120, 27648)]
+    cfgs = [dict(enabled=True), dict(enabled=True, min_dim=128),
+            dict(enabled=True, rank=32, nnz=8, min_dim=32),
+            dict(enabled=False), dict(enabled=True, nnz_ratio=0.25)]
+    for d_in, d_out in shapes:
+        for kw in cfgs:
+            a, b = rf.FactorizationConfig(**kw), tf.FactorizationConfig(**kw)
+            for tokens in (1, 128):
+                assert tf.linear_macs(tokens, d_in, d_out, b) == \
+                    rf.linear_macs(tokens, d_in, d_out, a)
+            for comp, bits in ((True, 16), (False, 16), (False, 8)):
+                got = tf.linear_param_bits(d_in, d_out, 12, b, bits, comp)
+                assert got == rf.linear_param_bits(d_in, d_out, 12, a, bits,
+                                                   comp)
+                assert isinstance(got, int)

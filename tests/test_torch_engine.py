@@ -188,13 +188,15 @@ def test_refused_engine_settings(name):
 
 @pytest.mark.parametrize("arch,over", [
     ("mamba2-370m", {}), ("recurrentgemma-2b", {}), ("musicgen-large", {}),
-    ("starcoder2-15b", {"learned_pos": True}), ("llava-next-mistral-7b", {}),
+    ("starcoder2-15b", {"n_encoder_layers": 2}),
+    ("llava-next-mistral-7b", {}),
     ("mamba2-370m", {"factorized": True}),
     ("qwen2.5-32b", {"weight_format": "int3"})])
 def test_refused_models(arch, over):
-    """What each configuration meets at construction: learned positions
-    are refused by Model (item 12) and an unknown weight format is a
-    ValueError, as in the reference; the recurrent stacks (factorized or
+    """What each configuration meets at construction: an encoder-decoder
+    is refused by Model (it runs through ``EncDecModel``, item 12c) and
+    an unknown weight format is a ValueError, as in the reference; the
+    recurrent stacks (factorized or
     not) construct, and their Engine refuses ``mixed=True`` with the
     reference's message; the models fed external embeddings (llava,
     musicgen) construct, and the Engine refuses them (it feeds token ids
@@ -204,7 +206,7 @@ def test_refused_models(arch, over):
     from repro_torch.models.transformer import Model
     from repro_torch.serve import Engine, EngineConfig
     cfg = get_config(arch, "smoke", **over)
-    if "weight_format" in over or cfg.learned_pos:
+    if "weight_format" in over or cfg.n_encoder_layers:
         exc = ValueError if "weight_format" in over \
             else UnsupportedConfigError
         with pytest.raises(exc):

@@ -330,8 +330,9 @@ def test_mixed_wrapper_all_columns_on_the_cpu():
 def test_refusals_name_their_items():
     """The MoE family constructs; compressed experts on a mesh of two
     ranks stay refused with the reference's message (item 11 serves the
-    rest on a mesh) and learned positions name their item (12); the
-    families of items 10b and 10c construct."""
+    rest on a mesh) and an encoder-decoder in ``Model`` names its item
+    (12c) and ``EncDecModel``; learned positions construct (item 12c), as
+    do the families of items 10b and 10c."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.launch.mesh import Mesh
@@ -347,9 +348,10 @@ def test_refusals_name_their_items():
     with pytest.raises(UnsupportedConfigError,
                        match="compressed MoE expert weights"):
         Engine(m, None, config=EngineConfig(max_len=16), mesh=mesh)
-    with pytest.raises(UnsupportedConfigError, match="item 12"):
-        Model(get_config("dbrx-132b", "smoke", learned_pos=True),
+    with pytest.raises(UnsupportedConfigError, match="EncDecModel.*item 12"):
+        Model(get_config("dbrx-132b", "smoke", n_encoder_layers=2),
               device="cpu")
+    Model(get_config("dbrx-132b", "smoke", learned_pos=True), device="cpu")
     for arch in ("mamba2-370m", "recurrentgemma-2b",
                  "llava-next-mistral-7b", "musicgen-large"):
         Model(get_config(arch, "smoke"), device="cpu")

@@ -321,7 +321,8 @@ def test_wrapped_ring_prompt_neither_shares_nor_publishes(sc2):
 def test_check_supported_accepts_starcoder2():
     """starcoder2 smoke and full construct (so do the MoE family's, item
     10a, and since items 10b and 10c every other family's); learned
-    positions (item 12) stay refused."""
+    positions construct since item 12c, and an encoder-decoder stays
+    refused (``EncDecModel`` runs it, item 12c)."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import UnsupportedConfigError
     from repro_torch.models.transformer import Model, check_supported
@@ -330,8 +331,9 @@ def test_check_supported_accepts_starcoder2():
         Model(get_config(ARCH, variant), device="cpu")
     for arch in ("qwen2.5-32b", "yi-34b", "qwen1.5-4b"):
         check_supported(get_config(arch, "full"))
-    with pytest.raises(UnsupportedConfigError, match="item 12"):
-        check_supported(get_config(ARCH, "smoke", learned_pos=True))
+    check_supported(get_config(ARCH, "smoke", learned_pos=True))
+    with pytest.raises(UnsupportedConfigError, match="item 12c"):
+        check_supported(get_config(ARCH, "smoke", n_encoder_layers=2))
     for arch in ("dbrx-132b", "arctic-480b"):
         check_supported(get_config(arch, "smoke"))
     for arch in ("mamba2-370m", "recurrentgemma-2b",

@@ -419,6 +419,25 @@ def test_launch_train_on_cpu_then_serve(tmp_path, capsys):
     assert "loaded checkpoint step 8" in capsys.readouterr().out
 
 
+def test_launch_train_one_device_mesh(tmp_path):
+    """``--mesh-data 1 --mesh-model 1`` (and ``--mesh-data 1`` alone), a
+    one-device mesh the reference trains on, trains as no mesh: the same
+    losses and grad norms, step for step, as the run without the flags
+    (2 steps at smoke size on the CPU)."""
+    from repro_torch.launch import train
+    common = ["--arch", "qwen2.5-32b", "--steps", "2", "--batch", "2",
+              "--seq", "16", "--device", "cpu"]
+    runs = {}
+    for name, flags in (("plain", []),
+                        ("mesh11", ["--mesh-data", "1", "--mesh-model", "1"]),
+                        ("mesh1", ["--mesh-data", "1"])):
+        out = train.main(common + flags + ["--ckpt", str(tmp_path / name)])
+        runs[name] = [(h["step"], h["loss"], h["grad_norm"])
+                      for h in out["history"]]
+    assert len(runs["plain"]) == 2
+    assert runs["mesh11"] == runs["plain"] == runs["mesh1"]
+
+
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"],
                                    ["--mesh-model", "2"],
                                    ["--production-mesh"], ["--multi-pod"]])
