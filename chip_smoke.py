@@ -362,6 +362,31 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               logits chunk and its gradient), with the card's name and
               power limit. The training path adds no kernel: its attention
               is the plain flash attention of a forward without caches.
+12. sharded_train — training on a (2, 2) ``(data, model)`` mesh of four
+              rank processes sharing the card over gloo
+              (``launch/sharded_train.py::train_rank``, through
+              ``train/loop.py::train(mesh=)``: FSDP over ``data``, TP over
+              ``model``, experts over ``data``), TF32 off. (a) smoke
+              width, float32, 2 steps from ``Model.init(0)``: qwen2.5 dense
+              (AdamW) and factorized (``sparse_train``, Adafactor, a
+              projection after step 1) against the unsharded run on the
+              card, and dbrx smoke factorized (``sparse_train``, AdamW)
+              against the same (2, 2) mesh of ranks on the CPU (expert
+              capacity is per data shard): every step's loss and grad norm
+              and every param leaf after the run within ``SHARDED_RTOL`` x
+              max(1, max |ref|). (b) qwen2.5-32b at its published widths,
+              depth 64 -> ``TRAIN_FULL_LAYERS`` = 2, f32 masters, bf16
+              compute, AdamW with f32 state, 3 dense steps of
+              ``lm_batches`` at 8 x 64 (4 x 64 a rank): the step-0 loss
+              within ``TRAIN_BF16_LOSS_TOL`` of phase 11's unsharded
+              step-0 loss on the same seed and batch; per step and rank
+              the ms and the gloo calls, seconds and bytes
+              (``Mesh.stats``); each rank's peak ``max_memory_allocated``
+              beside its prediction (``predict_rank_bytes``: its slices'
+              params, grads and moments, one layer's gathered weights and
+              the gathered table and head with their f32 gradients,
+              AdamW's temporaries, the activations of 4 x 64 tokens); the
+              four peaks must fit the card.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
@@ -4883,15 +4908,20 @@ def train_full(torch, np, smi, tmp):
                     for h in hist],
              peak_mem_gb=peak / 1e9, predicted_gb=predicted / 1e9,
              peak_over_predicted=peak / predicted, **extra)
+        if part == "dense":
+            step0 = hist[0]["loss"]
         del model, params, out, leaves, hook
     gc.collect()
     torch.cuda.empty_cache()
+    return step0
 
 
 def phase_train(torch, np):
     """The trainer (``train/loop.py``, ``optim/adamw.py``,
     ``launch/steps.py``, ``checkpoint/``): part (a), the card against the
-    CPU at smoke width, then part (b), full width. TF32 off."""
+    CPU at smoke width, then part (b), full width. TF32 off. Returns
+    part (b)'s dense step-0 loss (phase ``sharded_train`` holds its own
+    to it)."""
     import tempfile
     t0 = time.perf_counter()
     gc.collect()
@@ -4902,8 +4932,172 @@ def phase_train(torch, np):
                          text=True, timeout=60).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="train_") as tmp:
         train_smoke(torch, np, smi, Path(tmp))
-        train_full(torch, np, smi, Path(tmp))
+        step0 = train_full(torch, np, smi, Path(tmp))
     line("train", seconds=round(time.perf_counter() - t0, 3))
+    return step0
+
+
+# ---------------------------------------------------------------------------
+# phase 12: sharded training on a (2, 2) mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARDED_MESH = (2, 2)
+SHARDED_RANKS = 4
+# The sharded step is the unsharded step's arithmetic with the products
+# and the batch summed in another order (partial sums over ``model``,
+# blocks over ``data``): ~1e-7 relative on losses, grad norms and
+# gradients (the CPU tests' measurement). Adam and Adafactor divide each
+# gradient entry by its own RMS, so an entry whose gradient is at that
+# noise level moves by up to lr in a direction the noise decides: the
+# steps here run at the warmup's first rates (lr / 100, 2 lr / 100 = 1e-5,
+# 2e-5), which keeps such a flip inside the limit.
+SHARDED_RTOL = 1e-5
+SHARDED_OPT = dict(lr=1e-3, warmup_steps=100, total_steps=1000)
+SHARDED_STEPS = 2
+SHARDED_FULL_STEPS = 3
+
+
+def _leaf_gap(np, got, want):
+    """max over leaves of max |got - want| / max(1, max |want|)."""
+    gap = 0.0
+    for k, w in _flat(want).items():
+        g = _flat(got)[k]
+        gap = max(gap, float(np.abs(g - w).max()) / max(
+            1.0, float(np.abs(w).max())))
+    return gap
+
+
+def phase_sharded_train(torch, np, step0_loss):
+    """Sharded training (``train(mesh=)``) on four gloo ranks sharing the
+    card: part (a) at smoke width against the unsharded card run (dbrx:
+    against the same mesh on the CPU), part (b) qwen2.5-32b at full width
+    on (2, 2), its step-0 loss against phase ``train``'s unsharded one
+    (``step0_loss``)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import FactorizationConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharded_train import train_rank
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    fcfg = FactorizationConfig(enabled=True, min_dim=32)
+
+    def batches(cfg, n, B, S):
+        it = lm_batches(cfg.vocab_size, B, S)
+        return [next(it) for _ in range(n)]
+
+    tmp = tempfile.mkdtemp(prefix="sharded_train_")
+    loop = dict(total_steps=SHARDED_STEPS, ckpt_dir=tmp,
+                ckpt_every=10**9, log_every=1)
+    qwen = get_config("qwen2.5-32b", "smoke", dtype="float32")
+    qfact = dataclasses.replace(qwen, factorization=fcfg)
+    dbrx = get_config("dbrx-132b", "smoke", dtype="float32",
+                      factorization=fcfg)
+    sparse = dict(loop, sparse_from_step=0, project_every=SHARDED_STEPS)
+    smoke = {
+        "qwen_dense": dict(cfg=qwen, opt=dict(SHARDED_OPT, name="adamw"),
+                           loop=loop, batches=batches(qwen, 2, 8, 32)),
+        "qwen_factorized": dict(
+            cfg=qfact, opt=dict(SHARDED_OPT, name="adafactor",
+                                factored_min_dim=16),
+            loop=sparse, batches=batches(qwen, 2, 8, 32)),
+        "dbrx_factorized": dict(cfg=dbrx, opt=dict(SHARDED_OPT,
+                                                   name="adamw"),
+                                loop=sparse, batches=batches(dbrx, 2, 8, 32)),
+    }
+    full_cfg = get_config("qwen2.5-32b", "full", n_layers=TRAIN_FULL_LAYERS)
+    B, S = TRAIN_FULL_BATCH
+    full = dict(cfg=full_cfg, mesh=SHARDED_MESH,
+                opt=dict(lr=3e-3, warmup_steps=10,
+                         total_steps=TRAIN_FULL_STEPS),
+                loop=dict(total_steps=SHARDED_FULL_STEPS, ckpt_dir=tmp,
+                          ckpt_every=10**9, log_every=1),
+                batches=batches(full_cfg, SHARDED_FULL_STEPS, B, S))
+    for j in smoke.values():  # the CPU ranks' params: the CPU's draw
+        j["init_device"] = "cpu"
+    jobs = [dict(j, mesh=SHARDED_MESH, gather=True) for j in smoke.values()]
+    jobs.append(dict(smoke["dbrx_factorized"], mesh=SHARDED_MESH,
+                     gather=True, device="cpu"))
+    jobs.append(full)
+    # The unsharded card runs of part (a), in this process.
+    plain = train_rank([dict(smoke[k], gather=True)
+                        for k in ("qwen_dense", "qwen_factorized")])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(SHARDED_RANKS, train_rank, jobs, backend="gloo")
+    spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    refs = {"qwen_dense": plain[0], "qwen_factorized": plain[1],
+            "dbrx_factorized": r0[3]}
+    for i, name in enumerate(smoke):
+        got, want = r0[i], refs[name]
+        gaps = {}
+        for key in ("loss", "grad_norm"):
+            gaps[key] = max(abs(a[key] - b[key]) / max(1.0, abs(b[key]))
+                            for a, b in zip(got["history"],
+                                            want["history"]))
+        gaps["params"] = _leaf_gap(np, got["params"], want["params"])
+        against = "cpu ranks (2, 2)" if name.startswith("dbrx") \
+            else "unsharded card"
+        if len(got["history"]) != SHARDED_STEPS \
+                or not all(v <= SHARDED_RTOL for v in gaps.values()):
+            fail(f"sharded_train (a) {name}: the (2, 2) card run against "
+                 f"the {against} run: {gaps} (limit {SHARDED_RTOL})")
+        line("sharded_train", case="a", part=name, card=smi,
+             mesh=list(SHARDED_MESH), dtype="float32", against=against,
+             steps=SHARDED_STEPS,
+             losses=[h["loss"] for h in got["history"]], rel_gaps=gaps)
+
+    # (b): qwen2.5-32b at full width.
+    hist = r0[4]["history"]
+    if [h["step"] for h in hist] != list(range(SHARDED_FULL_STEPS)) \
+            or not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"sharded_train (b): bad steps {hist}")
+    gap = abs(hist[0]["loss"] - step0_loss)
+    if not gap <= TRAIN_BF16_LOSS_TOL:
+        fail(f"sharded_train (b): step-0 loss {hist[0]['loss']} vs the "
+             f"unsharded {step0_loss} (limit {TRAIN_BF16_LOSS_TOL})")
+    peaks = [r[4]["peak_bytes"] for r in ranks]
+    card = torch.cuda.get_device_properties(0).total_memory
+    if sum(peaks) > card:
+        fail(f"sharded_train (b): the ranks' peaks {peaks} exceed the "
+             f"card's {card} bytes")
+    per_rank = []
+    for r in ranks:
+        rec = r[4]
+        per_rank.append({
+            "coords": rec["coords"], "peak_gb": rec["peak_bytes"] / 1e9,
+            "predicted_gb": rec["predicted"]["total"] / 1e9,
+            "predicted_parts_gb": {k: v / 1e9 for k, v in
+                                   rec["predicted"].items()},
+            "peak_over_predicted": rec["peak_bytes"]
+            / rec["predicted"]["total"],
+            "steps": [{"step": h["step"], "loss": h["loss"],
+                       "ms": round(h["dt"] * 1e3, 3),
+                       "grad_norm": h["grad_norm"],
+                       "gloo_calls": st["calls"],
+                       "gloo_s": round(st["seconds"], 3),
+                       "gloo_gb": st["bytes"] / 1e9}
+                      for h, st in zip(rec["history"], rec["steps"])],
+            "seconds": round(rec["seconds"], 3)})
+    line("sharded_train", case="b", card=smi, model=full_cfg.name,
+         d_model=full_cfg.d_model, n_layers=full_cfg.n_layers,
+         mesh=list(SHARDED_MESH), backend="gloo (4 ranks, one card)",
+         reduced={"n_layers": f"64 -> {full_cfg.n_layers} (depth only)"},
+         dtype="bfloat16 compute, float32 params and AdamW state",
+         batch=[B, S], rank_batch=[B // SHARDED_MESH[0], S],
+         remat=full_cfg.remat, step0_loss=hist[0]["loss"],
+         step0_unsharded=step0_loss, step0_gap=gap,
+         peak_sum_gb=sum(peaks) / 1e9, ranks=per_rank)
+    line("sharded_train", spawn_seconds=round(spawn_s, 3),
+         seconds=round(time.perf_counter() - t0, 3))
 
 
 def main():
@@ -4962,7 +5156,8 @@ def main():
     timed("embeds", phase_embeds, torch, np)
     rows += timed("paper_models", phase_paper_models, torch, np)
     tplaunches = timed("tp_serve", phase_tp_serve, torch, np)
-    timed("train", phase_train, torch, np)
+    step0 = timed("train", phase_train, torch, np)
+    timed("sharded_train", phase_sharded_train, torch, np, step0)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT

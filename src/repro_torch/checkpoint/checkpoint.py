@@ -12,6 +12,14 @@ on updating them in place.
 bf16 leaves are stored as the reference stores them (numpy has no
 bfloat16: 2-byte ``|V2`` records of the bits) and read back by their
 bits.
+
+A checkpoint holds whole leaves whatever mesh wrote it (the train loop
+gathers a sharded state and one rank writes it), so it is
+mesh-independent: :func:`restore_checkpoint` with ``shardings=`` (the
+placement of each leaf of the tree to restore) and ``mesh=`` reads whole
+arrays and keeps the slice that this rank's mesh gives it. That is the
+elastic re-mesh: a run saved on a ``(2, 2)`` mesh resumes on ``(4, 1)``,
+or without a mesh, and takes the same steps.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_leaves
+from repro_torch.launch.sharding import cut_leaf, full_shape
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "async_save", "wait_pending", "cleanup_old"]
@@ -105,45 +114,59 @@ def latest_step(ckpt_dir: Union[str, Path]) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _to_tensor(arr: np.ndarray, like: torch.Tensor, spec=None,
+               mesh=None) -> torch.Tensor:
     arr = np.require(arr, requirements="C")  # keeps 0-d leaves 0-d
     if like.dtype == torch.bfloat16 and arr.dtype.itemsize == 2 \
             and arr.dtype.kind not in "f":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(arr).to(like.dtype)
-    return t.to(like.device)
+        t = torch.from_numpy(arr)
+    if spec is not None:
+        t = cut_leaf(t, spec, mesh).clone()
+    return t.to(like.dtype).to(like.device)
 
 
 def restore_checkpoint(ckpt_dir: Union[str, Path], tree_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
+                       step: Optional[int] = None, shardings: Any = None,
+                       mesh=None) -> Tuple[Any, int]:
     """Restore step ``step`` (default: the latest complete one) into the
     structure of ``tree_like``: each leaf becomes a tensor of its
     ``tree_like`` leaf's dtype on that leaf's device.
     Raises ``FileNotFoundError`` without a checkpoint, ``KeyError`` for a
     leaf the checkpoint lacks and ``ValueError`` for a shape that differs,
-    as the reference does."""
+    as the reference does.
+
+    ``shardings`` (a tree like ``tree_like`` of specs, with ``mesh``, this
+    rank's mesh): ``tree_like``'s leaves are this rank's slices; each
+    whole array is read, checked against the whole shape, and cut to the
+    rank's slice (``launch.sharding.shard_params``' cut)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    if mesh is None or mesh.size == 1:
+        shardings = None
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     keys = set(manifest["keys"])
     with np.load(d / "arrays.npz") as data:
-        def build(node, prefix):
+        def build(node, prefix, spec):
             if isinstance(node, dict):
-                return {k: build(v, prefix + (str(k),))
+                return {k: build(v, prefix + (str(k),),
+                                 None if spec is None else spec[k])
                         for k, v in node.items()}
             key = "/".join(prefix)
             if key not in keys:
                 raise KeyError(f"checkpoint missing leaf {key}")
             arr = data[key]
-            if tuple(arr.shape) != tuple(node.shape):
+            want = tuple(node.shape) if spec is None \
+                else full_shape(node.shape, spec, mesh)
+            if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch for {key}: "
-                                 f"{arr.shape} vs {tuple(node.shape)}")
-            return _to_tensor(arr, node)
-        return build(tree_like, ()), step
+                                 f"{arr.shape} vs {want}")
+            return _to_tensor(arr, node, spec, mesh)
+        return build(tree_like, (), shardings), step
 
 
 def cleanup_old(ckpt_dir: Union[str, Path], keep: int) -> None:

@@ -28,6 +28,8 @@ from repro_torch.core import compression as comp
 from repro_torch.core import sparsity
 from repro_torch.kernels.dmm.ref import unpack_nibbles
 from repro_torch.kernels.smm.ref import densify
+from repro_torch.launch.mesh import (copy_to, gather_from, reduce_from,
+                                     scatter_to)
 
 __all__ = [
     "FactorizationConfig",
@@ -144,8 +146,9 @@ def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     columns, all-reduced (:func:`_factorized`). With ``sparse_train`` and
     ``fcfg.ste_in_forward`` a factorized ``wd`` (r, d_out) goes through
     the straight-through top-``nnz_for(r)`` projection first
-    (:func:`~repro_torch.core.sparsity.ste_sparse`), as the reference's
-    sparse training does.
+    (:func:`~repro_torch.core.sparsity.ste_sparse`; on a mesh over whole
+    columns, :func:`ste_columns`), as the reference's sparse training
+    does.
 
     Dense and factorized weights are used in ``x``'s (the compute) dtype;
     ``Model.prepare`` makes that copy once at load time, so on the serving
@@ -161,8 +164,8 @@ def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
     elif mesh is not None:
-        y = _factorized(p["wd"].to(x.dtype), x, dicts[family].to(x.dtype),
-                        mesh, fcfg)
+        y = _factorized(p["wd"], x, dicts[family].to(x.dtype), mesh, fcfg,
+                        sparse_train)
     else:
         wd = p["wd"]
         if sparse_train and fcfg.ste_in_forward:
@@ -174,26 +177,48 @@ def apply_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y
 
 
+def ste_columns(wd: torch.Tensor, nnz: int, mesh=None,
+                r: Optional[int] = None) -> torch.Tensor:
+    """:func:`~repro_torch.core.sparsity.ste_sparse` of a W_D whose rank
+    axis (dim -2, full size ``r``) the ``model`` axis of ``mesh`` may
+    have cut: the top-``nnz`` mask needs whole columns, so the rank
+    gathers the rows of its columns (no gradient: the projection is
+    straight-through), projects, and keeps its block of rows."""
+    if mesh is None or r is None or wd.shape[-2] == r:
+        return sparsity.ste_sparse(wd, nnz)
+    whole = mesh.gather(wd.detach(), -2, "model")
+    proj = mesh.block(sparsity.project_topk_columns(whole, nnz), -2)
+    return wd + (proj - wd).detach()
+
+
 def _factorized(wd: torch.Tensor, x: torch.Tensor, ws: torch.Tensor, mesh,
-                fcfg: FactorizationConfig) -> torch.Tensor:
+                fcfg: FactorizationConfig,
+                sparse_train: bool = False) -> torch.Tensor:
     """``(x @ W_S) @ W_D`` on a mesh. When the ``model`` axis cut the
     dictionary's rank ``r`` (``W_S`` holds ``r / N`` columns), the rank
     multiplies by its columns and its rows of ``W_D`` (a column-parallel
     ``W_D`` holds only those; a row-parallel one holds all ``r`` and is
-    cut here) and one ``all_reduce(SUM)`` adds the partial products."""
+    cut here) and one ``all_reduce(SUM)`` adds the partial products.
+    Under autograd the replicated ``x`` enters through Megatron's ``f``
+    (its gradient is a partial sum too) and a replicated ``W_D``'s block
+    through :func:`~repro_torch.launch.mesh.scatter_to`, whose backward
+    makes the whole gradient on every rank."""
     r = fcfg.rank_for(x.shape[-1], wd.shape[-1])
+    if sparse_train and fcfg.ste_in_forward:
+        wd = ste_columns(wd, fcfg.nnz_for(r), mesh, r)
+    wd = wd.to(x.dtype)
     if ws.shape[-1] == r:  # the rank was not cut (N does not divide it)
         return (x @ ws) @ wd
     if wd.shape[-2] != ws.shape[-1]:
-        wd = mesh.block(wd, dim=-2)
-    return mesh.all_reduce((x @ ws) @ wd)
+        wd = scatter_to(wd, mesh, -2)
+    return reduce_from((copy_to(x, mesh) @ ws) @ wd, mesh)
 
 
 def parallel_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     dicts: Optional[Dict], family: str, *, mesh,
                     fcfg: FactorizationConfig, kind: str, width: int,
-                    compute_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    sparse_train: bool = False) -> torch.Tensor:
     """One linear of a Megatron pair on this rank of ``mesh``'s ``model``
     axis (``launch/sharding.py`` says where each leaf lives).
 
@@ -210,27 +235,38 @@ def parallel_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     other leaf gathers ``x`` first and computes the whole product.
 
     The bias is added after, once: a column block's own entries, or the
-    replicated bias of a row-parallel linear."""
+    replicated bias of a row-parallel linear.
+
+    Every collective is the autograd-aware one of ``launch/mesh.py``, so
+    the train step differentiates through this function: ``f`` where the
+    replicated ``x`` meets a column block, ``g`` on partial sums, a block
+    of a replicated tensor through ``scatter_to``, a gathered input
+    through ``gather_from``. ``sparse_train``: factorized W_D through the
+    straight-through projection over whole columns."""
     core = {k: v for k, v in p.items() if k != "b"}
-    kw = dict(compute_dtype=compute_dtype, mesh=mesh, fcfg=fcfg)
+    kw = dict(compute_dtype=compute_dtype, mesh=mesh, fcfg=fcfg,
+              sparse_train=sparse_train)
     n = mesh.shape["model"]
     if kind == "col":
-        y = apply_linear(core, x, dicts, family, **kw)
-        if y.shape[-1] == width and width % n == 0:
-            y = mesh.block(y)
+        if "w" in core and core["w"].shape[-1] != width:  # a column block
+            y = copy_to(x, mesh) @ core["w"].to(x.dtype)
+        else:
+            y = apply_linear(core, x, dicts, family, **kw)
+            if y.shape[-1] == width and width % n == 0:
+                y = scatter_to(y, mesh)
     elif kind == "row":
         local = x.shape[-1] != width
         if "w" in core and local and core["w"].shape[-2] == x.shape[-1]:
-            y = mesh.all_reduce(x @ core["w"].to(x.dtype))
+            y = reduce_from(x @ core["w"].to(x.dtype), mesh)
         else:
-            y = apply_linear(core, mesh.gather(x) if local else x, dicts,
-                             family, **kw)
+            y = apply_linear(core, gather_from(x, mesh) if local else x,
+                             dicts, family, **kw)
     else:
         raise ValueError(f"kind must be 'col' or 'row', got {kind!r}")
     if "b" in p:
         b = p["b"]
         if kind == "col" and b.shape[-1] == width and width % n == 0:
-            b = mesh.block(b)
+            b = scatter_to(b, mesh)
         y = y + b.to(y.dtype)
     return y
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, Tuple
 
-__all__ = ["tree_leaves", "tree_map"]
+__all__ = ["tree_leaves", "tree_map", "tree_map_paths", "tree_at"]
 
 
 def tree_leaves(tree: Any) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -24,3 +24,17 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_map_paths(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
+                   pre: Tuple[str, ...] = ()) -> Any:
+    """The same nested dicts with ``fn(path, leaf)`` at every leaf."""
+    return {k: (tree_map_paths(fn, v, pre + (k,)) if isinstance(v, dict)
+                else fn(pre + (k,), v)) for k, v in tree.items()}
+
+
+def tree_at(tree: Any, path: Tuple[str, ...]) -> Any:
+    """The node of ``tree`` at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree

@@ -42,12 +42,47 @@ What the serving path does with that placement (``models/layers.py``,
 Norms, biases of row-parallel linears and the recurrent blocks' leaves
 stay replicated (recurrent stacks are refused on a mesh: their head
 counts do not divide).
+
+**Training placement** (``launch/steps.py``, ``train/loop.py``) on a
+``(data, model)`` or ``(pod, data, model)`` mesh is the same rule
+(:func:`param_specs`) with ``data`` above 1:
+
+* every big weight is TP-cut on ``model`` as above and **FSDP**-cut on
+  ``data`` along its other dim; a layer gathers its FSDP-cut leaves over
+  ``data`` inside its body (``launch.mesh.fsdp_gather``: all-gather
+  forward, reduce-scatter backward), under the layer's checkpoint when
+  remat is on, so a rank holds one layer's gathered weights at a time;
+  the token table and the head are gathered the same way;
+* an MoE expert leaf's ``data`` entry is its expert axis E: **expert
+  parallelism**. It is never gathered; its tokens travel by
+  ``all_to_all`` (``models/moe.py``);
+* the shared dictionaries ``W_S`` are replicated over ``data`` (and
+  ``pod``), and so are norms and biases;
+* ``pod`` is pure data parallelism for the parameters: no leaf is cut
+  over it. The AdamW moments are also ZeRO-cut over it
+  (:func:`opt_state_specs`: ``data`` widened to ``("data", "pod")``);
+* the batch is cut over ``("pod", "data")`` (:func:`batch_spec`).
+
+**Gradients by axis** (:func:`grad_reduce_axes`): each rank's backward
+gives the gradient of the global loss restricted to its batch block. A
+leaf that a data-parallel axis does not cut gets its gradient summed
+(all-reduce) over that axis; an FSDP leaf gets the ``data`` sum from its
+gather's reduce-scatter, and an expert leaf from the ``all_to_all`` that
+brought it every rank's tokens; a leaf replicated over ``model`` gets no
+reduction, since Megatron's ``f`` / ``g`` pairs make its gradient whole
+and equal on every rank of the axis.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["param_specs", "slot_cache_specs", "shard_params", "mesh_shape"]
+from repro_torch.core.tree import tree_at, tree_map_paths
+
+__all__ = ["param_specs", "slot_cache_specs", "shard_params", "mesh_shape",
+           "dp_axes", "batch_spec", "cache_specs", "opt_state_specs",
+           "spec_axes", "cut_leaf", "local_shape", "full_shape", "fsdp_dim",
+           "grad_reduce_axes", "gather_leaf", "gather_tree"]
 
 _COL_NAMES = {"wq", "wk", "wv", "w_up", "w_gate", "w_y", "w_x", "w_a", "w_i",
               "in_proj"}
@@ -57,13 +92,28 @@ Spec = Tuple[Optional[str], ...]
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
-    """``{"data": D, "model": M}`` of a :class:`~repro_torch.launch.mesh.
-    Mesh`, or the dict itself."""
+    """``{axis: size}`` of a :class:`~repro_torch.launch.mesh.Mesh` or
+    :class:`~repro_torch.launch.mesh.MeshShape`, or the dict itself."""
     return dict(getattr(mesh, "shape", mesh))
 
 
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The data-parallel axes of ``mesh``: ``pod`` and ``data``, those it
+    has, in that order (the reference's ``dp_axes``)."""
+    names = getattr(mesh, "axis_names", None) or tuple(mesh_shape(mesh))
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, an axis, or a tuple of
+    axes, major first)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def _axis_ok(shape: Dict[str, int], axis, dim: int) -> bool:
-    return axis is None or dim % shape.get(axis, 1) == 0
+    return dim % math.prod(shape.get(a, 1) for a in spec_axes(axis)) == 0
 
 
 def _validated(shape, spec, dims) -> Spec:
@@ -113,16 +163,11 @@ def _leaf_spec(names: List[str], dims: Tuple[int, ...], shape) -> Spec:
     return rep
 
 
-def _map_paths(fn, tree, pre=()):
-    return {k: (_map_paths(fn, v, pre + (k,)) if isinstance(v, dict)
-                else fn(pre + (k,), v)) for k, v in tree.items()}
-
-
 def param_specs(params, mesh) -> Dict:
     """A spec for every leaf of ``params`` (anything with ``.shape``), the
     reference's ``param_specs`` placement on a mesh of this shape."""
     shape = mesh_shape(mesh)
-    return _map_paths(lambda p, leaf: _leaf_spec(
+    return tree_map_paths(lambda p, leaf: _leaf_spec(
         list(p), tuple(leaf.shape), shape), params)
 
 
@@ -145,30 +190,162 @@ def slot_cache_specs(caches, mesh) -> Dict:
             s[-1] = "model"
         return tuple(s)
 
-    return _map_paths(spec, caches)
+    return tree_map_paths(spec, caches)
 
 
 def shard_params(params, specs, mesh) -> Dict:
-    """This rank's slice of every leaf: each dim placed on an axis of size
+    """This rank's slice of every leaf: each dim placed on axes of size
     above 1 is cut into equal blocks and the block at the rank's
-    coordinate kept (a view). A compressed dictionary (a ``{codes_packed,
-    lut}`` entry under ``dicts``) stays whole, whatever its spec: the DMM
-    kernel decodes the whole ``W_S`` of a replicated compressed linear."""
+    coordinate kept (a view; a dim on a tuple of axes, major first, is
+    cut in the product of their sizes). A compressed dictionary (a
+    ``{codes_packed, lut}`` entry under ``dicts``) stays whole, whatever
+    its spec: the DMM kernel decodes the whole ``W_S`` of a replicated
+    compressed linear."""
     def cut(path, leaf):
         if path[0] == "dicts" and len(path) > 2:
             return leaf
-        spec = _get(specs, path)
-        for dim, axis in enumerate(spec):
-            n = mesh.shape[axis] if axis is not None else 1
-            if n > 1:
-                w = leaf.shape[dim] // n
-                leaf = leaf.narrow(dim, mesh.coords[axis] * w, w)
-        return leaf
+        return cut_leaf(leaf, tree_at(specs, path), mesh)
 
-    return _map_paths(cut, params)
+    return tree_map_paths(cut, params)
 
 
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
+def cut_leaf(leaf, spec, mesh):
+    """This rank's slice of one whole ``leaf`` placed by ``spec`` (a
+    view)."""
+    for dim, entry in enumerate(spec):
+        n, idx = 1, 0
+        for a in spec_axes(entry):
+            n, idx = n * mesh.n(a), idx * mesh.n(a) + mesh.coord(a)
+        if n > 1:
+            w = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, idx * w, w)
+    return leaf
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's slice of a leaf of ``shape``."""
+    return tuple(d // math.prod(mesh_shape(mesh).get(a, 1)
+                                for a in spec_axes(e))
+                 for d, e in zip(shape, spec))
+
+
+def full_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from one rank's slice of ``shape``."""
+    return tuple(d * math.prod(mesh_shape(mesh).get(a, 1)
+                               for a in spec_axes(e))
+                 for d, e in zip(shape, spec))
+
+
+def fsdp_dim(path, spec) -> Optional[int]:
+    """The dim of a parameter leaf that a layer gathers over ``data``
+    before use (FSDP), or ``None``: an MoE expert leaf's ``data`` dim is
+    its expert axis (expert parallelism), never gathered."""
+    if "moe" in path[:-1] and path[-1] in ("w", "wd"):
+        return None
+    for dim, e in enumerate(spec):
+        if "data" in spec_axes(e):
+            return dim
+    return None
+
+
+def grad_reduce_axes(spec, mesh) -> Tuple[str, ...]:
+    """The data-parallel axes over which a leaf of ``spec`` gets its
+    gradient all-reduced (SUM): those that do not cut it."""
+    cut = {a for e in spec for a in spec_axes(e)}
+    return tuple(a for a in dp_axes(mesh) if a not in cut
+                 and mesh_shape(mesh).get(a, 1) > 1)
+
+
+def gather_leaf(leaf: Any, spec, mesh) -> Any:
+    """The whole leaf from every rank's slice (the inverse of
+    :func:`shard_params`'s cut): one ``all_gather`` per axis that cuts it,
+    the minor axis of a tuple entry first. Every rank of the mesh must
+    call it."""
+    for dim, e in enumerate(spec):
+        for a in reversed(spec_axes(e)):
+            leaf = mesh.gather(leaf, dim, a)
+    return leaf
+
+
+def gather_tree(tree, specs, mesh) -> Dict:
+    """:func:`gather_leaf` of every leaf (a collective, every rank)."""
+    return tree_map_paths(
+        lambda p, leaf: gather_leaf(leaf, tree_at(specs, p), mesh), tree)
+
+
+def batch_spec(batch, mesh) -> Dict:
+    """Inputs: the batch dim over ``dp_axes`` (``("pod", "data")``) when
+    they divide it, else replicated (the reference's ``batch_spec``)."""
+    dp = dp_axes(mesh)
+    shape = mesh_shape(mesh)
+
+    def spec(path, leaf):
+        nd = len(leaf.shape)
+        b = leaf.shape[0] if nd else 1
+        first = (dp if len(dp) > 1 else dp[0]) if dp and _axis_ok(
+            shape, dp, b) else None
+        return (first,) + (None,) * (nd - 1) if nd else ()
+
+    return tree_map_paths(spec, batch)
+
+
+def cache_specs(caches, mesh, stacked: bool = True,
+                decode: bool = False) -> Dict:
+    """Prefill / train caches ``(L?, B, S, H, D)`` (the reference's
+    ``cache_specs``): B over ``dp_axes``, S over ``model``; with
+    ``decode`` (weight-stationary, batch replicated) S over ``("data",
+    "model")``. ``k_scale`` / ``v_scale`` ``(L?, B, S, H)`` mirror the
+    codes' (B, S) cut; recurrent states put B over ``dp_axes`` (dim 1 when
+    ``stacked``) and their last dim over ``model``."""
+    shape = mesh_shape(mesh)
+    names = getattr(mesh, "axis_names", None) or tuple(shape)
+    dp = dp_axes(mesh)
+    dpe = dp if len(dp) > 1 else (dp[0] if dp else None)
+    seq = tuple(a for a in ("data", "model") if a in names)
+    seqe = seq if len(seq) > 1 else (seq[0] if seq else None)
+
+    def ok(axis, dim):
+        return axis if axis is not None and _axis_ok(shape, axis, dim) \
+            else None
+
+    def spec(path, leaf):
+        dims, nd, name = tuple(leaf.shape), len(leaf.shape), path[-1]
+        s = [None] * nd
+        if name in ("k", "v") and nd >= 4:
+            if decode:
+                s[nd - 3] = ok(seqe, dims[nd - 3])
+            else:
+                s[nd - 4] = ok(dpe, dims[nd - 4])
+                s[nd - 3] = ok("model", dims[nd - 3])
+            return tuple(s)
+        if name in ("k_scale", "v_scale") and nd >= 3:
+            s[nd - 3] = ok(dpe, dims[nd - 3])
+            s[nd - 2] = ok("model", dims[nd - 2])
+            return tuple(s)
+        bdim = 1 if (stacked and nd >= 2) else 0
+        if nd > bdim:
+            s[bdim] = ok(dpe, dims[bdim])
+        if nd - 1 > bdim and _axis_ok(shape, "model", dims[-1]):
+            s[-1] = "model"
+        return tuple(s)
+
+    return tree_map_paths(spec, caches)
+
+
+def opt_state_specs(pspecs, mesh, params=None) -> Dict:
+    """Optimizer moments: the parameters' specs, with ``data`` widened to
+    ``("data", "pod")`` on a mesh with a ``pod`` axis (ZeRO over pods)
+    where the leaf's dim (``params`` given) divides by both (the
+    reference's ``opt_state_specs``)."""
+    names = getattr(mesh, "axis_names", None) or tuple(mesh_shape(mesh))
+    if "pod" not in names:
+        return pspecs
+    shape = mesh_shape(mesh)
+
+    def widen(path, spec):
+        dims = None if params is None else tuple(tree_at(params, path).shape)
+        return tuple(("data", "pod") if e == "data" and (
+            dims is None or _axis_ok(shape, ("data", "pod"), dims[i]))
+            else e for i, e in enumerate(spec))
+
+    return tree_map_paths(widen, pspecs)

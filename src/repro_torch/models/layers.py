@@ -34,7 +34,9 @@ from repro_torch.kernels.tda.ops import (
     fused_mixed_attention,
     gather_paged_lanes,
 )
-from repro_torch.launch.mesh import tensor_parallel_size
+from repro_torch.launch.mesh import (copy_to, reduce_from,
+                                     tensor_parallel_size)
+from repro_torch.launch.sharding import dp_axes
 from repro_torch.models.common import ModelConfig, torch_dtype
 
 NEG_INF = -1e30
@@ -417,7 +419,8 @@ def _linear_fn(p: Dict, dicts: Optional[Dict], cfg: ModelConfig, mesh=None,
                                 sparse_train=sparse_train).to(dt)
         return parallel_linear(p[name], x, dicts, family, mesh=mesh,
                                fcfg=cfg.factorization, kind=_PARALLEL[name],
-                               width=width, compute_dtype=dt).to(dt)
+                               width=width, compute_dtype=dt,
+                               sparse_train=sparse_train).to(dt)
 
     return lin
 
@@ -757,19 +760,23 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     position table's rows of ``positions`` (the same rule), as the
     reference adds them. A table cut over the vocabulary (a
     tensor-parallel ``mesh``) looks up the tokens of its own block, zeros
-    for the others, and one ``all_reduce(SUM)`` assembles the rows
-    (exact)."""
+    for the others, and one ``all_reduce(SUM)`` (Megatron's ``g`` under
+    autograd) assembles the rows (exact), with :func:`take_rows`' rule for
+    ids out of range."""
     tok = p["tok"]
     if tensor_parallel_size(mesh) == 1 or tok.shape[0] == cfg.vocab_size:
         x = take_rows(tok, tokens).to(cfg.compute_dtype)
     else:
+        V, vl = cfg.vocab_size, tok.shape[0]
         ids = tokens.long()
-        vl = tok.shape[0]
+        ids = torch.where(ids < 0, ids + V, ids)
         loc = ids - mesh.coords["model"] * vl
         hit = (loc >= 0) & (loc < vl)
         x = torch.where(hit[..., None], tok[torch.clamp(loc, 0, vl - 1)],
                         0.0)
-        x = mesh.all_reduce(x.to(cfg.compute_dtype))
+        x = reduce_from(x.to(cfg.compute_dtype), mesh)
+        bad = (ids < 0) | (ids >= V)
+        x = torch.where(bad[..., None], float("nan"), x)
     if cfg.learned_pos and positions is not None:
         x = x + take_rows(p["pos"], positions).to(cfg.compute_dtype)
     return x
@@ -782,16 +789,22 @@ def lm_logits(p_head: Dict, p_embed: Dict, x: torch.Tensor,
     (a tensor-parallel ``mesh``) computes its block of every row of ``x``,
     and one ``all_gather`` assembles the blocks: every rank ends with the
     same bits."""
-    xf = x.float()
-    if cfg.tie_embeddings:
-        y = xf @ p_embed["tok"].float().T
-    elif cfg.n_codebooks > 1:
-        y = torch.einsum("bsd,cdv->bscv", xf, p_head["w"].float())
-    else:
-        y = xf @ p_head["w"].float()
+    y = _head(p_head, p_embed, x, cfg)
     if tensor_parallel_size(mesh) > 1 and y.shape[-1] != cfg.vocab_size:
         y = mesh.gather(y)
     return y
+
+
+def _head(p_head: Dict, p_embed: Dict, x: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits of the head this rank holds (a vocabulary block of a
+    head cut over ``model``)."""
+    xf = x.float()
+    if cfg.tie_embeddings:
+        return xf @ p_embed["tok"].float().T
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,cdv->bscv", xf, p_head["w"].float())
+    return xf @ p_head["w"].float()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -809,12 +822,32 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def _chunk_nll(p_head: Dict, p_embed: Dict, h: torch.Tensor,
                labels: torch.Tensor, w: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+               cfg: ModelConfig, mesh=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One chunk's weighted NLL sum and weight sum (multi-codebook: the
-    NLL averaged over codebooks first)."""
-    logits = lm_logits(p_head, p_embed, h, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    NLL averaged over codebooks first). A head cut over the vocabulary
+    (a tensor-parallel ``mesh``) gives this rank's block of the logits
+    only: the logsumexp takes the max over ``model`` (all-reduce MAX) and
+    the sum of the shifted exponentials over it (``g``), the gold logit
+    comes from the rank whose block holds the label (``g`` of the
+    others' zeros), and ``h`` enters through ``f``: no ``(B, S, V)``
+    logits on any rank."""
+    if tensor_parallel_size(mesh) == 1:
+        logits = _head(p_head, p_embed, h, cfg)
+    else:
+        logits = _head(p_head, p_embed, copy_to(h, mesh), cfg)
+    if logits.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        vl = logits.shape[-1]
+        mx = mesh.all_reduce(logits.detach().amax(-1), "model", "max")
+        se = torch.exp(logits - mx[..., None]).sum(-1)
+        lse = torch.log(reduce_from(se, mesh)) + mx
+        loc = labels.long() - mesh.coords["model"] * vl
+        hit = (loc >= 0) & (loc < vl)
+        g = torch.gather(logits, -1, torch.clamp(loc, 0, vl - 1)[..., None])
+        gold = reduce_from(torch.where(hit, g[..., 0], 0.0), mesh)
     nll = lse - gold
     if nll.dim() > w.dim():
         nll = nll.mean(-1)
@@ -824,7 +857,7 @@ def _chunk_nll(p_head: Dict, p_embed: Dict, h: torch.Tensor,
 def chunked_xent(p_head: Dict, p_embed: Dict, h: torch.Tensor,
                  labels: torch.Tensor, cfg: ModelConfig,
                  weights: Optional[torch.Tensor] = None,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, mesh=None) -> torch.Tensor:
     """Cross-entropy of the LM head over ``h`` (B, S, d) without holding
     every position's (B, S, V) logits: a loop over sequence chunks of
     ``c = min(chunk, S)`` positions, each computing its logits, logsumexp
@@ -833,12 +866,23 @@ def chunked_xent(p_head: Dict, p_embed: Dict, h: torch.Tensor,
     reference's ``jax.checkpoint(nothing_saveable)`` over its scan). When
     ``c`` does not divide ``S``: :func:`cross_entropy` over the full
     logits, as in the reference. Labels ``(B, S)``, or ``(B, S, C)`` for a
-    multi-codebook head."""
+    multi-codebook head.
+
+    On a ``mesh`` (one rank of the train step: ``h`` its batch block) a
+    head cut over ``model`` takes the vocabulary-parallel path of
+    :func:`_chunk_nll` (one chunk of all ``S`` when ``c`` does not divide
+    it), and the loss is the global one, ``Σ nll / Σ weights`` over the
+    whole batch: the weight sum is all-reduced over ``pod`` / ``data``
+    and the NLL sum goes through ``g`` over them, so every rank holds the
+    same loss and its backward gives its own block's share of the
+    gradient."""
     B, S, _ = h.shape
     c = min(chunk, S)
     if S % c != 0:
-        return cross_entropy(lm_logits(p_head, p_embed, h, cfg), labels,
-                             weights)
+        if mesh is None:
+            return cross_entropy(lm_logits(p_head, p_embed, h, cfg), labels,
+                                 weights)
+        c = S
     if weights is None:
         weights = torch.ones((B, S), dtype=torch.float32, device=h.device)
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -846,7 +890,12 @@ def chunked_xent(p_head: Dict, p_embed: Dict, h: torch.Tensor,
     for a in range(0, S, c):
         n_i, w_i = checkpoint(_chunk_nll, p_head, p_embed, h[:, a:a + c],
                               labels[:, a:a + c], weights[:, a:a + c], cfg,
-                              use_reentrant=False)
+                              mesh, use_reentrant=False)
         nll_sum = nll_sum + n_i
         w_sum = w_sum + w_i
+    if mesh is not None:
+        w_sum = w_sum.detach()
+        for ax in dp_axes(mesh):
+            w_sum = mesh.all_reduce(w_sum, ax)
+            nll_sum = reduce_from(nll_sum, mesh, ax)
     return nll_sum / torch.clamp(w_sum, min=1.0)

@@ -38,14 +38,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-import torch.distributed as dist
-
 from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import (DictionaryBank, FactorizationConfig,
                                         decompress_wd_leaf,
                                         decompress_ws_entry, init_linear,
                                         parallel_linear)
+from repro_torch.launch.mesh import all_to_all, reduce_from
+from repro_torch.launch.sharding import dp_axes
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["init_moe", "moe_ffn", "router_counts", "reset_router_counts",
@@ -215,14 +215,15 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     compute dtype, aux)`` — the reference's ``moe_ffn(mesh=None)``
     (``sparse_train``: factorized experts through the STE). On a mesh of
     more than one rank, :func:`_moe_sharded` on this rank's shards: ``p``
-    as ``launch.sharding.shard_params`` cut it and ``x`` this rank's batch
-    block over ``data`` (replicated over ``model``); sparse training
-    there is item 12b of the roadmap."""
+    as ``launch.sharding.shard_params`` cut it (experts over ``data``:
+    expert parallelism, never gathered; their contraction over ``model``)
+    and ``x`` this rank's batch block over ``pod`` / ``data``
+    (replicated over ``model``). It trains too: its exchanges and
+    reductions are the autograd-aware collectives of ``launch/mesh.py``.
+    As in the reference, the experts' straight-through projection does
+    not run on a mesh (the train loop's post-update projection of W_D
+    stands in for it)."""
     if mesh is not None and mesh.size > 1:
-        if sparse_train:
-            raise UnsupportedConfigError(
-                "sparse training of sharded experts comes with sharded "
-                "training (ROADMAP Queue 1 item 12b)")
         if any("wd_vq" in p[n] for n in ("w_gate", "w_up", "w_down")):
             raise UnsupportedConfigError(
                 "compressed expert weights (wd_vq streams) are local-only "
@@ -246,17 +247,6 @@ def moe_ffn(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     return y, aux
 
 
-def _all_to_all(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Tiled ``all_to_all`` over ``data``: block ``j`` of ``t``'s leading
-    axis goes to rank ``j``; the result holds the blocks received, in
-    source order."""
-    if mesh.shape["data"] == 1:
-        return t
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t.contiguous(), group=mesh.groups["data"])
-    return out
-
-
 def _moe_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  dicts: Optional[Dict], mesh) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
@@ -266,11 +256,14 @@ def _moe_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``data`` axis (``E / D`` experts each), run the received tokens
     through the local experts (the ``d_ff`` slice or rank block of
     ``model``, one ``all_reduce`` per contraction over it), send them back
-    and combine. ``aux`` is averaged over ``data``."""
+    and combine. ``aux`` is averaged over ``pod`` / ``data``. Sparse
+    training sends no expert through the STE here: the reference's body
+    runs its experts with the ``model`` axis named, which turns the STE
+    off whether or not that axis cuts ``r``."""
     B, S, d = x.shape
     m = cfg.moe
     dt = cfg.compute_dtype
-    n_ep = mesh.shape["data"]
+    n_ep = mesh.n("data")
     E = m.n_experts
     E_loc = E // n_ep
     tokens = x.reshape(B * S, d)
@@ -278,7 +271,7 @@ def _moe_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     C = _capacity(B * S, m.top_k, E, m.capacity_factor)
     buf, pos, keep = _dispatch(tokens, eidx, E, C)
     _count(keep)
-    recv = _all_to_all(buf, mesh)  # (n_ep * E_loc, C, d) by source
+    recv = all_to_all(buf, mesh, "data")  # (n_ep * E_loc, C, d) by source
     recv = recv.reshape(n_ep, E_loc, C, d).transpose(0, 1).reshape(
         E_loc, n_ep * C, d)
     kw = dict(mesh=mesh, fcfg=cfg.factorization, width=m.d_ff_expert,
@@ -291,6 +284,9 @@ def _moe_sharded(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                           **kw).to(dt)
     back = out.reshape(E_loc, n_ep, C, d).transpose(0, 1).reshape(
         n_ep * E_loc, C, d)
-    y = _combine(_all_to_all(back, mesh), gates, eidx, pos, keep)
-    aux = mesh.all_reduce(aux.reshape(1), "data")[0] / n_ep
-    return y.reshape(B, S, d).to(dt), aux
+    y = _combine(all_to_all(back, mesh, "data"), gates, eidx, pos, keep)
+    aux, n_dp = aux.reshape(1), 1
+    for a in dp_axes(mesh):
+        aux = reduce_from(aux, mesh, a)
+        n_dp *= mesh.n(a)
+    return y.reshape(B, S, d).to(dt), aux[0] / n_dp

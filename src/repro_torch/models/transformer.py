@@ -38,6 +38,7 @@ attention stacks serve on a ``(1, N)`` mesh; a recurrent block refuses one
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -47,17 +48,21 @@ from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import (DictionaryBank, FactorizationConfig,
                                         compress_model_params)
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_at, tree_leaves, tree_map
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import tensor_parallel_size
-from repro_torch.launch.sharding import param_specs, shard_params
+from repro_torch.launch.mesh import (fsdp_gather, reduce_from,
+                                     tensor_parallel_size)
+from repro_torch.launch.sharding import (dp_axes, fsdp_dim, full_shape,
+                                         grad_reduce_axes, param_specs,
+                                         shard_params, spec_axes)
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as SSD
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import init_moe, moe_ffn
 
-__all__ = ["Model", "check_supported", "factorization_regularizer"]
+__all__ = ["Model", "check_supported", "factorization_regularizer",
+           "gather_fsdp"]
 
 BLOCK_KINDS = ("attn", "local", "ssd", "rglru")
 
@@ -82,10 +87,22 @@ def check_supported(cfg: ModelConfig) -> None:
             f"act={cfg.act!r}, norm={cfg.norm!r})")
 
 
-def factorization_regularizer(params: Dict,
-                              fcfg: FactorizationConfig) -> torch.Tensor:
+def factorization_regularizer(params: Dict, fcfg: FactorizationConfig,
+                              mesh=None, specs=None) -> torch.Tensor:
     """Sum of :func:`~repro_torch.core.sparsity.out_of_support_l1` over
-    every matrix of every W_D leaf (any leading dims: layers, experts)."""
+    every matrix of every W_D leaf (any leading dims: layers, experts).
+
+    On a mesh (``params`` this rank's slices, ``specs`` their placement)
+    each rank sums the out-of-support mass of the entries it holds, each
+    column's support taken over the whole column (its rows gathered over
+    ``model`` when that axis cut the rank axis ``r``), over the whole
+    matrix's entry count. The sum over the mesh goes through ``g``: over
+    ``model`` for a leaf it cuts, over every data-parallel axis for every
+    leaf, a leaf's share divided by the number of data-parallel copies of
+    it (whose gradients the train step adds up). Every rank holds the
+    whole sum."""
+    if mesh is not None and mesh.size > 1:
+        return _sharded_regularizer(params, fcfg, mesh, specs)
     total = 0.0
     for path, leaf in tree_leaves(params):
         if path[-1] != "wd":
@@ -96,6 +113,55 @@ def factorization_regularizer(params: Dict,
                            for w in leaf.reshape(-1, r, d_out)])
         total = total + per.sum()
     return total if torch.is_tensor(total) else torch.zeros(())
+
+
+def _sharded_regularizer(params: Dict, fcfg: FactorizationConfig, mesh,
+                         specs) -> torch.Tensor:
+    dev = mesh.device
+    by_model = torch.zeros((), device=dev)
+    rest = torch.zeros((), device=dev)
+    for path, leaf in tree_leaves(params):
+        if path[-1] != "wd":
+            continue
+        spec = tree_at(specs, path)
+        full = full_shape(leaf.shape, spec, mesh)
+        r, d_out = full[-2], full[-1]
+        nnz = fcfg.nnz_for(r)
+        cut_r = "model" in spec_axes(spec[-2])
+        mats = leaf.reshape(-1, leaf.shape[-2], leaf.shape[-1])
+        whole = mesh.gather(mats.detach(), -2, "model") if cut_r \
+            else mats.detach()
+        keep = torch.stack([sparsity.topk_column_mask(w, nnz)
+                            for w in whole])
+        if cut_r:
+            keep = mesh.block(keep, -2)
+        share = torch.where(keep, 0.0, mats).abs().sum() / (r * d_out)
+        copies = math.prod(mesh.n(a) for a in grad_reduce_axes(spec, mesh))
+        if cut_r:
+            by_model = by_model + share / copies
+        else:
+            rest = rest + share / copies
+    total = rest + reduce_from(by_model, mesh, "model")
+    for a in dp_axes(mesh):
+        total = reduce_from(total, mesh, a)
+    return total
+
+
+def gather_fsdp(tree: Dict, specs: Dict, mesh, path=()) -> Dict:
+    """``tree`` with every leaf that ``specs`` cuts over ``data`` (FSDP;
+    not an expert leaf, :func:`~repro_torch.launch.sharding.fsdp_dim`)
+    gathered over it through ``fsdp_gather`` (all-gather forward,
+    reduce-scatter backward); other leaves as they are."""
+    if mesh is None or mesh.n("data") == 1:
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = gather_fsdp(v, specs[k], mesh, path + (k,))
+            continue
+        dim = fsdp_dim(path + (k,), specs[k])
+        out[k] = v if dim is None else fsdp_gather(v, mesh, dim, "data")
+    return out
 
 
 _CAST_KEYS = ("w", "wd", "b")  # linear leaves used in the compute dtype
@@ -353,10 +419,14 @@ class Model:
 
     def _block(self, lp: Dict, x: torch.Tensor, *, kind: str, dicts,
                positions, cache_l, li, cache_index, pages_l, slot_mask,
-               n_new, seg_ids, prefix_l, mesh, sparse_train):
+               n_new, seg_ids, prefix_l, mesh, sparse_train, specs=None):
         """One layer: ``(x, aux)``, ``aux`` the MoE load-balance loss (0.0
-        for other blocks)."""
+        for other blocks). With the layer's ``specs`` (training on a mesh)
+        its FSDP-cut leaves are gathered over ``data`` first, here inside
+        the layer (under its checkpoint when remat is on)."""
         cfg = self.cfg
+        if specs is not None:
+            lp = gather_fsdp(lp, specs, mesh)
         h = L.apply_norm(lp["norm1"], x)
         if kind in ("ssd", "rglru") and tensor_parallel_size(mesh) > 1:
             raise UnsupportedConfigError(
@@ -398,16 +468,20 @@ class Model:
 
     def _stack(self, params, x, *, positions, caches, cache_index=None,
                slot_mask=None, pages=None, n_new=None, seg_ids=None,
-               prefix_kv=None, mesh=None, sparse_train=False):
+               prefix_kv=None, mesh=None, sparse_train=False, specs=None):
         """The block stack and the final norm: ``(h, aux)``, ``aux`` the
         MoE load-balance loss summed over the layers (f32 0-d; ``0.0`` for
         a stack without routed experts). With
         ``cfg.remat != "none"``, a forward without caches under autograd
         runs each layer under ``torch.utils.checkpoint`` (its activations
         recomputed in the backward pass: memory, not values, as the
-        reference's ``jax.checkpoint``)."""
+        reference's ``jax.checkpoint``). ``specs``: the placement of
+        ``params["layers"]`` when training on a mesh."""
         cfg = self.cfg
         lay = params["layers"]
+        if specs is not None and cfg.uniform_layers:
+            specs = tree_map(lambda sp: sp[1:], specs)  # the L axis
+
         remat = cfg.remat != "none" and caches is None \
             and torch.is_grad_enabled()
         aux = 0.0
@@ -415,6 +489,7 @@ class Model:
             kind = cfg.block_kind(i)
             if cfg.uniform_layers:
                 lp = tree_map(lambda t: t[i], lay)
+                lspecs = specs
                 cache_l, li, pages_l = caches, i, pages
                 pre = None if prefix_kv is None else {
                     "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
@@ -422,6 +497,7 @@ class Model:
             else:
                 name = f"layer_{i:02d}"
                 lp, li = lay[name], None
+                lspecs = None if specs is None else specs[name]
                 cache_l = None if caches is None else caches[name]
                 pages_l = None if pages is None else pages.get(name)
                 pre = None
@@ -434,7 +510,8 @@ class Model:
                       positions=positions, cache_l=cache_l, li=li,
                       cache_index=cache_index, pages_l=pages_l,
                       slot_mask=slot_mask, n_new=n_new, seg_ids=seg_ids,
-                      prefix_l=pre, mesh=mesh, sparse_train=sparse_train)
+                      prefix_l=pre, mesh=mesh, sparse_train=sparse_train,
+                      specs=lspecs)
             if remat:
                 x, aux_l = checkpoint(self._block, lp, x, use_reentrant=False,
                                       **kw)
@@ -512,7 +589,8 @@ class Model:
         return self.logits(params, h, mesh), caches
 
     def loss(self, params: Dict, batch: Dict, *,
-             sparse_train: bool = False) -> Tuple[torch.Tensor, Dict]:
+             sparse_train: bool = False, mesh=None,
+             specs: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
         """The training loss of one batch, ``(total, metrics)``: the
         chunked next-token cross-entropy of ``batch["labels"]`` (``(B, S)``,
         or ``(B, S, C)`` for a multi-codebook head; optional
@@ -530,21 +608,51 @@ class Model:
         on the tensors passed here. Each linear casts its weight to the
         compute dtype as it multiplies (at bf16 compute over f32 masters a
         bf16 product, where the reference promotes to an f32 one; see
-        :meth:`prepare`). Single device: sharded training is item 12b of
-        the roadmap."""
+        :meth:`prepare`).
+
+        On a ``mesh`` of more than one rank (the train step's), ``params``
+        are this rank's slices (``launch.sharding.shard_params`` over
+        ``specs``, :func:`~repro_torch.launch.sharding.param_specs`) and
+        ``batch`` its block over ``pod`` / ``data``. The weights are
+        placed as the reference places them: TP-cut on ``model``, FSDP-cut
+        on ``data`` (gathered inside each layer, and for the token table
+        and the head), MoE experts cut over ``data`` (expert parallelism,
+        their tokens by ``all_to_all``). The loss is the whole batch's,
+        the same on every rank: the head cut over the vocabulary takes a
+        vocabulary-parallel cross-entropy (no ``(B, S, V)`` logits), the
+        cross-entropy is ``Σ nll / Σ weights`` over every rank's block,
+        ``aux`` averages each layer's over ``pod`` / ``data`` as the
+        reference's ``pmean`` does, and the regularizer sums every rank's
+        entries. Every collective is differentiable (``launch/mesh.py``),
+        so each rank's backward gives the whole batch's gradient for the
+        weights it holds, but for a sum over the data-parallel copies of a
+        replicated leaf (``launch.sharding.grad_reduce_axes``), which the
+        train step adds."""
         cfg = self.cfg
+        if mesh is None or mesh.size == 1:
+            mesh = specs = None
+        elif specs is None:
+            raise ValueError("Model.loss on a mesh takes specs= (the "
+                             "placement of params: launch.sharding."
+                             "param_specs of the whole tree)")
+        embed, head = params["embed"], params["lm_head"]
+        if mesh is not None:
+            embed = gather_fsdp(embed, specs["embed"], mesh, ("embed",))
+            head = gather_fsdp(head, specs["lm_head"], mesh, ("lm_head",))
         positions = self._positions(batch)
-        x = self._embed_in(params, batch, positions)
+        x = self._embed_in({"embed": embed}, batch, positions, mesh)
         h, aux = self._stack(params, x, positions=positions,
                              caches=None, seg_ids=batch.get("seg_ids"),
-                             sparse_train=sparse_train)
+                             sparse_train=sparse_train, mesh=mesh,
+                             specs=None if mesh is None else specs["layers"])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
-        xe = L.chunked_xent(params["lm_head"], params["embed"], h,
-                            batch["labels"], cfg, batch.get("weights"))
+        xe = L.chunked_xent(head, embed, h, batch["labels"], cfg,
+                            batch.get("weights"), mesh=mesh)
         total = xe + 0.01 * aux
         metrics = {"xent": xe, "aux": aux}
         if sparse_train and cfg.factorization.enabled:
-            reg = factorization_regularizer(params, cfg.factorization)
+            reg = factorization_regularizer(params, cfg.factorization, mesh,
+                                            specs)
             total = total + cfg.factorization.reg_coeff * reg
             metrics["sparsity_reg"] = reg
         metrics["loss"] = total

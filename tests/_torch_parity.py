@@ -406,3 +406,183 @@ def port_loss_grads(model, params, batch, sparse):
         v.requires_grad_(False)
     return metrics, {n: (torch.zeros_like(leaves[n]) if g is None else g)
                      for n, g in zip(names, grads)}
+
+
+# ---- sharded training (tests/test_torch_sharded_train.py) ----------------
+
+def torch_to_numpy(tree):
+    """Tensors -> numpy copies (f32 for bf16), nested dicts kept."""
+    if isinstance(tree, dict):
+        return {k: torch_to_numpy(v) for k, v in tree.items()}
+    return np.array(tree.detach().cpu().float().numpy()) \
+        if torch.is_tensor(tree) else tree
+
+
+def _rank_mesh(shape):
+    from repro_torch.launch.mesh import make_local_mesh
+    if shape is None:
+        return None
+    if len(shape) == 3:
+        return make_local_mesh(shape[1], shape[2], pod=shape[0])
+    return make_local_mesh(*shape)
+
+
+def _train_case(c, mesh):
+    """One parity case on ``mesh``: ``c["steps"]`` train steps from the
+    bridged ``c["params"]``; per step the assembled gradients (taken
+    before the step), metrics, params and optimizer state; and this
+    rank's slices of the params after the last step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.factorized import FactorizationConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.sharding import (batch_spec, cut_leaf,
+                                             gather_tree, param_specs,
+                                             shard_params)
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.optim.adamw import opt_state_leaf_specs
+    from repro_torch.train.loop import make_project_fn
+    over = {"factorization": FactorizationConfig(**c["fcfg"])} \
+        if c["fcfg"] else {}
+    cfg = get_config(c["arch"], "smoke", dtype="float32", **over)
+    model = Model(cfg, device=CPU)
+    params = params_from_numpy(c["params"], CPU)
+    specs = param_specs(params, mesh)
+    loc = tree_map(lambda x: x.clone(), shard_params(params, specs, mesh))
+    oc = OptConfig(**c["opt"])
+    state = {"params": loc, "opt": init_opt_state(loc, oc, mesh, specs),
+             "step": torch.zeros((), dtype=torch.int32)}
+    ospecs = opt_state_leaf_specs(loc, specs, mesh, oc)
+    pf = make_project_fn(cfg.factorization, mesh, specs) \
+        if c["project"] else None
+    step = make_train_step(model, oc, c["sparse"], pf, mesh=mesh,
+                           specs=specs)
+    recs = []
+    for b in c["batches"]:
+        tb = {k: torch.from_numpy(v) for k, v in b.items()}
+        tb = {k: cut_leaf(v, sp, mesh) for (k, v), sp in zip(
+            tb.items(), batch_spec(tb, mesh).values())}
+        _, grads = loss_and_grads(model, state["params"], tb,
+                                  sparse_train=c["sparse"], mesh=mesh,
+                                  specs=specs)
+        grads = gather_tree(grads, specs, mesh)
+        state, met = step(state, tb)
+        recs.append({"grads": torch_to_numpy(grads),
+                     "metrics": {k: float(v) for k, v in met.items()},
+                     "params": torch_to_numpy(gather_tree(state["params"], specs,
+                                                    mesh)),
+                     "opt": torch_to_numpy(gather_tree(state["opt"], ospecs,
+                                                 mesh))})
+    return {"recs": recs, "local": torch_to_numpy(state["params"]),
+            "specs": specs}
+
+
+def _compress_case(c, mesh):
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.optim import compress_pod_allreduce, init_ef_state
+    pod = mesh.coords["pod"]
+    out = []
+    ef = None
+    for rnd in c["rounds"]:
+        g = params_from_numpy(rnd[pod] if c["per_pod"] else rnd, CPU)
+        ef = init_ef_state(g) if ef is None else ef
+        g, ef = compress_pod_allreduce(g, ef, mesh, mesh.shape["pod"])
+        out.append((torch_to_numpy(g), torch_to_numpy(ef)))
+    return out
+
+
+def _elastic_case(c):
+    """Save on ``(2, 2)`` after 2 steps, resume on ``(4, 1)`` and without
+    a mesh, against the uninterrupted ``(2, 2)`` run."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, train
+    cfg = get_config("qwen2.5-32b", "smoke", dtype="float32")
+    model = Model(cfg, device=CPU)
+    oc = OptConfig(**c["opt"])
+    rank = torch.distributed.get_rank()
+
+    def run(shape, steps, ckpt, start=0, every=1000):
+        mesh = _rank_mesh(shape)
+        o = train(model, iter(c["batches"][start:]), oc,
+                  TrainLoopConfig(total_steps=steps, ckpt_dir=ckpt,
+                                  ckpt_every=every, log_every=1),
+                  mesh=mesh, params=params_from_numpy(c["params"], CPU))
+        p = o["state"]["params"] if mesh is None else gather_tree(
+            o["state"]["params"], o["specs"], mesh)
+        return [h["loss"] for h in o["history"]], torch_to_numpy(p)
+
+    saved = os.path.join(c["dir"], "saved")
+    run((2, 2), 2, saved, every=2)
+    out = {"whole": run((2, 2), 3, os.path.join(c["dir"], "whole")),
+           "(4, 1)": run((4, 1), 3, saved, start=2)}
+    # Without a mesh every rank resumes on its own (nothing is written).
+    out["none"] = run(None, 3, saved, start=2)
+    return out if rank == 0 else None
+
+
+def rank_sharded_train(job):
+    """One rank of a 4-rank world, every sharded-training case of
+    ``tests/test_torch_sharded_train.py`` in turn (new mesh groups for
+    each): the train cases (``_train_case``) on their meshes, the pod
+    compression, the elastic restore and the launcher. Rank 0 returns the
+    assembled results; every rank returns its slices of the params after
+    each train case, with its coordinates."""
+    import os
+    from repro_torch.launch.train import main
+    rank = torch.distributed.get_rank()
+    out = {"train": {}, "local": {}, "compress": {}}
+    for name, c in job["train"].items():
+        mesh = _rank_mesh(c["mesh"])
+        r = _train_case(c, mesh)
+        out["local"][name] = (dict(mesh.coords), r["local"], r["specs"])
+        if rank == 0:
+            out["train"][name] = r["recs"]
+    mesh = _rank_mesh((2, 2, 1))
+    for name, c in job["compress"].items():
+        out["compress"][name] = (mesh.coords["pod"],
+                                 _compress_case(c, mesh))
+    out["elastic"] = _elastic_case(job["elastic"])
+    argv = ["--arch", "qwen2.5-32b", "--steps", "3", "--dtype", "float32",
+            "--device", "cpu"]
+    d = job["elastic"]["dir"]
+    meshed = main(argv + ["--mesh-data", "2", "--mesh-model", "2",
+                          "--backend", "gloo", "--ckpt",
+                          os.path.join(d, "launch_mesh")])
+    if rank == 0:
+        plain = main(argv + ["--ckpt", os.path.join(d, "launch_plain")])
+        out["launch"] = ([h["loss"] for h in meshed["history"]],
+                         [h["loss"] for h in plain["history"]])
+    return out
+
+
+def run_sharded_train(job):
+    """:func:`rank_sharded_train` on four gloo ranks of the CPU: rank 0's
+    results, with every rank's in ``"ranks"``."""
+    from repro_torch.launch.mesh import run_ranks
+    res = run_ranks(4, rank_sharded_train, job, device="cpu",
+                    backend="gloo")
+    out = dict(res[0])
+    out["ranks"] = res
+    return out
+
+
+def rank_moe_sparse(cfg, tree, x):
+    """One rank of a ``(1, 2)`` mesh: ``moe_ffn`` on the rank's slice of
+    the expert params with ``sparse_train`` on and off: ``(y, y)``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import param_specs, shard_params
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.moe import moe_ffn
+    mesh = make_local_mesh(1, 2)
+    tree = params_from_numpy(tree, CPU)
+    loc = shard_params(tree, param_specs(tree, mesh), mesh)
+    return tuple(moe_ffn(loc["layers"]["moe"], torch.from_numpy(x), cfg=cfg,
+                         dicts=loc["dicts"], mesh=mesh,
+                         sparse_train=s)[0].numpy() for s in (True, False))

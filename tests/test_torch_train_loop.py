@@ -441,11 +441,23 @@ def test_launch_train_one_device_mesh(tmp_path):
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"],
                                    ["--mesh-model", "2"],
                                    ["--production-mesh"], ["--multi-pod"]])
-def test_launch_train_refuses_mesh_flags(flags):
-    from repro_torch.core.errors import UnsupportedConfigError
+def test_launch_train_refuses_mesh_flags(flags, tmp_path):
+    """The mesh flags were refused until sharded training came. Now
+    ``--mesh-data 2`` and ``--mesh-model 2`` train on two gloo ranks (2
+    steps at smoke size on the CPU, every loss finite), and
+    ``--production-mesh`` / ``--multi-pod`` are refused only on a run
+    without the 256 / 512 ranks they need, naming the count."""
     from repro_torch.launch import train
-    with pytest.raises(UnsupportedConfigError, match="item 12b"):
-        train.main(["--arch", "qwen2.5-32b", "--device", "cpu"] + flags)
+    argv = ["--arch", "qwen2.5-32b", "--device", "cpu"] + flags
+    if flags[0] in ("--production-mesh", "--multi-pod"):
+        n = 512 if flags[0] == "--multi-pod" else 256
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks"):
+            train.main(argv)
+        return
+    out = train.main(argv + ["--steps", "2", "--batch", "2", "--seq", "16",
+                             "--ckpt", str(tmp_path)])
+    assert [h["step"] for h in out["history"]] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
 
 
 # ---------------------------------------------------------------------------

@@ -86,16 +86,28 @@ def test_remat_changes_memory_not_values():
 
 
 def test_sparse_training_of_sharded_experts_is_refused():
-    """Sparse training of experts on a mesh (the reference projects after
-    the update there) is item 12b: refused before any collective."""
+    """Sparse training of experts on a mesh was refused until sharded
+    training came; it runs now, as the reference's sharded body does:
+    without the experts' STE (the loop's post-update projection stands in
+    for it), so on a (1, 2) mesh of two gloo ranks ``sparse_train=True``
+    gives the bits of ``sparse_train=False``, while without a mesh the STE
+    changes the output."""
     from repro_torch.configs import get_config
-    from repro_torch.core.errors import UnsupportedConfigError
-    from repro_torch.launch.mesh import Mesh
+    from repro_torch.core.factorized import (DictionaryBank,
+                                             FactorizationConfig)
+    from repro_torch.launch.mesh import run_ranks
     from repro_torch.models.moe import init_moe, moe_ffn
-    cfg = get_config("dbrx-132b", "smoke", dtype="float32")
-    p = init_moe(torch.Generator().manual_seed(0), cfg, None)
-    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0}, {},
-                torch.device("cpu"))
-    with pytest.raises(UnsupportedConfigError, match="item 12b"):
-        moe_ffn(p, torch.zeros(1, 2, cfg.d_model), cfg=cfg, mesh=mesh,
-                sparse_train=True)
+    cfg = get_config("dbrx-132b", "smoke", dtype="float32",
+                     factorization=FactorizationConfig(**tp.MOE_FCFG))
+    g = torch.Generator().manual_seed(0)
+    bank = DictionaryBank(cfg.factorization)
+    p = init_moe(g, cfg, bank)
+    x = torch.randn(2, 8, cfg.d_model, generator=g)
+    tree = tp.torch_to_numpy({"layers": {"moe": p}, "dicts": bank.dicts})
+    res = run_ranks(2, tp.rank_moe_sparse, cfg, tree, x.numpy(),
+                    device="cpu", backend="gloo")
+    for sparse, dense in res:
+        np.testing.assert_array_equal(sparse, dense)
+    local = [moe_ffn(p, x, cfg=cfg, dicts=bank.dicts,
+                     sparse_train=s)[0] for s in (True, False)]
+    assert not torch.equal(*local)
