@@ -9,8 +9,11 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               (one nvcc per source, all started together); report ptxas's
               registers, shared memory and spills, and fail unless the SASS
               (``cuobjdump -sass``) of DMM holds wgmma (HGMMA, M > 32) and
-              mma.sync (HMMA, M <= 32), that of SMM wgmma (M > 32) and that
-              of the mixed kernel mma.sync instructions.
+              mma.sync (HMMA, M <= 32), that of SMM wgmma (M > 32), that
+              of the mixed kernel mma.sync instructions, and that of the
+              AFU the softmax's cluster exchange (``CLUSTER_SASS``: the
+              cluster barrier, st.async into peers' shared memory, the
+              mbarrier waits).
 2. kernels  — each kernel against its plain PyTorch version on the card.
               TDA (phase ``kernels``): the ``kernels/tda/ref.py`` oracle
               (over gathered lanes for the paged kernels; with the LUT exp,
@@ -46,9 +49,13 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               over the same codes; the mixed step's plain version on 64-key
               blocks). AFU (phase ``afu``): softmax_lut at (256, 512) (the
               kernel table's), (320, 544) (decode scores of 8 slots x 40
-              heads), (8, 152064) (the LM head's rows, too long for shared
-              memory) and ragged edges, within 1e-5 x |plain| per element
-              (the exact-exp softmax must miss it); layernorm_residual at
+              heads), (8, 152064), (1, 152064) and (8, 256000) (LM heads'
+              rows, over a thread block cluster), (2, 600001) (past the
+              cluster's shared memory), ragged edges and both sides of
+              each regime boundary (``SOFTMAX_SHAPES``), one launch a
+              call in the regime the library reports, within 1e-5 x
+              |plain| per element (the exact-exp softmax must miss it);
+              layernorm_residual at
               (40, 64), (8, 5120), (2048, 5120) and a ragged edge, within
               1e-5 x max(1, max |plain|); f32 and bf16 inputs. DMM and SMM
               (phase ``linear_kernels``): the CPU tests' edge cases (f32 and
@@ -911,12 +918,16 @@ def linear_shapes(cfg):
 # mma.sync.
 TENSOR_CORE_SASS = {"dmm": ("HGMMA", "HMMA"), "smm": ("HGMMA",),
                     "tda_mixed": ("HMMA",)}
+# The softmax's cluster regime: the cluster barrier (UCGABAR_ARV), the
+# partials stored into the peers' shared memory (STAS: st.async) and the
+# mbarrier waits that count them in (SYNCS.PHASECHK).
+CLUSTER_SASS = {"afu": ("UCGABAR_ARV", "STAS", "SYNCS.PHASECHK")}
 
 
 def phase_build():
     """Build every kernel library, report ptxas's registers, shared memory
-    and spills, and count the tensor-core instructions in the SASS of the
-    libraries that must have them (``cuobjdump -sass``)."""
+    and spills, and count the tensor-core and cluster instructions in the
+    SASS of the libraries that must have them (``cuobjdump -sass``)."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     log = build.build_all()
@@ -924,7 +935,7 @@ def phase_build():
         build.load(name)
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = {}
-    for name, ops in TENSOR_CORE_SASS.items():
+    for name, ops in (*TENSOR_CORE_SASS.items(), *CLUSTER_SASS.items()):
         dump = subprocess.run([str(cuobjdump), "-sass",
                                str(build._lib_path(name))],
                               capture_output=True, text=True,
@@ -937,7 +948,9 @@ def phase_build():
             if not sass[name][op]:
                 fail(f"{name}: no {op} instruction in its SASS")
     line("build", seconds=round(time.perf_counter() - t0, 3),
-         kernels=sorted(build.SOURCES), tensor_core_sass=sass,
+         kernels=sorted(build.SOURCES),
+         tensor_core_sass={n: sass[n] for n in TENSOR_CORE_SASS},
+         cluster_sass={n: sass[n] for n in CLUSTER_SASS},
          ptxas={n: [ln.strip() for ln in v["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
                 for n, v in log.items()})
@@ -1894,11 +1907,19 @@ def tp_rows(torch, np, err, check, add_row, gather, T, plain_mixed):
 
 
 # AFU shapes: the kernel table's softmax (256, 512); decode scores of 8
-# slots x 40 heads over a 544-token lane; the LM head's rows over 152 064
-# entries (re-read from device memory); the reference test's ragged edge.
-# LayerNorm: the reference test's (40, 64), a decode step's 8 and a mixed
-# step's 2048 tokens of d_model 5120, and a ragged edge.
-SOFTMAX_SHAPES = [(256, 512), (320, 544), (8, 152064), (7, 999), (33, 50)]
+# slots x 40 heads over a 544-token lane; the LM head's rows of a decode
+# step, qwen2.5's 152 064 entries (8 rows and one) and recurrentgemma's
+# 256 000; the reference test's ragged edges; a row past the cluster's
+# shared memory (600 001 entries, re-read); then each boundary between the
+# softmax's regimes (``afu.softmax_regime``: the warp's last C and the
+# block's first, the block's last and the cluster's first, the cluster's
+# last staged C and the first re-read; ``phase_afu`` fails if one is
+# missing). LayerNorm: the reference test's (40, 64), a decode step's 8 and
+# a mixed step's 2048 tokens of d_model 5120, and a ragged edge.
+SOFTMAX_SHAPES = [(256, 512), (320, 544), (8, 152064), (8, 256000),
+                  (1, 152064), (7, 999), (33, 50), (2, 600001),
+                  (5, 1024), (5, 1025), (3, 24576), (3, 24577),
+                  (2, 393216), (2, 393217)]
 LN_SHAPES = [(40, 64), (8, 5120), (2048, 5120), (7, 999)]
 LN_ROW = (2048, 5120)  # the kernels-line row's shape
 
@@ -1907,7 +1928,11 @@ def phase_afu(torch):
     """The AFU kernels against their plain versions at SOFTMAX_SHAPES and
     LN_SHAPES, f32 and bf16 inputs (softmax within SOFTMAX_RTOL per
     element, LayerNorm within LN_TOL), then timed at each shape (f32
-    softmax, bf16 LayerNorm as the serve's hidden states). Negative
+    softmax, bf16 LayerNorm as the serve's hidden states; the softmax and
+    ``torch.softmax`` also by device time alone at every shape). Each
+    softmax call is one launch, in the regime that the library reports for
+    its C (``softmax_lut_regime``, mirrored by ``afu.softmax_regime``), and
+    SOFTMAX_SHAPES holds both sides of each regime boundary. Negative
     control: the exact-exp softmax (``torch.softmax``) must miss the LUT
     plain version by more than SOFTMAX_RTOL at every shape. Returns the two
     rows: softmax at the kernel table's shape, its launches from the
@@ -1937,19 +1962,39 @@ def phase_afu(torch):
             fail(f"{name} vs plain: {r} (limit {lim}; max abs diff {e}) at "
                  f"{tuple(got.shape)}")
 
+    cap = afu.CLUSTER * afu.SLICE_MAX
+    cs = {C for _, C in SOFTMAX_SHAPES}
+    for edge in (afu.WARP_MAX_C, afu.BLOCK_MAX_C, cap):
+        if not {edge, edge + 1} <= cs:
+            fail(f"softmax_lut: SOFTMAX_SHAPES lacks C = {edge} or "
+                 f"{edge + 1}, the edge of a regime")
     afu.reset_launch_counts()
-    inputs = {}
+    inputs, regimes = {}, {}
     for R, C in SOFTMAX_SHAPES:
+        regime = afu.softmax_regime(C)
+        if afu.kernel_regime(C) != regime:
+            fail(f"softmax_lut: the library's regime for C = {C} is "
+                 f"{afu.kernel_regime(C)}, afu.softmax_regime's {regime}")
+        regimes[f"{R}x{C}"] = regime
         x = torch.randn(R, C, generator=g, device=dev) * 4
         for xx in (x, x.to(torch.bfloat16)):
-            check("softmax_lut", afu.softmax_lut(xx, table),
-                  softmax_lut_reference(xx, table))
+            n0 = afu.LAUNCHES["softmax_lut"]
+            r0 = afu.REGIME_LAUNCHES[f"softmax_lut.{regime}"]
+            got = afu.softmax_lut(xx, table)
+            if (afu.LAUNCHES["softmax_lut"] - n0,
+                    afu.REGIME_LAUNCHES[f"softmax_lut.{regime}"] - r0) \
+                    != (1, 1):
+                fail(f"softmax_lut: a call at {R}x{C} made "
+                     f"{afu.LAUNCHES['softmax_lut'] - n0} launches, not one "
+                     f"in regime {regime}")
+            check("softmax_lut", got, softmax_lut_reference(xx, table))
         c = rel_err(torch.softmax(x, -1), softmax_lut_reference(x, table))
         controls[f"exact_exp {R}x{C}"] = c
         if not c > SOFTMAX_RTOL:
             fail(f"softmax_lut: the exact-exp control is within "
                  f"{SOFTMAX_RTOL} of the LUT plain version ({c}) at {R}x{C}")
         inputs["softmax", R, C] = x
+    regime_checks = dict(afu.REGIME_LAUNCHES)  # the checks' launches
     for R, C in LN_SHAPES:
         x, res = (torch.randn(R, C, generator=g, device=dev) for _ in "xr")
         sc, bi = (torch.randn(C, generator=g, device=dev) for _ in "sb")
@@ -1984,13 +2029,14 @@ def phase_afu(torch):
             "library_ms": time_ms(torch, lib), "bound_ms": bms,
             "bound_by": by,
             "dtype": "float32" if kind == "softmax" else "bfloat16"}
-        if key in ("softmax 256x512", "ln %dx%d" % LN_ROW):  # the rows
+        if kind == "softmax" or key == "ln %dx%d" % LN_ROW:
             times[key].update(device_ms=device_ms(torch, fn),
                               library_device_ms=device_ms(torch, lib))
     line("afu", seconds=round(time.perf_counter() - t0, 3),
          max_abs_err=err, err_vs_limit=rel,
          limits={"softmax_rtol": SOFTMAX_RTOL, "layernorm": LN_TOL},
-         controls=controls, **times)
+         controls=controls, softmax_regimes=regimes,
+         regime_launches=regime_checks, **times)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     out = []
     for name, repl, key, lib in (
@@ -2006,7 +2052,8 @@ def phase_afu(torch):
                         "device_ms", "library_device_ms")},
                     "library": lib,
                     "shape": key.split()[1],
-                    "other_shapes": {k: {kk: v[kk] for kk in keys}
+                    "other_shapes": {k: {kk: v[kk] for kk in keys + (
+                        "device_ms", "library_device_ms") if kk in v}
                                      for k, v in times.items()
                                      if k.startswith(key.split()[0])
                                      and k != key}})

@@ -6,7 +6,9 @@ kernels' arguments (``repro.kernels.afu.afu``) less their row blocking and
 interpret flag. On CUDA tensors they launch the kernels on the current
 stream, or raise: there is no fallback. On CPU tensors they run the plain
 versions of ``ref.py``, which are also what the kernels are held against on
-the card. ``LAUNCHES`` counts kernel launches only.
+the card. ``LAUNCHES`` counts kernel launches only, and
+``REGIME_LAUNCHES`` the softmax's launches by the regime that ran
+(:func:`softmax_regime`).
 """
 from __future__ import annotations
 
@@ -18,16 +20,53 @@ from repro_torch.kernels.afu.ref import (
     softmax_lut_reference,
 )
 
-__all__ = ["softmax_lut", "layernorm_residual", "LAUNCHES",
+__all__ = ["softmax_lut", "layernorm_residual", "softmax_regime",
+           "kernel_regime", "REGIMES", "LAUNCHES", "REGIME_LAUNCHES",
            "reset_launch_counts"]
 
 LAUNCHES = {"softmax_lut": 0, "layernorm_residual": 0}
+# softmax_lut's regimes, as ``kernels/csrc/afu.cu`` picks them by C (its
+# ``softmax_lut_regime`` codes 0-3): a warp a row up to WARP_MAX_C; a block
+# a row, staged in shared memory, up to BLOCK_MAX_C; past that a cluster of
+# CLUSTER CTAs a row, each staging up to SLICE_MAX entries, or re-reading
+# its slice from device memory past CLUSTER x SLICE_MAX.
+REGIMES = ("warp", "block", "cluster", "cluster_reread")
+WARP_MAX_C, BLOCK_MAX_C, CLUSTER, SLICE_MAX = 1024, 24 * 1024, 16, 24 * 1024
+REGIME_LAUNCHES = {f"softmax_lut.{r}": 0 for r in REGIMES}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BOUND = {}  # C entry point name -> ctypes function, bound once a process
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, REGIME_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def softmax_regime(C: int) -> str:
+    """The regime ``softmax_lut`` launches for rows of ``C`` entries."""
+    if C <= WARP_MAX_C:
+        return "warp"
+    if C <= BLOCK_MAX_C:
+        return "block"
+    return "cluster" if -(-C // CLUSTER) <= SLICE_MAX else "cluster_reread"
+
+
+def kernel_regime(C: int) -> str:
+    """The regime the CUDA library itself picks for rows of ``C`` entries
+    (needs the card: it builds and loads the library), against which
+    :func:`softmax_regime` is held."""
+    return REGIMES[_entry("softmax_lut_regime")(C)]
+
+
+def _entry(name: str):
+    """The AFU library's C entry point ``name`` (the library built first
+    if needed)."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        from repro_torch.kernels.build import load
+        fn = _BOUND[name] = getattr(load("afu"), name)
+    return fn
 
 
 def _check(name: str, rows, params) -> int:
@@ -69,11 +108,12 @@ def softmax_lut(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                          f"got {tuple(x.shape)} and {tuple(table.shape)}")
     R, C = x.shape
     out = torch.empty((R, C), dtype=torch.float32, device=x.device)
-    from repro_torch.kernels.build import load
-    fn = load("afu").softmax_lut
-    _raise_on(name, fn(x.data_ptr(), table.data_ptr(), out.data_ptr(), R, C,
-                       code, torch.cuda.current_stream(x.device).cuda_stream))
-    LAUNCHES[name] += 1
+    _raise_on(name, _entry(name)(
+        x.data_ptr(), table.data_ptr(), out.data_ptr(), R, C, code,
+        torch.cuda.current_stream(x.device).cuda_stream))
+    if R and C:
+        LAUNCHES[name] += 1
+        REGIME_LAUNCHES[f"{name}.{softmax_regime(C)}"] += 1
     return out
 
 
@@ -93,11 +133,9 @@ def layernorm_residual(x: torch.Tensor, res: torch.Tensor,
                          f"{tuple(scale.shape)}, {tuple(bias.shape)}")
     R, C = x.shape
     out = torch.empty((R, C), dtype=torch.float32, device=x.device)
-    from repro_torch.kernels.build import load
-    fn = load("afu").layernorm_residual
-    _raise_on(name, fn(x.data_ptr(), res.data_ptr(), scale.data_ptr(),
-                       bias.data_ptr(), out.data_ptr(), R, C, code,
-                       float(eps),
-                       torch.cuda.current_stream(x.device).cuda_stream))
+    _raise_on(name, _entry(name)(
+        x.data_ptr(), res.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), R, C, code, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream))
     LAUNCHES[name] += 1
     return out

@@ -46,6 +46,7 @@ _ARGTYPES = {
             "dmm_splits": [_I] * 4, "dmm_body": [_I] * 2},
     "smm": {"smm": [_P] * 8 + [_I] * 4 + [_I, _P], "smm_body": [_I] * 5},
     "afu": {"softmax_lut": [_P] * 3 + [_I] * 2 + [_I, _P],
+            "softmax_lut_regime": [_I],
             "layernorm_residual": [_P] * 5 + [_I] * 2 + [_I, _F, _P]},
 }
 _LOADED: Dict[str, ctypes.CDLL] = {}
