@@ -394,6 +394,40 @@ Phases (one line each, with its seconds; any failure exits nonzero):
               the gathered table and head with their f32 gradients,
               AdamW's temporaries, the activations of 4 x 64 tokens); the
               four peaks must fit the card.
+13. examples — the five examples of ``repro_torch.examples`` in-process on
+              the card at their default sizes (quickstart, compress_and_eval
+              at 80 steps, train_factorized_lm at 150 steps dense and
+              factorized, serve_dynamic_batching at bf16,
+              serve_async_frontend at float32), each example's own checks
+              raising on a miss (the async outputs equal ``Engine.run``'s,
+              a cancel frees its pages); each example's seconds, and
+              tokens and tok/s for the serve examples, whose runs must
+              launch the paged decode and mixed TDA kernels
+              (``tda.LAUNCHES``); then both serve examples at float32
+              against the same examples' CPU run (a subprocess started with
+              the dry run's cells): every request's tokens equal. It runs
+              after phase 14, when those subprocesses have ended.
+14. dryrun  — (a) ``python -m repro_torch.launch.dryrun --arch
+              qwen2.5-32b --shape <cell> --mesh single`` for ``train_4k``,
+              ``decode_32k`` and ``prefill_32k`` (``DRYRUN_CELLS``), each a
+              CPU subprocess started after phase 12, the last phase whose
+              host times are kept (one thread, niced;
+              placeholder ranks of a fake process group, fake tensors):
+              ``train_4k`` and ``prefill_32k`` must write their records
+              (the roofline keys and the rates' source), ``decode_32k``
+              must be refused with the reference's message
+              (``DRYRUN_REFUSAL``); each record's roofline terms, counts
+              and seconds. (b) The counters against the card: train (b)'s
+              step (qwen2.5-32b at its widths, depth 2, 8 x 64 tokens, f32
+              masters, bf16 compute, AdamW) and a bf16 prefill of 1 x 8192
+              tokens at depth 8, each counted on fake CUDA tensors
+              (``dryrun.count_step``) and then run on the card: the FLOPs
+              of ``FlopCounterMode`` on the real step must equal the fake
+              count, the fake peak must lie within ``CALIB_PEAK_RANGE`` of
+              ``max_memory_allocated``; the step's ms against the record's
+              ``step_time_bound_s`` (its largest term, the memory term an
+              unfused upper estimate) and ``lower_bound_s`` (its compute
+              term) at H100 rates, with the card's name and power limit. Neither step reaches a ctypes kernel.
 
 Each kernels-line row takes its launches from the run that drives it, and
 names that run in ``launches_from``: the TDA rows from the phase-4 serves
@@ -416,12 +450,16 @@ card's name and power limit, the kernels' JSON line, and last the device
 JSON line. Exits nonzero with no result without a CUDA device or outside a
 checkout of the repository.
 """
+import atexit
 import dataclasses
 import gc
 import json
 import math
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -439,6 +477,14 @@ LUT_CONTROL_BLOCK = 64  # a partition other than the reference's (128)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12      # H100 SXM f32 (no tensor cores)
+
+
+def card_name():
+    """``nvidia-smi``'s name and power limit of the first card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def fail(msg):
@@ -5147,6 +5193,339 @@ def phase_sharded_train(torch, np, step0_loss):
          seconds=round(time.perf_counter() - t0, 3))
 
 
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the examples, and the dry run with its calibration
+# ---------------------------------------------------------------------------
+
+# The dry run's cells, each a CPU subprocess started after the sharded
+# training phase (``start_dryrun``: one thread and a lower priority each)
+# and read by ``phase_dryrun``.
+DRYRUN_CELLS = ("train_4k", "decode_32k", "prefill_32k")
+DRYRUN_ARCH = "qwen2.5-32b"
+DRYRUN_WAIT_S = 600     # the longest wait for a cell still running
+# The reference's refusal of decode_32k on the (16, 16) mesh.
+DRYRUN_REFUSAL = ("kv_heads=8 / n_heads=40 not divisible by the 16-way "
+                  "'model' mesh axis")
+ROOFLINE_KEYS = ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                 "step_time_bound_s")
+# The serve examples' float32 runs on the CPU, in a subprocess started
+# with the dry run's cells: their tokens against the card's.
+EXAMPLES_CPU = """
+import json, sys
+from repro_torch.examples import serve_async_frontend, serve_dynamic_batching
+sd = serve_dynamic_batching.main(["--device", "cpu", "--dtype", "float32"])
+sa = serve_async_frontend.main(["--device", "cpu", "--dtype", "float32"])
+json.dump({"dynamic": sd, "async": sa}, open(sys.argv[1], "w"), default=str)
+"""
+# Calibration: qwen2.5-32b at its published widths, train (b)'s step (depth
+# 2, 8 x 64 tokens, f32 masters, bf16 compute, AdamW), and a bf16 prefill
+# of 1 x 8192 tokens at depth 8; the fake count's peak within
+# CALIB_PEAK_RANGE of max_memory_allocated.
+CALIB_TRAIN_LAYERS = 2
+CALIB_PREFILL_LAYERS = 8
+CALIB_PREFILL = (1, 8192)
+CALIB_PEAK_RANGE = (0.5, 2.0)
+CALIB_REPS = 3
+
+
+def start_dryrun(tmp):
+    """Start the dry run's cells and the examples' CPU run as
+    subprocesses (one thread each, niced); returns ``{name: (Popen, log
+    path)}``. Every one is waited for or killed before the script exits."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = {}
+
+    def spawn(name, cmd):
+        log = Path(tmp) / f"{name}.log"
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(
+                cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True, preexec_fn=lambda: os.nice(10)), log)
+
+    for cell in DRYRUN_CELLS:
+        spawn(cell, [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", DRYRUN_ARCH, "--shape", cell, "--mesh",
+                     "single", "--out", str(Path(tmp) / "dryrun")])
+    spawn("examples_cpu", [sys.executable, "-c", EXAMPLES_CPU,
+                           str(Path(tmp) / "examples_cpu.json")])
+
+    def stop():  # each cell's process group: the dry run spawns its own
+        for p, _ in procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def _wait(procs, name, timeout):
+    p, log = procs[name]
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"{name}: still running after {timeout} s more; its log ends "
+             f"{log.read_text()[-2000:]}")
+    return p.returncode, log.read_text()
+
+
+def _json_outputs(x):
+    """Outputs as JSON gives them back (int keys as strings)."""
+    return json.loads(json.dumps(x, default=str))
+
+
+def phase_examples(torch, procs, tmp):
+    """The five examples in-process on the card at their default sizes
+    (``repro_torch.examples``), their own checks raising on a miss; the
+    serve examples at float32 once more, from the params the CPU run draws
+    (``Model.init`` on the CPU: a CUDA generator draws other numbers),
+    their tokens against the CPU subprocess's; the paged decode and mixed
+    kernels launched by the serve examples."""
+    import importlib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tda import tda
+    from repro_torch.models.transformer import Model
+    out = {}
+    for name in ("quickstart", "compress_and_eval", "train_factorized_lm"):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        res = mod.main([])
+        torch.cuda.synchronize()
+        out[name] = {"seconds": round(time.perf_counter() - t0, 3)}
+        if name == "train_factorized_lm":
+            out[name]["final"] = res["final"]
+            if not all(math.isfinite(v) for v in res["final"].values()):
+                fail(f"train_factorized_lm: a final loss is not finite "
+                     f"{res['final']}")
+        elif name == "compress_and_eval":
+            out[name]["ratio"] = round(res["ratio"], 3)
+        else:
+            out[name]["loss"] = res["loss"]
+    f32 = {}
+    for name in ("serve_dynamic_batching", "serve_async_frontend"):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        tda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main([])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(tda.LAUNCHES)
+        for k in ("tda_paged_decode_attention", "tda_mixed_attention"):
+            if not launches[k]:
+                fail(f"{name}: {k} was not launched on the card")
+        toks = _serve_tokens(name, res)
+        out[name] = {"seconds": round(secs, 3), "tokens": toks,
+                     "tok_s": round(toks / secs, 2), "launches": launches}
+        cpu_init = {"params": Model(get_config(
+            "qwen2.5-32b", "smoke", dtype="float32"), "cpu").init(0)}
+        if name == "serve_dynamic_batching":
+            cpu_init["rparams"] = Model(get_config(
+                "recurrentgemma-2b", "smoke", dtype="float32"), "cpu").init(1)
+        f32[name] = mod.main(["--dtype", "float32"], **cpu_init)
+    code, log = _wait(procs, "examples_cpu", DRYRUN_WAIT_S)
+    if code:
+        fail(f"examples on the CPU exited {code}: {log[-2000:]}")
+    cpu = json.loads((Path(tmp) / "examples_cpu.json").read_text())
+    for name, key in (("serve_dynamic_batching", "dynamic"),
+                      ("serve_async_frontend", "async")):
+        got, want = _outputs_of(f32[name]), _outputs_of(cpu[key])
+        if _json_outputs(got) != want:
+            fail(f"{name}: float32 tokens on the card differ from the CPU's")
+        out[name]["f32_outputs_equal_cpu"] = True
+    return out
+
+
+def _serve_tokens(name, res):
+    """Tokens the example's engines emitted."""
+    return sum(len(v) for v in _outputs_of(res).values())
+
+
+def _outputs_of(res):
+    """Every section's request outputs, keyed by section and rid."""
+    found = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k in ("outputs", "streamed") and isinstance(v, dict):
+                    for rid, toks in v.items():
+                        found[f"{path}/{k}/{rid}"] = toks
+                else:
+                    walk(v, f"{path}/{k}")
+
+    walk(res, "")
+    return found
+
+
+def _count_fake(torch, build):
+    """``dryrun.count_step`` of ``build()``'s ``(fn, args)`` under a new
+    fake mode (CUDA fake tensors: the card's branches)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import count_step
+    with FakeTensorMode():
+        fn, args = build(fake=True)
+        return count_step(fn, args)
+
+
+def calibrate(torch, np, name, build):
+    """One step counted on fake CUDA tensors, then run for real on the
+    card: FLOPs equal (a gate), the fake peak against
+    ``max_memory_allocated`` (within ``CALIB_PEAK_RANGE``), the measured
+    ms against the step's roofline terms at H100 rates."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import roofline
+    fake = _count_fake(torch, build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args = build(fake=False)
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    del out
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    real_flops = float(fc.get_total_flops())
+    if real_flops != fake["flops"]:
+        fail(f"calibration {name}: FLOPs on the card {real_flops} != the "
+             f"fake count {fake['flops']}")
+    ratio = fake["peak_bytes"] / peak
+    if not CALIB_PEAK_RANGE[0] <= ratio <= CALIB_PEAK_RANGE[1]:
+        fail(f"calibration {name}: predicted peak {fake['peak_bytes']} is "
+             f"{ratio:.3f}x max_memory_allocated {peak}")
+    times = []
+    for _ in range(CALIB_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        del out
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rl = roofline(fake["flops"], fake["bytes"], 0.0)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flops": real_flops, "flops_equal": True,
+            "bytes_counted": fake["bytes"],
+            "peak_predicted_bytes": fake["peak_bytes"],
+            "max_memory_allocated": peak, "peak_ratio": round(ratio, 4),
+            "step_ms": sorted(times), "roofline": rl,
+            "ms_over_bound": round(min(times) / 1e3
+                                   / rl["step_time_bound_s"], 3),
+            "ms_over_lower_bound": round(min(times) / 1e3
+                                         / rl["lower_bound_s"], 3),
+            "count_seconds": round(fake["seconds"], 3)}
+
+
+def _train_build(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = get_config("qwen2.5-32b", "full", n_layers=CALIB_TRAIN_LAYERS)
+    B, S = TRAIN_FULL_BATCH
+    opt = OptConfig()
+
+    def build(fake):
+        if fake:
+            params = tree_map(lambda t: t.to("cuda"),
+                              Model(cfg, "cpu").param_shapes())
+            batch = {k: torch.empty((B, S), dtype=torch.int32,
+                                    device="cuda")
+                     for k in ("inputs", "labels")}
+        else:
+            params = Model(cfg, "cuda").init(0)
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                     next(lm_batches(cfg.vocab_size, B, S)).items()}
+        state = {"params": params, "opt": init_opt_state(params, opt),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        return make_train_step(Model(cfg, "cuda"), opt), (state, batch)
+
+    return build
+
+
+def _prefill_build(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen2.5-32b", "full", n_layers=CALIB_PREFILL_LAYERS,
+                     param_dtype="bfloat16")
+    B, S = CALIB_PREFILL
+
+    def build(fake):
+        if fake:
+            params = tree_map(lambda t: t.to("cuda"),
+                              Model(cfg, "cpu").param_shapes())
+            batch = {"inputs": torch.empty((B, S), dtype=torch.int32,
+                                           device="cuda")}
+        else:
+            params = Model(cfg, "cuda").init(0)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            batch = {"inputs": torch.randint(0, cfg.vocab_size, (B, S),
+                                             generator=g, device="cuda",
+                                             dtype=torch.int32)}
+        step = make_prefill_step(Model(cfg, "cuda"))
+
+        def fn(params, batch):
+            with torch.no_grad():
+                return step(params, batch)
+
+        return fn, (params, batch)
+
+    return build
+
+
+def phase_dryrun(torch, np, procs, tmp, smi):
+    """(a) The dry run's records of ``DRYRUN_ARCH`` on the (16, 16) mesh
+    (``launch/dryrun.py`` in subprocesses on the CPU): ``train_4k`` and
+    ``prefill_32k`` written with the roofline keys and their rates'
+    source, ``decode_32k`` refused with the reference's message. (b) The
+    counters against the card (:func:`calibrate`): train (b)'s step and a
+    bf16 prefill."""
+    recs = {}
+    for cell in DRYRUN_CELLS:
+        code, log = _wait(procs, cell, DRYRUN_WAIT_S)
+        stem = f"{DRYRUN_ARCH}__{cell}__single"
+        path = Path(tmp) / "dryrun" / f"{stem}.json"
+        failed = Path(tmp) / "dryrun" / f"{stem}.FAILED"
+        if cell == "decode_32k":
+            if code != 1 or not failed.exists() \
+                    or DRYRUN_REFUSAL not in failed.read_text():
+                fail(f"dryrun {cell}: not refused as the reference refuses "
+                     f"it (exit {code}): {log[-2000:]}")
+            recs[cell] = {"refused": DRYRUN_REFUSAL}
+            continue
+        if code or not path.exists():
+            fail(f"dryrun {cell}: exit {code}: {log[-2000:]}")
+        rec = json.loads(path.read_text())
+        missing = [k for k in ROOFLINE_KEYS if k not in rec["roofline"]]
+        if missing or not rec["rates"].get("source"):
+            fail(f"dryrun {cell}: record lacks {missing or 'rates.source'}")
+        recs[cell] = {
+            "roofline": rec["roofline"], "seconds": rec["seconds"],
+            "flops_per_chip": rec["counts"]["flops_per_chip"],
+            "bytes_per_chip": rec["counts"]["bytes_per_chip"],
+            "peak_per_chip_gb": rec["memory"]["peak_per_chip_gb"],
+            "collective_link_bytes": rec["collectives"]["link_bytes"],
+            "model_flops_6nd": rec["model_flops_6nd"],
+            "useful_flops_ratio": rec["useful_flops_ratio"],
+            "roofline_fraction": rec["roofline_fraction"]}
+    line("dryrun", part="a", arch=DRYRUN_ARCH, mesh="single", cells=recs)
+    calib = {"train": calibrate(torch, np, "train", _train_build(torch)),
+             "prefill": calibrate(torch, np, "prefill",
+                                  _prefill_build(torch))}
+    line("dryrun", part="b", card=smi, **calib)
+    return recs, calib
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -5159,6 +5538,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.launch.profile_serve import (ENGINE_KW,
@@ -5205,6 +5586,12 @@ def main():
     tplaunches = timed("tp_serve", phase_tp_serve, torch, np)
     step0 = timed("train", phase_train, torch, np)
     timed("sharded_train", phase_sharded_train, torch, np, step0)
+    # The CPU subprocesses start after the last phase whose host times are
+    # kept, so that none of those phases shares the host with them.
+    procs = start_dryrun(tmp)
+    timed("dryrun", phase_dryrun, torch, np, procs, tmp, card_name())
+    ex = timed("examples", phase_examples, torch, procs, tmp)
+    line("examples", seconds=seconds["examples"], **ex)
     # Each kernel's launches come from the run that drives it, named in the
     # row's ``launches_from``: the TDA kernels' from the phase-4 serves (the
     # int8 rows from the int8 serves), DMM's and SMM's from phase 5, the LUT
@@ -5251,10 +5638,7 @@ def main():
         if not r.get("launches"):
             fail(f"{r['name']} was not launched by the run that drives it")
     line("seconds", total=round(sum(seconds.values()), 3), **seconds)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output")
+    print(card_name())
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.core.factorized import FactorizationConfig
 from repro_torch.models.common import ModelConfig
@@ -25,6 +25,15 @@ _ARCH_MODULES = {
     "arctic-480b": "arctic_480b",
 }
 
+# (seq_len, global_batch, step kind): the dry run's cells
+# (``launch/dryrun.py``, ``launch/steps.py::build_bundle``).
+SHAPES: Dict[str, Dict] = {
+    "train_4k": {"seq": 4096, "batch": 256, "step": "train"},
+    "prefill_32k": {"seq": 32768, "batch": 32, "step": "prefill"},
+    "decode_32k": {"seq": 32768, "batch": 128, "step": "decode"},
+    "long_500k": {"seq": 524288, "batch": 1, "step": "decode"},
+}
+
 
 def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
@@ -40,3 +49,13 @@ def get_config(arch: str, variant: str = "full", factorized: bool = False,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def shapes_for(arch: str) -> List[str]:
+    """The input-shape cells of ``arch``: ``long_500k`` only for the
+    sub-quadratic families (full-attention archs skip it)."""
+    cfg = get_config(arch, "full")
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out

@@ -43,7 +43,8 @@ from repro_torch.kernels.tda.ops import (fused_decode_attention,
                                          gather_paged_lanes)
 from repro_torch.kernels.tda.ref import NEG_INF, _dequant, _rows
 
-__all__ = ["decode_partials", "merge_partials", "sharded_decode_attention"]
+__all__ = ["decode_partials", "merge_partials", "sharded_decode_attention",
+           "check_head_split"]
 
 _EPS = 1e-30  # the kernels' finish division guard
 
@@ -100,6 +101,17 @@ def merge_partials(acc: torch.Tensor,  # (R, B, H, D) f32
     return o / torch.clamp(l_star, min=_EPS)[..., None]
 
 
+def check_head_split(n_kv: int, n_q: int, tp: int,
+                     axis: str = "model") -> None:
+    """The reference's refusal (``repro.kernels.tda.sharded``): decode
+    attention splits whole kv heads and query heads over the ``axis``
+    mesh axis, so both counts must divide by its size."""
+    if n_kv % tp or n_q % tp:
+        raise ValueError(
+            f"kv_heads={n_kv} / n_heads={n_q} not divisible by the "
+            f"{tp}-way '{axis}' mesh axis")
+
+
 def sharded_decode_attention(
     q: torch.Tensor,        # (B, 1, Hq, D), replicated
     k_cache: torch.Tensor,  # this rank's heads: (B, S, Hkv/N, D) lanes or
@@ -118,12 +130,12 @@ def sharded_decode_attention(
     partials (the decode kernel's rows on a CUDA ``q``,
     :func:`decode_partials` on the CPU) are merged across the ``model``
     axis by one ``all_reduce(MAX)`` and two ``all_reduce(SUM)``. A slot
-    that attends nothing gives exactly 0."""
+    that attends nothing gives exactly 0. Refuses, with the reference's
+    message (:func:`check_head_split`), head counts the axis does not
+    divide."""
     B, _, Hq, D = q.shape
     tp = mesh.shape["model"]
-    if Hq % tp:
-        raise ValueError(f"n_heads={Hq} not divisible by the {tp}-way "
-                         "'model' mesh axis")
+    check_head_split(k_cache.shape[-2] * tp, Hq, tp)
     hq = Hq // tp
     r = mesh.coords["model"]
     q_loc = q[:, 0, r * hq:(r + 1) * hq]

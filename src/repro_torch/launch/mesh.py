@@ -43,6 +43,15 @@ functions below, whose backward is its forward's adjoint:
 
 Without autograd (serving, or a tensor that needs no gradient) each is
 the plain collective; on an axis of size 1 each returns its input.
+
+**Placeholder ranks.** The dry run (``launch/dryrun.py``) builds rank 0's
+mesh of a process group of the ``fake`` backend
+(``torch.testing._internal.distributed.fake_pg``: every collective returns
+at once and moves nothing) and runs its step on fake tensors, to count
+what one rank of a 256- or 512-rank mesh computes and sends.
+:func:`make_local_mesh` and :func:`make_production_mesh` take that backend
+only with ``placeholder=True`` and ranks on the CPU; :func:`run_ranks` and
+every serving or training entry point refuse it.
 """
 from __future__ import annotations
 
@@ -57,7 +66,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["AXES", "Mesh", "MeshShape", "make_local_mesh",
+__all__ = ["AXES", "Mesh", "MeshShape", "make_local_mesh", "traffic",
            "make_production_mesh", "production_mesh_shape",
            "devices_per_pod", "tensor_parallel_size", "rank_device",
            "run_ranks", "copy_to", "reduce_from", "gather_from",
@@ -93,7 +102,10 @@ class Mesh:
     that this rank belongs to, and its ``device``. ``stats`` counts the
     collectives sent (``calls``), the bytes of their results (``bytes``)
     and the host seconds spent in them (each returns when its result is
-    in place). An axis the mesh lacks (``pod`` of a 2-D mesh) has size 1."""
+    in place), and the result bytes by axis and kind (``all_reduce``,
+    ``all_gather``, ``reduce_scatter``, ``all_to_all``) under keys
+    ``"bytes:<axis>:<kind>"`` (:func:`traffic` reads them). An axis the
+    mesh lacks (``pod`` of a 2-D mesh) has size 1."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -114,12 +126,14 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
-    def _timed(self, fn, nbytes: int) -> None:
+    def _timed(self, fn, nbytes: int, axis: str, kind: str) -> None:
         t0 = time.perf_counter()
         fn()
         self.stats["seconds"] += time.perf_counter() - t0
         self.stats["calls"] += 1
         self.stats["bytes"] += nbytes
+        key = f"bytes:{axis}:{kind}"
+        self.stats[key] = self.stats.get(key, 0) + nbytes
 
     def all_reduce(self, t: torch.Tensor, axis: str = "model",
                    op: str = "sum") -> torch.Tensor:
@@ -130,7 +144,7 @@ class Mesh:
         t = t.contiguous()
         self._timed(lambda: dist.all_reduce(t, op=_OPS[op],
                                             group=self.groups[axis]),
-                    t.numel() * t.element_size())
+                    t.numel() * t.element_size(), axis, "all_reduce")
         return t
 
     def gather(self, t: torch.Tensor, dim: int = -1,
@@ -144,7 +158,7 @@ class Mesh:
         parts = [torch.empty_like(t) for _ in range(n)]
         self._timed(lambda: dist.all_gather(parts, t,
                                             group=self.groups[axis]),
-                    n * t.numel() * t.element_size())
+                    n * t.numel() * t.element_size(), axis, "all_gather")
         return torch.cat(parts, dim)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int = -1,
@@ -160,7 +174,7 @@ class Mesh:
                           dtype=t.dtype, device=t.device)
         self._timed(lambda: dist.reduce_scatter(
             out, list(src.chunk(n)), group=self.groups[axis]),
-            out.numel() * out.element_size())
+            out.numel() * out.element_size(), axis, "reduce_scatter")
         return out.movedim(0, dim).contiguous()
 
     def exchange(self, t: torch.Tensor, axis: str = "data") -> torch.Tensor:
@@ -172,7 +186,8 @@ class Mesh:
         t = t.contiguous()
         out = torch.empty_like(t)
         self._timed(lambda: dist.all_to_all_single(
-            out, t, group=self.groups[axis]), t.numel() * t.element_size())
+            out, t, group=self.groups[axis]), t.numel() * t.element_size(),
+            axis, "all_to_all")
         return out
 
     def block(self, t: torch.Tensor, dim: int = -1,
@@ -319,6 +334,16 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
+def traffic(stats: Dict[str, float]) -> Dict[str, Dict[str, int]]:
+    """``{axis: {kind: result bytes}}`` from :attr:`Mesh.stats`."""
+    out: Dict[str, Dict[str, int]] = {}
+    for key, n in stats.items():
+        if key.startswith("bytes:"):
+            _, axis, kind = key.split(":")
+            out.setdefault(axis, {})[kind] = int(n)
+    return out
+
+
 def tensor_parallel_size(mesh) -> int:
     """Size of the ``model`` (tensor-parallel) axis: 1 for ``None`` or a
     mesh without one. The one predicate of the sharded serving path; a
@@ -343,7 +368,16 @@ def rank_device(rank: int, device: Optional[Union[str, torch.device]]
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _check_backend(backend: str, n: int, device: torch.device) -> None:
+def _check_backend(backend: str, n: int, device: torch.device,
+                   placeholder: bool = False) -> None:
+    if backend == "fake" and placeholder and device.type == "cpu":
+        return
+    if backend == "fake":
+        raise ValueError(
+            "backend 'fake' (placeholder ranks that move nothing) is the "
+            "dry run's only: make_local_mesh(placeholder=True) with ranks "
+            "on the CPU (launch/dryrun.py); run_ranks and the serving and "
+            "training entry points take 'gloo' or 'nccl'")
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
     if backend == "nccl":
@@ -360,7 +394,8 @@ def _check_backend(backend: str, n: int, device: torch.device) -> None:
 
 def make_local_mesh(data: int = 1, model: int = 1, *, pod: int = 1,
                     device: Optional[Union[str, torch.device]] = None,
-                    backend: Optional[str] = None) -> Mesh:
+                    backend: Optional[str] = None,
+                    placeholder: bool = False) -> Mesh:
     """This rank's :class:`Mesh` over a ``(data, model)`` grid (with
     ``pod`` above 1: a ``(pod, data, model)`` grid) of the processes of the
     initialized default group (``pod * data * model`` of them;
@@ -369,8 +404,9 @@ def make_local_mesh(data: int = 1, model: int = 1, *, pod: int = 1,
     world may build several meshes of its size one after the other.
     ``device`` defaults to the one :func:`run_ranks` gave this rank;
     ``backend`` (default: the default group's) is checked as
-    :func:`run_ranks` checks it. A grid of one rank needs no process
-    group."""
+    :func:`run_ranks` checks it (``placeholder``: the dry run's ``fake``
+    group of ranks on the CPU is accepted too). A grid of one rank needs
+    no process group."""
     if data < 1 or model < 1 or pod < 1:
         raise ValueError(
             f"mesh axes must be positive, got ({pod}, {data}, {model})")
@@ -393,7 +429,7 @@ def make_local_mesh(data: int = 1, model: int = 1, *, pod: int = 1,
     if backend != dist.get_backend():
         raise ValueError(f"backend {backend!r} differs from the process "
                          f"group's {dist.get_backend()!r}")
-    _check_backend(backend, n, dev)
+    _check_backend(backend, n, dev, placeholder)
     coords, rest = {}, rank
     for a, size in reversed(list(zip(names, sizes))):
         rest, coords[a] = divmod(rest, size)
@@ -427,7 +463,8 @@ def production_mesh_shape(multi_pod: bool = False) -> MeshShape:
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device: Optional[Union[str, torch.device]] = None,
-                         backend: Optional[str] = None) -> Mesh:
+                         backend: Optional[str] = None,
+                         placeholder: bool = False) -> Mesh:
     """This rank's mesh of the reference's production shape
     (:func:`production_mesh_shape`): needs a run of 256 ranks (512 with
     ``multi_pod``), and raises naming that count on any other run, as the
@@ -440,7 +477,7 @@ def make_production_mesh(*, multi_pod: bool = False,
             f"{ms.axis_names} needs {ms.size} ranks; this run has {have}")
     return make_local_mesh(ms.shape["data"], ms.shape["model"],
                            pod=ms.shape.get("pod", 1), device=device,
-                           backend=backend)
+                           backend=backend, placeholder=placeholder)
 
 
 def devices_per_pod(mesh) -> int:

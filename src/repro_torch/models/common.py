@@ -124,6 +124,11 @@ class ModelConfig:
     def uniform_layers(self) -> bool:
         return self.layer_pattern is None or len(set(self.layer_pattern)) == 1
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the ``long_500k`` cell (SSM / hybrid families)."""
+        return self.family in ("ssm", "hybrid")
+
     def n_params(self) -> int:
         """Approximate dense parameter count (embeddings + blocks), for 6ND
         (MoE: every expert, the router and arctic's dense FFN), as the

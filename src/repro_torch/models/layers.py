@@ -34,9 +34,11 @@ from repro_torch.kernels.tda.ops import (
     fused_mixed_attention,
     gather_paged_lanes,
 )
-from repro_torch.launch.mesh import (copy_to, reduce_from,
+from repro_torch.kernels.tda.sharded import check_head_split
+from repro_torch.launch.mesh import (all_to_all, copy_to, gather_from,
+                                     reduce_from, scatter_to,
                                      tensor_parallel_size)
-from repro_torch.launch.sharding import dp_axes
+from repro_torch.launch.sharding import dp_axes, spec_axes
 from repro_torch.models.common import ModelConfig, torch_dtype
 
 NEG_INF = -1e30
@@ -395,6 +397,59 @@ def layer_view(cache: Dict[str, torch.Tensor], name: str,
     return leaf if layer_idx is None else leaf[layer_idx]
 
 
+def _seq_to_heads(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``(B, W / N, H, ...)`` (this rank's positions, every head) ->
+    ``(B, W, H / N, ...)`` (every position, this rank's heads): one
+    ``all_to_all`` over ``model``."""
+    n = mesh.n("model")
+    B, w, H = t.shape[:3]
+    src = t.reshape((B, w, n, H // n) + t.shape[3:]).movedim(2, 0)
+    got = all_to_all(src.contiguous(), mesh, "model")  # [i]: rank i's block
+    return got.movedim(0, 1).reshape((B, n * w, H // n) + t.shape[3:])
+
+
+def _heads_to_seq(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The inverse of :func:`_seq_to_heads`: ``(B, W, H / N, ...)`` ->
+    ``(B, W / N, H, ...)``."""
+    n = mesh.n("model")
+    B, W, h = t.shape[:3]
+    src = t.reshape((B, n, W // n, h) + t.shape[3:]).movedim(1, 0)
+    got = all_to_all(src.contiguous(), mesh, "model")
+    return got.movedim(0, 2).reshape((B, W // n, n * h) + t.shape[3:])
+
+
+def _place_lane(t: torch.Tensor, width: int, mesh, seq_cut: bool,
+                heads_cut: bool) -> torch.Tensor:
+    """A prefill's lane leaf ``(B, S, heads, ...)`` (``heads``: this rank's
+    block when ``heads_cut``, else every head) as the cache holds it on a
+    mesh (``launch.sharding.cache_specs``): every head, and this rank's
+    block of the ``width`` positions when ``seq_cut``."""
+    if seq_cut:
+        if t.shape[1] < width:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, width - t.shape[1]))
+        return _heads_to_seq(t, mesh) if heads_cut else mesh.block(t, 1)
+    return mesh.gather(t, 2) if heads_cut else t
+
+
+def _write_rows(lane: torch.Tensor, t: torch.Tensor, slot: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """``lane[b, slot[b]] = t[b]`` in place for the rows in ``keep`` whose
+    ``slot`` lies in the lane (the reference's one-hot select); other rows
+    write their own value back (one position per row, no host sync)."""
+    B, width = lane.shape[0], lane.shape[1]
+    keep = keep & (slot >= 0) & (slot < width)
+    rows = torch.arange(B, device=lane.device)
+    pos = torch.clamp(slot, 0, width - 1)
+    old = lane[rows, pos]
+    keep_b = keep.reshape((B,) + (1,) * (old.dim() - 1))
+    lane[rows, pos] = torch.where(keep_b, t.to(lane.dtype), old)
+
+
+def _row_cut(p: Dict, width: int) -> bool:
+    """A dense row-parallel linear whose input rows ``model`` cuts."""
+    return "w" in p and p["w"].shape[-2] != width
+
+
 # The Megatron side of each linear of the attention block and the FFN
 # (``launch/sharding.py``): column-parallel ones give this rank's heads or
 # d_ff slice, row-parallel ones take them and give the replicated output.
@@ -466,6 +521,7 @@ def attention_block(
     kv: Optional[torch.Tensor] = None,      # (B, Skv, d) cross-attention
     seg_kv: Optional[torch.Tensor] = None,  # (B, Skv) memory's segments
     prefix: str = "attn",             # dictionary families {prefix}_q ...
+    lanes: Optional[Dict] = None,     # the cache's placement on a mesh
 ) -> torch.Tensor:
     """GQA attention with RoPE, in the four forms the serving paths take:
 
@@ -511,6 +567,25 @@ def attention_block(
     heads (``Hq / N`` query and ``Hkv / N`` kv heads, the GQA group
     unchanged) against the rank's head slice of the cache, through the
     same kernels; ``wo`` is row-parallel, so the output is replicated.
+    Where ``N`` does not divide both head counts, prefill and training
+    attention gather q, k and v over ``model`` and every rank of the axis
+    attends every head (``wo`` then takes the rank's block of the output);
+    decode refuses such a mesh with the reference's message
+    (``kernels/tda/sharded.py::check_head_split``).
+
+    ``lanes`` (the mesh steps of ``launch/steps.py``: ``Model.prefill`` /
+    ``decode_step`` with ``specs=``) is the placement of this layer's
+    contiguous cache leaves, ``launch.sharding.cache_specs`` without the
+    L axis: rows over the data-parallel axes (the rank's batch rows), the
+    positions over ``model`` where it divides them, every head. A prefill
+    moves its K/V there from the rank's heads by one ``all_to_all`` over
+    ``model`` a leaf (an ``all_gather`` of the heads when the positions
+    are not cut); a decode step gathers the token's K/V over the heads,
+    writes it into the rank's block of positions, and moves the lanes
+    back to the rank's heads, every position, by one ``all_to_all`` a
+    leaf, the move that the reference's compiled program makes at its
+    ``shard_map`` boundary (``kernels/tda/sharded.py``), before it
+    attends.
 
     **Cross-attention** (``kv``, the encoder-decoder's memory; no cache):
     keys and values come from ``kv``, no RoPE, no causal mask, so every
@@ -530,10 +605,24 @@ def attention_block(
                          "reference's encoder-decoder does")
     lin = _linear_fn(p, dicts, cfg, mesh, sparse_train)
     qw, kvw = cfg.n_heads * hd, cfg.kv_heads * hd
+    tp = tensor_parallel_size(mesh)
+    whole = tp > 1 and bool(cfg.n_heads % tp or cfg.kv_heads % tp)
     x_kv = x if kv is None else kv
-    q = lin("wq", x, f"{prefix}_q", qw).reshape(B, S, -1, hd)
-    k = lin("wk", x_kv, f"{prefix}_k", kvw).reshape(B, x_kv.shape[1], -1, hd)
-    v = lin("wv", x_kv, f"{prefix}_v", kvw).reshape(B, x_kv.shape[1], -1, hd)
+    q = lin("wq", x, f"{prefix}_q", qw)
+    k = lin("wk", x_kv, f"{prefix}_k", kvw)
+    v = lin("wv", x_kv, f"{prefix}_v", kvw)
+    if whole:  # heads do not split over model: every rank attends all
+        q, k, v = (t if t.shape[-1] == w else gather_from(t, mesh)
+                   for t, w in ((q, qw), (k, kvw), (v, kvw)))
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, x_kv.shape[1], -1, hd)
+    v = v.reshape(B, x_kv.shape[1], -1, hd)
+
+    def out(o):
+        o = o.reshape(B, S, -1)
+        if whole and _row_cut(p["wo"], qw):
+            o = scatter_to(o, mesh)
+        return lin("wo", o, f"{prefix}_o", qw)
     if cfg.rope and kv is None:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -566,11 +655,17 @@ def attention_block(
                                 block_dtype=block_dtype)
         if cache is not None:
             ring = layer_view(cache, "k", layer_idx).shape[1]
+            placed = lanes is not None and tp > 1
+            seq_cut = placed and "model" in spec_axes(lanes["k"][1])
+            if seq_cut:
+                ring *= tp
             for name, t in _kv_leaves(_ring_layout(k, ring),
                                       _ring_layout(v, ring), quant).items():
+                if placed:
+                    t = _place_lane(t, ring, mesh, seq_cut, not whole)
                 lane = layer_view(cache, name, layer_idx)
                 lane[:, :t.shape[1]] = t.to(lane.dtype)
-        return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
+        return out(o)
 
     ci = cache_index.reshape(-1).to(torch.int64).expand(B)
     if n_new is not None:
@@ -605,13 +700,32 @@ def attention_block(
         phys = torch.where(wvalid, page * ps + lanepos % ps, P * ps)
         _write_pool(kpool, phys.reshape(-1), k.reshape(B * S, *k.shape[2:]))
         _write_pool(vpool, phys.reshape(-1), v.reshape(B * S, *v.shape[2:]))
-        return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
+        return out(o)
 
     if S != 1:
         raise ValueError("decode takes one token per row")
+    if tp > 1:
+        check_head_split(cfg.kv_heads, cfg.n_heads, tp)
     new = _kv_leaves(k[:, 0], v[:, 0], quant)
+    placed = lanes is not None and tp > 1
+    seq_cut = placed and "model" in spec_axes(lanes["k"][1])
     lanes = {name: layer_view(cache, name, layer_idx) for name in new}
-    if pages is not None:
+    if placed:
+        # The cache holds the rank's block of positions, every head: the
+        # token's K/V of every head lands in the block that holds its
+        # position, then the lanes move to the rank's heads, every position.
+        width = lanes["k"].shape[1]
+        ring = width * tp if seq_cut else width
+        slot = ci if window is None else ci % ring
+        if seq_cut:
+            slot = slot - mesh.coord("model") * width
+        keep = torch.ones_like(slot, dtype=torch.bool) if slot_mask is None \
+            else slot_mask.reshape(-1)
+        for name, t in new.items():
+            _write_rows(lanes[name], mesh.gather(t, 1), slot, keep)
+        lanes = {name: _seq_to_heads(t, mesh) if seq_cut
+                 else mesh.block(t, 2) for name, t in lanes.items()}
+    elif pages is not None:
         ps = pages["page_size"]
         bt = pages["bt"]
         ring = pages["width"]
@@ -631,16 +745,10 @@ def attention_block(
         # writable ones).
         ring = lanes["k"].shape[1]
         slot = ci if window is None else ci % ring
-        keep = (slot >= 0) & (slot < ring)
-        if slot_mask is not None:
-            keep &= slot_mask.reshape(-1)
-        rows = torch.arange(B, device=x.device)
-        pos = torch.clamp(slot, 0, ring - 1)
+        keep = torch.ones_like(slot, dtype=torch.bool) if slot_mask is None \
+            else slot_mask.reshape(-1)
         for name, t in new.items():
-            lane = lanes[name]
-            old = lane[rows, pos]
-            keep_b = keep.reshape((B,) + (1,) * (old.dim() - 1))
-            lane[rows, pos] = torch.where(keep_b, t.to(lane.dtype), old)
+            _write_rows(lanes[name], t, slot, keep)
     if slot_mask is not None:
         ci = torch.where(slot_mask.reshape(-1), ci, -1)
     hi = ci + 1  # inactive rows: hi == 0, nothing attended
@@ -663,7 +771,7 @@ def attention_block(
         else:
             kc, vc = view("k"), view("v")
         o = decode_attention(q, kc, vc, hi)
-    return lin("wo", o.reshape(B, S, -1), f"{prefix}_o", qw)
+    return out(o)
 
 
 def init_ffn(g: torch.Generator, cfg: ModelConfig,

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
@@ -73,6 +74,8 @@ def router_counts() -> Dict[str, int]:
 
 
 def _count(keep: torch.Tensor) -> None:
+    if is_fake(keep) or keep.device.type == "meta":
+        return  # a dry run's placeholder: nothing was routed
     dev = keep.device
     c = ROUTER_COUNTS.get(dev)
     if c is None:

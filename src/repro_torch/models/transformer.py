@@ -34,23 +34,40 @@ rank's slice of the weights (``launch/sharding.py``) and
 :meth:`Model.init_cache` gives lanes of its ``Hkv / N`` kv heads. The
 attention stacks serve on a ``(1, N)`` mesh; a recurrent block refuses one
 (its head counts do not split).
+
+**On a ``(data, model)`` or ``(pod, data, model)`` mesh** (the train
+step's and the steps of ``launch/steps.py``) :meth:`Model.loss`,
+:meth:`Model.hidden`, :meth:`Model.prefill` and :meth:`Model.decode_step`
+take ``specs=``, the placement of the whole tree
+(``launch.sharding.param_specs``): ``params`` are the rank's slices and
+``batch`` its rows; each layer gathers its FSDP-cut leaves inside its body.
+Prefill and decode caches are then placed as the reference places them
+(``launch.sharding.cache_specs``: rows over the data-parallel axes,
+positions over ``model``, every head; :meth:`Model.init_cache` with
+``specs=``). A recurrent block there runs whole on every rank of the
+``model`` axis: the leaves ``model`` cuts (and its cut cache leaves) are
+gathered for it, and the rank keeps its block of the new state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import sparsity
 from repro_torch.core.errors import UnsupportedConfigError
 from repro_torch.core.factorized import (DictionaryBank, FactorizationConfig,
                                         compress_model_params)
-from repro_torch.core.tree import tree_at, tree_leaves, tree_map
+from repro_torch.core.tree import (tree_at, tree_leaves, tree_map,
+                                   tree_map_paths)
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import (fsdp_gather, reduce_from,
+from repro_torch.launch.mesh import (fsdp_gather, gather_from, reduce_from,
                                      tensor_parallel_size)
 from repro_torch.launch.sharding import (dp_axes, fsdp_dim, full_shape,
                                          grad_reduce_axes, param_specs,
@@ -145,6 +162,29 @@ def _sharded_regularizer(params: Dict, fcfg: FactorizationConfig, mesh,
     for a in dp_axes(mesh):
         total = reduce_from(total, mesh, a)
     return total
+
+
+def shape_mode():
+    """A context in which new tensors are fake (shapes, dtypes and
+    devices, no storage): the active ``FakeTensorMode``, or a new one."""
+    if detect_fake_mode() is not None:
+        return contextlib.nullcontext()
+    return FakeTensorMode()
+
+
+def _gather_model(tree: Dict, specs: Dict, mesh) -> Dict:
+    """``tree`` with every dim that ``specs`` cuts over ``model`` gathered
+    (``gather_from``: all-gather forward, the rank's block backward)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _gather_model(v, specs[k], mesh)
+            continue
+        for dim, e in enumerate(specs[k]):
+            if "model" in spec_axes(e):
+                v = gather_from(v, mesh, dim, "model")
+        out[k] = v
+    return out
 
 
 def gather_fsdp(tree: Dict, specs: Dict, mesh, path=()) -> Dict:
@@ -271,6 +311,14 @@ class Model:
             params["dicts"] = bank.dicts
         return params
 
+    def param_shapes(self, seed: int = 0) -> Dict:
+        """:meth:`init`'s tree as fake tensors (``FakeTensorMode``): each
+        leaf's shape, dtype and device, no storage (the reference's
+        ``jax.eval_shape`` of ``init``). Under an active fake mode the
+        leaves are that mode's."""
+        with shape_mode():
+            return self.init(seed)
+
     def prepare(self, params: Dict, mesh=None) -> Dict:
         """Serving copy of ``params`` on the model's device — on a
         tensor-parallel ``mesh``, of this rank's slice of them
@@ -354,7 +402,8 @@ class Model:
                 "v": zeros(shape, cfg.compute_dtype)}
 
     def init_cache(self, batch: int, max_len: int, ring: bool = True,
-                   mesh=None) -> Dict[str, Any]:
+                   mesh=None, specs: Optional[Dict] = None
+                   ) -> Dict[str, Any]:
         """Zero caches for ``batch`` rows. Attention leaves are contiguous
         lanes ``(batch, width, Hkv, D)`` in the compute dtype, or, with
         ``kv_quant``, int8 codes plus f32 ``k_scale``/``v_scale`` ``(batch,
@@ -365,8 +414,24 @@ class Model:
         stack's caches are ``{"layer_XX": {...}}``. (The page pools of the
         slot table are shaped from these leaves.) On a tensor-parallel
         ``mesh`` the attention leaves hold this rank's ``Hkv / N`` heads
-        (``launch.sharding.slot_cache_specs``)."""
+        (``launch.sharding.slot_cache_specs``). With ``specs`` (the
+        ``launch.sharding.cache_specs`` of the whole cache on ``mesh``,
+        ``batch`` this rank's rows) every leaf holds every head and this
+        rank's block of each dim that ``specs`` cuts over ``model``."""
         cfg = self.cfg
+        if specs is not None:
+            n = tensor_parallel_size(mesh)
+            with shape_mode():
+                whole = self.init_cache(batch, max_len, ring)
+
+            def place(path, leaf):
+                shape = tuple(d // n if "model" in spec_axes(e) else d
+                              for d, e in zip(leaf.shape,
+                                              tree_at(specs, path)))
+                return torch.zeros(shape, dtype=leaf.dtype,
+                                   device=self.device)
+
+            return tree_map_paths(place, whole)
         tp = tensor_parallel_size(mesh)
         if cfg.uniform_layers:
             return self._block_cache(cfg.block_kind(0), batch, max_len, ring,
@@ -419,20 +484,29 @@ class Model:
 
     def _block(self, lp: Dict, x: torch.Tensor, *, kind: str, dicts,
                positions, cache_l, li, cache_index, pages_l, slot_mask,
-               n_new, seg_ids, prefix_l, mesh, sparse_train, specs=None):
+               n_new, seg_ids, prefix_l, mesh, sparse_train, specs=None,
+               lanes=None):
         """One layer: ``(x, aux)``, ``aux`` the MoE load-balance loss (0.0
-        for other blocks). With the layer's ``specs`` (training on a mesh)
-        its FSDP-cut leaves are gathered over ``data`` first, here inside
-        the layer (under its checkpoint when remat is on)."""
+        for other blocks). With the layer's ``specs`` (a mesh step) its
+        FSDP-cut leaves are gathered over ``data`` first, here inside the
+        layer (under its checkpoint when remat is on); ``lanes``: the
+        placement of its cache leaves (``launch.sharding.cache_specs``
+        without the L axis)."""
         cfg = self.cfg
         if specs is not None:
             lp = gather_fsdp(lp, specs, mesh)
-        h = L.apply_norm(lp["norm1"], x)
         if kind in ("ssd", "rglru") and tensor_parallel_size(mesh) > 1:
-            raise UnsupportedConfigError(
-                f"{cfg.name}: a {kind} block has no tensor-parallel "
-                "form (its head counts do not split); serve it "
-                "without a mesh")
+            if specs is None:
+                raise UnsupportedConfigError(
+                    f"{cfg.name}: a {kind} block has no tensor-parallel "
+                    "form (its head counts do not split); serve it "
+                    "without a mesh")
+            return self._recurrent_whole(
+                _gather_model(lp, specs, mesh), x, kind=kind, dicts=dicts,
+                cache_l=cache_l, li=li, slot_mask=slot_mask,
+                seg_ids=seg_ids, mesh=mesh, sparse_train=sparse_train,
+                lanes=lanes)
+        h = L.apply_norm(lp["norm1"], x)
         if kind == "ssd":
             return x + SSD.ssd_block(lp["ssd"], h, cfg=cfg, dicts=dicts,
                                      cache=cache_l, layer_idx=li,
@@ -450,7 +524,7 @@ class Model:
                 pages=pages_l, slot_mask=slot_mask, n_new=n_new,
                 seg_ids=seg_ids, prefix_kv=prefix_l,
                 window=self._window(kind), mesh=mesh,
-                sparse_train=sparse_train)
+                sparse_train=sparse_train, lanes=lanes)
         h2 = L.apply_norm(lp["norm2"], x)
         if "moe" not in lp:
             return x + L.ffn_block(lp["ffn"], h2, cfg=cfg, dicts=dicts,
@@ -466,9 +540,40 @@ class Model:
                                 mesh=mesh, sparse_train=sparse_train)
         return x, aux
 
+    def _recurrent_whole(self, lp, x, *, kind, dicts, cache_l, li,
+                         slot_mask, seg_ids, mesh, sparse_train, lanes):
+        """A recurrent block on a mesh, whole on every rank of ``model``
+        (``lp`` gathered over it): the layer's cache leaves that ``lanes``
+        cuts over ``model`` are gathered for it, and the rank keeps its
+        block of the state the block writes."""
+        one = None
+        if cache_l is not None:
+            def whole(name):
+                t = cache_l[name] if li is None else cache_l[name][li]
+                for dim, e in enumerate(lanes[name]):
+                    if "model" in spec_axes(e):
+                        t = mesh.gather(t, dim, "model")
+                return t if li is None else t[None]
+
+            one = {name: whole(name) for name in cache_l}
+        y, aux = self._block(
+            lp, x, kind=kind, dicts=dicts, positions=None, cache_l=one,
+            li=None if li is None else 0, cache_index=None, pages_l=None,
+            slot_mask=slot_mask, n_new=None, seg_ids=seg_ids, prefix_l=None,
+            mesh=None, sparse_train=sparse_train)
+        if one is not None:
+            for name, t in one.items():
+                t = t if li is None else t[0]
+                for dim, e in enumerate(lanes[name]):
+                    if "model" in spec_axes(e):
+                        t = mesh.block(t, dim, "model")
+                (cache_l[name] if li is None else cache_l[name][li]).copy_(t)
+        return y, aux
+
     def _stack(self, params, x, *, positions, caches, cache_index=None,
                slot_mask=None, pages=None, n_new=None, seg_ids=None,
-               prefix_kv=None, mesh=None, sparse_train=False, specs=None):
+               prefix_kv=None, mesh=None, sparse_train=False, specs=None,
+               cache_specs=None):
         """The block stack and the final norm: ``(h, aux)``, ``aux`` the
         MoE load-balance loss summed over the layers (f32 0-d; ``0.0`` for
         a stack without routed experts). With
@@ -476,11 +581,13 @@ class Model:
         runs each layer under ``torch.utils.checkpoint`` (its activations
         recomputed in the backward pass: memory, not values, as the
         reference's ``jax.checkpoint``). ``specs``: the placement of
-        ``params["layers"]`` when training on a mesh."""
+        ``params["layers"]`` on a mesh; ``cache_specs``: the caches'."""
         cfg = self.cfg
         lay = params["layers"]
         if specs is not None and cfg.uniform_layers:
             specs = tree_map(lambda sp: sp[1:], specs)  # the L axis
+        if cache_specs is not None and cfg.uniform_layers:
+            cache_specs = tree_map(lambda sp: sp[1:], cache_specs)
 
         remat = cfg.remat != "none" and caches is None \
             and torch.is_grad_enabled()
@@ -489,7 +596,7 @@ class Model:
             kind = cfg.block_kind(i)
             if cfg.uniform_layers:
                 lp = tree_map(lambda t: t[i], lay)
-                lspecs = specs
+                lspecs, lanes = specs, cache_specs
                 cache_l, li, pages_l = caches, i, pages
                 pre = None if prefix_kv is None else {
                     "k": prefix_kv["k"][i], "v": prefix_kv["v"][i],
@@ -498,6 +605,7 @@ class Model:
                 name = f"layer_{i:02d}"
                 lp, li = lay[name], None
                 lspecs = None if specs is None else specs[name]
+                lanes = None if cache_specs is None else cache_specs[name]
                 cache_l = None if caches is None else caches[name]
                 pages_l = None if pages is None else pages.get(name)
                 pre = None
@@ -511,7 +619,7 @@ class Model:
                       cache_index=cache_index, pages_l=pages_l,
                       slot_mask=slot_mask, n_new=n_new, seg_ids=seg_ids,
                       prefix_l=pre, mesh=mesh, sparse_train=sparse_train,
-                      specs=lspecs)
+                      specs=lspecs, lanes=lanes)
             if remat:
                 x, aux_l = checkpoint(self._block, lp, x, use_reentrant=False,
                                       **kw)
@@ -553,10 +661,37 @@ class Model:
             else batch["inputs"]
         return ref.shape[0], ref.shape[1]
 
+    def _io(self, params: Dict, specs: Optional[Dict], mesh,
+            names=("embed",)) -> Dict:
+        """``params`` with the leaves ``names`` (``embed``, ``lm_head``)
+        gathered over ``data`` where ``specs`` cut them (FSDP)."""
+        if specs is None:
+            return params
+        return dict(params, **{n: gather_fsdp(params[n], specs[n], mesh, (n,))
+                               for n in names})
+
+    def _head_io(self, params: Dict, specs: Optional[Dict], mesh) -> Dict:
+        """:meth:`_io` of what the logits read: the head, and the token
+        table of a tied head."""
+        names = ("lm_head",) + (("embed",) if self.cfg.tie_embeddings
+                                else ())
+        return self._io(params, specs, mesh, names)
+
+    def cache_placement(self, batch: int, max_len: int, mesh,
+                        ring: bool = True) -> Dict:
+        """``launch.sharding.cache_specs`` of :meth:`init_cache` ``(batch,
+        max_len, ring)`` (``batch``: every rank's rows) on ``mesh``."""
+        from repro_torch.launch.sharding import cache_specs
+        with shape_mode():
+            shapes = self.init_cache(batch, max_len, ring)
+        return cache_specs(shapes, mesh, self.cfg.uniform_layers)
+
     def hidden(self, params: Dict, batch: Dict, *,
                caches: Optional[Dict] = None,
                prefix_kv: Optional[Dict] = None,
-               mesh=None) -> Tuple[torch.Tensor, Any]:
+               mesh=None, specs: Optional[Dict] = None,
+               cache_specs: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Any]:
         """Full-sequence forward up to the final norm: ``(h (B, S, d),
         caches)``. batch ``{"inputs": (B, S)}`` (or ``{"embeds": (B, S,
         d)}`` with external embeddings) with optional ``"positions"``
@@ -569,12 +704,17 @@ class Model:
         ``{"k", "v": (L, B, Np, Hkv, D) (a heterogeneous stack: {layer:
         array or None}), "len": (B,)}``, which every attention layer
         prepends to its keys; the batch then holds only the suffix, at
-        absolute ``positions``."""
+        absolute ``positions``. With ``specs`` (a mesh step) ``params`` are
+        the rank's slices, ``batch`` its rows and ``caches`` placed by
+        ``cache_specs`` (module docstring)."""
         positions = self._positions(batch)
-        x = self._embed_in(params, batch, positions, mesh)
+        x = self._embed_in(self._io(params, specs, mesh), batch, positions,
+                           mesh)
         h, _ = self._stack(params, x, positions=positions,
                            caches=caches, seg_ids=batch.get("seg_ids"),
-                           prefix_kv=prefix_kv, mesh=mesh)
+                           prefix_kv=prefix_kv, mesh=mesh,
+                           specs=None if specs is None else specs["layers"],
+                           cache_specs=cache_specs)
         return h, caches
 
     def apply(self, params: Dict, batch: Dict, *,
@@ -635,12 +775,10 @@ class Model:
             raise ValueError("Model.loss on a mesh takes specs= (the "
                              "placement of params: launch.sharding."
                              "param_specs of the whole tree)")
-        embed, head = params["embed"], params["lm_head"]
-        if mesh is not None:
-            embed = gather_fsdp(embed, specs["embed"], mesh, ("embed",))
-            head = gather_fsdp(head, specs["lm_head"], mesh, ("lm_head",))
+        io = self._io(params, specs, mesh, ("embed", "lm_head"))
+        embed, head = io["embed"], io["lm_head"]
         positions = self._positions(batch)
-        x = self._embed_in({"embed": embed}, batch, positions, mesh)
+        x = self._embed_in(io, batch, positions, mesh)
         h, aux = self._stack(params, x, positions=positions,
                              caches=None, seg_ids=batch.get("seg_ids"),
                              sparse_train=sparse_train, mesh=mesh,
@@ -659,21 +797,40 @@ class Model:
         return total, metrics
 
     def prefill(self, params: Dict, batch: Dict, *, max_len: int = 0,
-                mesh=None) -> Tuple[torch.Tensor, Any]:
+                mesh=None, specs: Optional[Dict] = None,
+                cache_specs: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Any]:
         """Forward that fills fresh caches of ``max(max_len, S)`` positions
         (rings of the window for a windowed layer, the prompt's last ring
         positions in canonical ring phase; recurrent layers their end
-        state); returns the last position's logits and the caches."""
+        state); returns the last position's logits and the caches. With
+        ``specs`` on a mesh (``params`` the rank's slices, ``batch`` its
+        rows) the caches are the rank's blocks, placed by ``cache_specs``
+        (default: :meth:`cache_placement` of every rank's rows)."""
         B, S = self._batch_shape(batch)
-        caches = self.init_cache(B, max(max_len, S), mesh=mesh)
-        h, caches = self.hidden(params, batch, caches=caches, mesh=mesh)
-        return self.logits(params, h[:, -1:], mesh), caches
+        width = max(max_len, S)
+        if specs is not None and (mesh is None or mesh.size == 1):
+            mesh = specs = None
+        if specs is not None:
+            if cache_specs is None:
+                rows = B * math.prod(mesh.n(a) for a in dp_axes(mesh))
+                cache_specs = self.cache_placement(rows, width, mesh)
+            caches = self.init_cache(B, width, mesh=mesh, specs=cache_specs)
+        else:
+            cache_specs = None
+            caches = self.init_cache(B, width, mesh=mesh)
+        h, caches = self.hidden(params, batch, caches=caches, mesh=mesh,
+                                specs=specs, cache_specs=cache_specs)
+        return self.logits(self._head_io(params, specs, mesh), h[:, -1:],
+                           mesh), caches
 
     def decode_step(self, params: Dict, batch: Dict, caches,
                     cache_index: torch.Tensor, *,
                     slot_mask: Optional[torch.Tensor] = None,
                     pages: Optional[Dict] = None,
-                    mesh=None) -> Tuple[torch.Tensor, Any]:
+                    mesh=None, specs: Optional[Dict] = None,
+                    cache_specs: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, Any]:
         """One-token step over contiguous lanes, or paged lanes when
         ``pages`` is given. batch ``{"inputs": (B, 1)}`` or ``{"embeds":
         (B, 1, d)}``; ``cache_index`` (B,) tokens resident per row (the new
@@ -682,14 +839,23 @@ class Model:
         (B, n) int32, "width": lane width, "page_size": int}``, or
         ``{layer_name: entry or None}`` for a heterogeneous stack. Returns
         ``(logits (B, 1, V) f32, caches)``; the caches are updated in
-        place."""
+        place. With ``specs`` on a mesh: the rank's slices and rows, and
+        contiguous caches placed by ``cache_specs`` (module docstring);
+        a mesh whose ``model`` axis does not divide the head counts is
+        refused with the reference's message."""
+        if specs is not None and (mesh is None or mesh.size == 1):
+            mesh = specs = cache_specs = None
         B, _ = self._batch_shape(batch)
         ci = cache_index.reshape(-1).to(torch.int64).expand(B)
-        x = self._embed_in(params, batch, ci.reshape(-1, 1), mesh)
+        x = self._embed_in(self._io(params, specs, mesh), batch,
+                           ci.reshape(-1, 1), mesh)
         h, _ = self._stack(params, x, positions=ci.reshape(-1, 1),
                            caches=caches, cache_index=ci,
-                           slot_mask=slot_mask, pages=pages, mesh=mesh)
-        return self.logits(params, h, mesh), caches
+                           slot_mask=slot_mask, pages=pages, mesh=mesh,
+                           specs=None if specs is None else specs["layers"],
+                           cache_specs=cache_specs)
+        return self.logits(self._head_io(params, specs, mesh), h,
+                           mesh), caches
 
     def mixed_hidden(self, params: Dict, batch: Dict, caches,
                      cache_index: torch.Tensor, n_new: torch.Tensor, *,

@@ -586,3 +586,102 @@ def rank_moe_sparse(cfg, tree, x):
     return tuple(moe_ffn(loc["layers"]["moe"], torch.from_numpy(x), cfg=cfg,
                          dicts=loc["dicts"], mesh=mesh,
                          sparse_train=s)[0].numpy() for s in (True, False))
+
+
+def rank_mesh_infer(cases):
+    """One rank of a 4-rank world, each case of
+    ``tests/test_torch_mesh_infer.py`` on its own ``(data, model)`` mesh
+    (new groups for each): :func:`_mesh_infer_case`. Returns ``{name:
+    results}``; every rank holds the whole results."""
+    return {name: _mesh_infer_case(c) for name, c in cases.items()}
+
+
+def _mesh_infer_case(c):
+    """float32 ``c["arch"]`` smoke of ``c["n_layers"]`` layers on
+    ``c["mesh"]``, from the whole params ``c["params"]`` (numpy), placed by
+    ``param_specs`` (FSDP over ``data``, TP over ``model``), rows over the
+    data-parallel axes:
+
+    * ``c["train"]`` (a batch with labels): ``loss_and_grads`` on the mesh,
+      the loss and the gathered gradients;
+    * ``c["prompt"]``: ``make_prefill_step`` (caches of the prompt's
+      length), its logits and gathered caches;
+    * ``c["decode"]`` (one token vector a step): ``Model.prefill`` into
+      caches of ``c["width"]`` positions, then a ``make_serve_step`` step
+      for each at depth S + i (the logits; the gathered caches after the
+      last), and with ``c["slot_mask"]`` one ``make_slot_serve_step`` step
+      at depth S + len(decode) (its tokens and gathered caches); or, with
+      ``c["refused"]``, the message of the ``ValueError`` that the first
+      serve step raises.
+
+    Every cache is gathered whole (``launch.sharding.gather_tree`` over its
+    ``cache_specs``), every logits block over the data-parallel axes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (batch_spec, cut_leaf,
+                                             gather_tree, param_specs,
+                                             shard_params)
+    from repro_torch.launch.steps import (loss_and_grads, make_prefill_step,
+                                          make_serve_step,
+                                          make_slot_serve_step)
+    from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.models.transformer import Model
+    mesh = _rank_mesh(c["mesh"])
+    model = Model(get_config(c["arch"], "smoke", dtype="float32",
+                             n_layers=c["n_layers"]), device=CPU)
+    full = params_from_numpy(c["params"], CPU)
+    specs = param_specs(full, mesh)
+    local = shard_params(full, specs, mesh)
+
+    def rows(tree):
+        tree = {k: torch.as_tensor(v) for k, v in tree.items()}
+        return {k: cut_leaf(v, sp, mesh) for (k, v), sp in zip(
+            tree.items(), batch_spec(tree, mesh).values())}
+
+    def whole(t):  # the rank's rows -> every row (dim 0 over data)
+        return mesh.gather(t.contiguous(), 0, "data")
+
+    out = {}
+    if c.get("train") is not None:
+        met, grads = loss_and_grads(model, local, rows(c["train"]),
+                                    mesh=mesh, specs=specs)
+        out["loss"] = float(met["loss"])
+        out["grads"] = gather_tree(grads, specs, mesh)
+    prompt = c["prompt"]
+    B, S = prompt.shape
+    with torch.no_grad():
+        cs = model.cache_placement(B, S, mesh)
+        logits, caches = make_prefill_step(model, mesh, specs, cs)(
+            local, rows({"inputs": prompt}))
+        out["prefill_logits"] = whole(logits)
+        out["prefill_caches"] = gather_tree(caches, cs, mesh)
+        if not c.get("decode"):
+            return torch_to_numpy(out)
+        cs = model.cache_placement(B, c["width"], mesh)
+        _, caches = model.prefill(local, rows({"inputs": prompt}),
+                                  max_len=c["width"], mesh=mesh,
+                                  specs=specs, cache_specs=cs)
+        step = make_serve_step(model, mesh, specs, cs)
+        for i, tok in enumerate(c["decode"]):
+            try:
+                logits, caches = step(local, rows({"inputs": tok[:, None]}),
+                                      caches, torch.tensor(S + i,
+                                                           dtype=torch.int32))
+            except ValueError as e:
+                if not c.get("refused"):
+                    raise
+                out["refused"] = str(e)
+                return torch_to_numpy(out)
+            out[f"decode_{i}"] = whole(logits)
+        out["decode_caches"] = gather_tree(caches, cs, mesh)
+        if c.get("slot_mask") is None:
+            return torch_to_numpy(out)
+        n = len(c["decode"])
+        last = rows({"inputs": c["decode"][-1][:, None],
+                     "index": np.full(B, S + n, np.int32),
+                     "mask": c["slot_mask"]})
+        toks, caches = make_slot_serve_step(model, mesh, specs, cs)(
+            local, {"inputs": last["inputs"]}, caches, last["index"],
+            last["mask"])
+        out["slot_tokens"] = whole(toks)
+        out["slot_caches"] = gather_tree(caches, cs, mesh)
+    return torch_to_numpy(out)
