@@ -99,6 +99,16 @@ a shared page copies it first (copy-on-write), and a prompt longer than
 its ring neither shares, publishes nor restores fleet pages: its lane is
 not a function of the prompt's prefix.
 
+**Spans** (``serve/spans.py``, always on): each :meth:`Engine.step` records
+a ``step`` span and its phases (``expire``, ``grow``, ``admit``,
+``dispatch`` with ``upload``, ``model``, ``choose`` and ``sync``,
+``retire``), each request its ``queued``, ``prefill`` and ``decode`` spans,
+on the wall clock of the profiler's timeline. ``decode_stats``' ``step_ms``
+are the ``dispatch`` spans' lengths and its ``ttft`` ``wall_s`` runs from
+the ``queued`` span's start (the call of ``submit``) to the first
+``decode`` span's; a step of the system clock during the run distorts
+both, and :meth:`Engine.finish_run` warns when one reads negative.
+
 **Construction**: ``Engine(model, params, config=EngineConfig(...))``; the
 reference's legacy per-knob keyword arguments (``Engine(model, params,
 max_len=64)``) still build the same ``EngineConfig`` behind a one-time
@@ -118,7 +128,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -131,6 +140,7 @@ from repro_torch.core.packing import chunk_prompt
 from repro_torch.kernels.common import resolve_decode_attn
 from repro_torch.kernels.tda.ref import block_stats
 from repro_torch.launch.mesh import tensor_parallel_size
+from repro_torch.serve import spans
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.kv_slots import SlotKVCache
 from repro_torch.serve.faults import FaultInjector, FaultPlan
@@ -338,6 +348,9 @@ class Engine:
         self._terminal: List[Request] = []
         self._st: Optional[_RunState] = None
         self._events: Optional[List[Tuple[Request, int]]] = None
+        # The open step-level spans (tokens of serve/spans.py).
+        self._step_span = self._admit_span = self._dispatch_span = \
+            spans.begin("none", t=0)
 
     # ------------------------------------------------------------------
 
@@ -345,7 +358,9 @@ class Engine:
         """Queue a request: shed it when the pending queue is full
         (``max_pending``), reject it when its lane can never be allocated,
         and raise ``ValueError`` when the prompt exceeds
-        ``max_prompt_len``."""
+        ``max_prompt_len``. Opens the request's ``queued`` span."""
+        req._submit_ns = self._req_span(  # type: ignore[attr-defined]
+            req, "queued")
         if (self.max_pending is not None
                 and self.scheduler.pending() >= self.max_pending):
             self._finish_terminal(
@@ -368,10 +383,10 @@ class Engine:
         except ValueError as e:
             req.status = "rejected"
             req.status_reason = str(e)
+            self._req_close(req, "rejected")
             raise
         req._submit_clock = self._clock  # type: ignore[attr-defined]
         req._submit_dev = self._device_time  # type: ignore[attr-defined]
-        req._submit_wall = time.perf_counter()  # type: ignore[attr-defined]
 
     def run(self, arrivals: Optional[Sequence[Tuple[int, Request]]] = None
             ) -> List[Request]:
@@ -480,6 +495,8 @@ class Engine:
         res = StepResult()
         self._events = res.emitted
         n_done0 = len(done)
+        self._step_span = step = spans.begin("step", step=st.iters + 1)
+        sid, it = step[0], step[3]
         try:
             # One tick per iteration plus injected stall ticks: deadlines
             # age even while nothing decodes.
@@ -493,7 +510,9 @@ class Engine:
             if self._terminal:
                 done.extend(self._terminal)
                 self._terminal.clear()
+            sp = spans.begin("expire", sid, it)
             progressed = self._expire(done) > 0
+            spans.end(sp)
             if inj is not None and inj.forced_preempt() and sl.active.any():
                 if self._preempt_or_fail(self._youngest_active()[0], done):
                     st.preempt_recovered += 1
@@ -501,7 +520,9 @@ class Engine:
             if self.paged:
                 # Growth runs before admission, so an admission reserves
                 # only pages the in-flight lanes do not need this step.
+                sp = spans.begin("grow", sid, it)
                 rec, esc = self._ensure_pages(done)
+                spans.end(sp)
                 st.preemptions += rec + esc
                 st.preempt_recovered += rec
             self._drop_stale_chunks(st)
@@ -509,6 +530,7 @@ class Engine:
                 free = sl.free_slots()
                 if free.size:
                     n_done = len(done)
+                    self._admit_span = sp = spans.begin("admit", sid, it)
                     if self.mixed:
                         admitted = self._admit_mixed(free, cur, emitted,
                                                      budget, pending,
@@ -516,6 +538,7 @@ class Engine:
                     else:
                         admitted = self._admit(free, cur, emitted, budget,
                                                done)
+                    spans.end(sp)
                     progressed |= admitted > 0 or len(done) > n_done
             active_ix = np.flatnonzero(sl.active)
             if self.audit:
@@ -537,6 +560,7 @@ class Engine:
             return self._step_result(res, n_done0)
         finally:
             self._events = None
+            spans.end(step)
 
     def _drop_stale_chunks(self, st: _RunState) -> None:
         """Forget the chunk state of slots released since it was staged
@@ -604,6 +628,7 @@ class Engine:
         # Chunk writes span [len, len + c): allocate and copy-on-write each
         # span, oldest first; a dry pool preempts the youngest or defers
         # the chunk (an inert row this step, chunk intact).
+        sp = spans.begin("grow", self._step_span[0], self._step_span[3])
         for s in order:
             if not sl.active[s] or pending[s] is None or n_new[s] <= 0:
                 continue
@@ -613,6 +638,7 @@ class Engine:
             st.preempt_recovered += rec
             if not ok:
                 n_new[s] = 0
+        spans.end(sp)
         self._drop_stale_chunks(st)
         n_new = np.where(sl.active, n_new, 0).astype(np.int32)
         active_ix = np.flatnonzero(sl.active)
@@ -626,10 +652,11 @@ class Engine:
             else:
                 toks[s, 0] = cur[s]
         self._count_blocks(st, sl.lengths + n_new)
-        t0 = time.perf_counter()
-        nxt = self._run_mixed(toks, n_new, self._nan_mask(),
-                              self._sampling(sl.lengths + n_new))
-        st.step_ms["mixed"].append((time.perf_counter() - t0) * 1e3)
+        d = self._open_dispatch()
+        nxt = self._run_mixed(toks, n_new,
+                              *self._step_inputs(d, sl.lengths + n_new))
+        sp = spans.switch(d, "retire", {"kind": "mixed"})
+        st.step_ms["mixed"].append((sp[5] - d[5]) * 1e-6)
         self._device_time += self._chunk_width
         st.steps += 1
         st.mixed_steps += 1
@@ -677,14 +704,16 @@ class Engine:
             if emitted[s] >= budget[s] or tok == self.eos_id:
                 self._finish(req, "ok", None, st.done)
                 sl.release(s)
+        spans.end(sp)
 
     def _decode_step(self, st: _RunState, active_ix: np.ndarray) -> None:
         sl = self.slots
         self._count_blocks(st, sl.lengths + 1)
-        t0 = time.perf_counter()
-        nxt = self._run_decode(st.cur, self._nan_mask(),
-                               self._sampling(sl.lengths + 1))
-        st.step_ms["decode"].append((time.perf_counter() - t0) * 1e3)
+        d = self._open_dispatch()
+        nxt = self._run_decode(st.cur,
+                               *self._step_inputs(d, sl.lengths + 1))
+        sp = spans.switch(d, "retire", {"kind": "decode"})
+        st.step_ms["decode"].append((sp[5] - d[5]) * 1e-6)
         self._device_time += 1
         st.steps += 1
         st.active_slot_steps += active_ix.size
@@ -706,6 +735,21 @@ class Engine:
             if st.emitted[s] >= st.budget[s] or tok == self.eos_id:
                 self._finish(req, "ok", None, st.done)
                 sl.release(s)
+        spans.end(sp)
+
+    def _open_dispatch(self) -> spans.Token:
+        """Open the step's ``dispatch`` span."""
+        st = self._step_span
+        self._dispatch_span = d = spans.begin("dispatch", st[0], st[3])
+        return d
+
+    def _step_inputs(self, d: spans.Token, positions: np.ndarray):
+        """``(nan_mask, sampling)`` of the step's dispatch ``d``; an
+        ``upload`` span when either goes to the device."""
+        nan_mask, sampling = self._nan_mask(), self._sampling(positions)
+        if nan_mask is not None or sampling is not None:
+            spans.end(spans.begin("upload", d[0], d[3], t=d[5]))
+        return nan_mask, sampling
 
     def _nan_mask(self) -> Optional[torch.Tensor]:
         """This step's injected NaN rows on the device (None: no fault)."""
@@ -740,27 +784,46 @@ class Engine:
         from chunk column ``n_new - 1`` (clamped: inert rows read column 0
         and the host ignores it). Returns the (B,) tokens on the host."""
         sl = self.slots
+        d = self._dispatch_span
+        sp = spans.begin("upload", d[0], d[3])
         nn = self._tensor(n_new)
+        inputs = {"inputs": self._tensor(toks)}
+        lengths, mask = self._tensor(sl.lengths), self._tensor(sl.active)
+        pages = self._pages_arg()
+        sp = spans.switch(sp, "model")
         h, sl.caches = self._dmodel.mixed_hidden(
-            self.params, {"inputs": self._tensor(toks)}, sl.caches,
-            self._tensor(sl.lengths), nn,
-            slot_mask=self._tensor(sl.active), pages=self._pages_arg(),
-            mesh=self.mesh)
+            self.params, inputs, sl.caches, lengths, nn, slot_mask=mask,
+            pages=pages, mesh=self.mesh)
         last = torch.clamp(nn.long() - 1, 0, toks.shape[1] - 1)
         row = h[torch.arange(h.shape[0], device=h.device), last]
         logits = self._dmodel.logits(self.params, row, self.mesh)
-        # the step's host sync
-        return self._choose(logits, nan_mask, sampling).cpu().numpy()
+        return self._choose_sync(sp, logits, nan_mask, sampling)
 
     @torch.inference_mode()
     def _run_decode(self, cur: np.ndarray, nan_mask=None,
                     sampling=None) -> np.ndarray:
         sl = self.slots
+        d = self._dispatch_span
+        sp = spans.begin("upload", d[0], d[3])
+        inputs = {"inputs": self._tensor(cur[:, None])}
+        lengths, mask = self._tensor(sl.lengths), self._tensor(sl.active)
+        pages = self._pages_arg()
+        sp = spans.switch(sp, "model")
         logits, sl.caches = self._dmodel.decode_step(
-            self.params, {"inputs": self._tensor(cur[:, None])}, sl.caches,
-            self._tensor(sl.lengths), slot_mask=self._tensor(sl.active),
-            pages=self._pages_arg(), mesh=self.mesh)
-        return self._choose(logits[:, 0], nan_mask, sampling).cpu().numpy()
+            self.params, inputs, sl.caches, lengths, slot_mask=mask,
+            pages=pages, mesh=self.mesh)
+        return self._choose_sync(sp, logits[:, 0], nan_mask, sampling)
+
+    def _choose_sync(self, model: spans.Token, logits, nan_mask, sampling
+                     ) -> np.ndarray:
+        """End the ``model`` span; the sampler (``choose``), then the
+        step's host sync (``sync``). Returns the tokens on the host."""
+        sp = spans.switch(model, "choose")
+        tok = self._choose(logits, nan_mask, sampling)
+        sp = spans.switch(sp, "sync")
+        out = tok.cpu().numpy()
+        spans.end(sp)
+        return out
 
     def finish_run(self) -> List[Request]:
         """Close the session: build ``decode_stats``, reset the session
@@ -831,6 +894,13 @@ class Engine:
                         "first_token_clock": int(r._first_token_clock)}
                 for r in done if hasattr(r, "_ttft_wall")},
         }
+        # Both are differences of the wall clock, which a clock step moves.
+        if (any(v < 0 for vs in st.step_ms.values() for v in vs)
+                or any(t["wall_s"] < 0
+                       for t in self.decode_stats["ttft"].values())):
+            warnings.warn("the system clock stepped back during the run: "
+                          "decode_stats' step_ms or ttft wall_s hold "
+                          "negative lengths", RuntimeWarning)
         self._counts = {s: 0 for s in TERMINAL_STATUSES}
         self._inj = None
         self._st = None
@@ -968,15 +1038,19 @@ class Engine:
         cont._origin = req  # type: ignore[attr-defined]
         self.scheduler.requeue(cont)
         self.slots.release(slot)
+        self._req_span(req, "queued")
 
     def _note_ttft(self, req: Request) -> None:
-        """Stamp time-to-first-token when the submitted request's first
-        output token lands (a continuation resumes with earlier output)."""
+        """A prefill ended in a token: the request's ``prefill`` span
+        gives way to ``decode``. Stamp time-to-first-token when that token
+        is the submitted request's first (a continuation resumes with
+        earlier output)."""
         target = getattr(req, "_origin", req)
-        if len(target.output) != 1 or hasattr(target, "_ttft_wall"):
+        first = len(target.output) == 1 and not hasattr(target, "_ttft_wall")
+        now = self._req_span(target, "decode", {"first": int(first)})
+        if not first:
             return
-        now = time.perf_counter()
-        target._ttft_wall = now - getattr(target, "_submit_wall", now)
+        target._ttft_wall = (now - getattr(target, "_submit_ns", now)) * 1e-9
         target._ttft_clock = self._clock - getattr(target, "_submit_clock",
                                                    self._clock)
         target._first_token_clock = self._clock
@@ -1150,6 +1224,7 @@ class Engine:
                 pool.map_shared(slot, hit)
                 self._pages_shared += sum(len(v) for v in hit.pages.values())
             self.slots.claim(slot, target, off)
+            self._req_span(target, "prefill")
             try:
                 # Hold the first chunk's write position now, copied out of
                 # a shared tail page.
@@ -1161,6 +1236,7 @@ class Engine:
                 # than wedge the round.
                 self.slots.release(slot)
                 self.scheduler.requeue(req)
+                self._req_span(target, "queued")
                 break
             self.slots.copy_pages(copies)
             pending[slot] = prompt[off:]
@@ -1196,6 +1272,8 @@ class Engine:
         n_processed = 0
         for adm in groups:
             n_processed += len(adm.requests)
+            for req in adm.requests:
+                self._req_span(getattr(req, "_origin", req), "prefill")
             firsts, caches, slots_of, hits = self._prefill_admission(adm)
             assigns, pubs = [], []
             for i, req in enumerate(adm.requests):
@@ -1291,23 +1369,15 @@ class Engine:
             slots_of = [(0, 0, n, 0)]
             rows = 1
             util = adm.utilization
-        t0 = time.perf_counter()
-        if adm.shared_prefix:
-            pk, pv = self.slots.gather_prefix(ids)
-            prefix_kv = {"k": pk, "v": pv, "len": self._tensor(plen)}
-        # Full-length caches: the lane gather addresses every row position.
-        caches = self._dmodel.init_cache(*tokens.shape, ring=False,
-                                         mesh=self.mesh)
-        h, caches = self._dmodel.hidden(
-            self.params, {"inputs": self._tensor(tokens),
-                          "positions": self._tensor(positions),
-                          "seg_ids": self._tensor(seg)}, caches=caches,
-            prefix_kv=prefix_kv, mesh=self.mesh)
+        d = spans.begin("dispatch", self._admit_span[0],
+                        self._step_span[3])
+        sp = spans.begin("upload", d[0], d[3], t=d[5])
+        batch = {"inputs": self._tensor(tokens),
+                 "positions": self._tensor(positions),
+                 "seg_ids": self._tensor(seg)}
         last = np.array([[r, s + n - 1] for r, s, n, _ in slots_of],
                         np.int64)
-        logits = self._dmodel.logits(self.params, h[self._tensor(last[:, 0]),
-                                                    self._tensor(last[:, 1])],
-                                     self.mesh)
+        rows_at, cols_at = self._tensor(last[:, 0]), self._tensor(last[:, 1])
         sampling = None
         res = [self._resolve_sampling(getattr(r, "_origin", r))
                for r in adm.requests]
@@ -1318,9 +1388,23 @@ class Engine:
                                       np.int64)),
                 self._tensor(np.array([tp for tp, _, _ in res], np.float32)),
                 self._tensor(np.array([k for _, k, _ in res], np.int32)))
-        # the sweep's host sync
-        firsts = self._choose(logits, None, sampling).cpu().numpy()
-        self._st.step_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
+        if adm.shared_prefix:
+            plen = self._tensor(plen)
+        sp = spans.switch(sp, "model")
+        if adm.shared_prefix:
+            pk, pv = self.slots.gather_prefix(ids)
+            prefix_kv = {"k": pk, "v": pv, "len": plen}
+        # Full-length caches: the lane gather addresses every row position.
+        caches = self._dmodel.init_cache(*tokens.shape, ring=False,
+                                         mesh=self.mesh)
+        h, caches = self._dmodel.hidden(
+            self.params, batch, caches=caches, prefix_kv=prefix_kv,
+            mesh=self.mesh)
+        logits = self._dmodel.logits(self.params, h[rows_at, cols_at],
+                                     self.mesh)
+        firsts = self._choose_sync(sp, logits, None, sampling)
+        t = spans.end(d, {"kind": "prefill"})
+        self._st.step_ms["prefill"].append((t - d[5]) * 1e-6)
         self._device_time += int(tokens.shape[1])
         self.stats.append({"rows": rows, "n_requests": len(adm.requests),
                            "utilization": util})
@@ -1403,6 +1487,7 @@ class Engine:
         target.status = status
         target.status_reason = reason
         self._counts[status] += 1
+        self._req_close(target, status)
         done.append(target)
 
     def _finish_terminal(self, req: Request, status: str,
@@ -1411,7 +1496,25 @@ class Engine:
         target.status = status
         target.status_reason = reason
         self._counts[status] += 1
+        self._req_close(target, status)
         self._terminal.append(target)
+
+    def _req_span(self, target: Request, name: str,
+                  attrs: Optional[Dict] = None) -> int:
+        """Close the submitted request's open span (with ``attrs``) and
+        open its ``name`` span on the same stamp; returns the stamp."""
+        tok = getattr(target, "_span", None)
+        t = spans.end(tok, attrs) if tok is not None else None
+        target._span = tok = spans.begin(  # type: ignore[attr-defined]
+            name, step=self.iteration, rid=target.rid, t=t)
+        return tok[5]
+
+    def _req_close(self, target: Request, status: str) -> None:
+        """Close the request's open span with its terminal status."""
+        tok = getattr(target, "_span", None)
+        if tok is not None:
+            target._span = None  # type: ignore[attr-defined]
+            spans.end(tok, {"status": status})
 
     def _expire(self, done: List[Request]) -> int:
         """Expire queued and in-flight requests whose deadline (virtual
