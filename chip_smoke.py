@@ -3007,7 +3007,7 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
     from repro_torch.kernels.smm import smm
     from repro_torch.kernels.tda import tda
     from repro_torch.launch.profile_serve import workload
-    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve import Engine, EngineConfig, spans
     cfg = model.cfg
     t0 = time.perf_counter()
     eng = Engine(model, params, config=EngineConfig(
@@ -3028,10 +3028,17 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
     for mod in (tda, dmm, smm):
         mod.reset_launch_counts()
     copied0 = eng.slots.pages_copied
-    t0 = time.perf_counter()
+    t0, ns0 = time.perf_counter(), time.time_ns()
     done = eng.run(arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # The columns each mixed step's linears ran over (its dispatch span).
+    got = spans.records(ns0, time.time_ns())
+    if not got.complete:
+        fail("the span ring overwrote spans of the run")
+    mixed_cols = [s.attrs["cols"] for s in got.spans
+                  if s.name == "dispatch" and s.start_ns >= ns0
+                  and s.attrs["kind"] == "mixed"]
     launches = {**tda.LAUNCHES, **dmm.LAUNCHES, **smm.LAUNCHES,
                 **dmm.BODY_LAUNCHES, **smm.BODY_LAUNCHES}
     st = eng.decode_stats
@@ -3090,6 +3097,10 @@ def serve_run(torch, np, model, params, engine_kw, traffic=None,
         prefill_rows_mean=(float(np.mean([w["rows"] for w in sweeps]))
                            if not eng.mixed else None),
         steps=st["steps"], mixed_steps=st["mixed_steps"],
+        mixed_columns_mean=(float(np.mean(mixed_cols)) if mixed_cols
+                            else None),
+        # mixed steps in the DMM / SMM small-M bodies' range (M <= 32)
+        mixed_steps_m32=sum(c <= 32 for c in mixed_cols),
         slot_utilization=st["slot_utilization"],
         kv_memory_ratio=st["kv_memory_ratio"],
         kv_pages_total=st["kv_pages_total"],
@@ -3280,9 +3291,11 @@ def phase_compressed_serve(torch, np, ccfg, engine_kw, dense):
     if not launches["dmm_matmul"] == launches["smm_matmul"] == n_lin:
         fail(f"dmm/smm launches {launches} != 7 linears x "
              f"{ccfg.n_layers} layers x {summary['steps']} steps")
-    # Decode steps (M = num_slots <= 32) run the small-M bodies, mixed steps
-    # (M = num_slots x chunk) the tensor-core bodies, and nothing else.
-    n_mixed = 7 * ccfg.n_layers * summary["mixed_steps"]
+    # Decode steps (M = num_slots <= 32) and mixed steps of at most 32 live
+    # columns run the small-M bodies, the other mixed steps (M = their live
+    # columns) the tensor-core bodies, and nothing else.
+    n_mixed = 7 * ccfg.n_layers * (summary["mixed_steps"]
+                                   - summary["mixed_steps_m32"])
     want = {f"{k}.{b}": n for k in ("dmm_matmul", "smm_matmul")
             for b, n in (("small", n_lin - n_mixed), ("tc", n_mixed),
                          ("fma", 0))}

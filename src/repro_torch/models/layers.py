@@ -512,6 +512,7 @@ def attention_block(
     pages: Optional[Dict] = None,     # {"bt": (B, n), "width", "page_size"}
     slot_mask: Optional[torch.Tensor] = None,  # (B,) bool writable rows
     n_new: Optional[torch.Tensor] = None,      # (B,): mixed step
+    cols: Optional[Dict] = None,      # mixed step: the columns x holds
     seg_ids: Optional[torch.Tensor] = None,    # (B, S): prefill packing
     prefix_kv: Optional[Dict] = None,  # suffix prefill: {"k"/"v": (B, Np,
     # Hkv, D) post-RoPE shared prefix, "len": (B,) valid prefix length}
@@ -548,7 +549,12 @@ def attention_block(
       columns ``[0, n_new[b])`` are fresh tokens at ``[cache_index,
       cache_index + n_new)``; queries attend the PRE-write lane plus the
       causal in-row chunk, and only then does the chunk scatter into the
-      pool.
+      pool. ``x`` is ``(1, N, d)``, the step's columns laid flat: column
+      ``i`` is row ``cols["row"][i]``'s chunk column ``cols["col"][i]``
+      (``cols["width"]`` columns a row). The linears run over those N
+      columns; q, k and v are spread into the ``(B, width)`` grid the
+      attention kernel takes (columns not in ``cols`` zero) and its output
+      gathered back, and the pool takes the K/V of the N columns.
 
     ``window`` is the layer's attention window: ``...`` (the default) takes
     ``cfg.sliding_window``; a heterogeneous stack passes its ``local``
@@ -667,7 +673,6 @@ def attention_block(
                 lane[:, :t.shape[1]] = t.to(lane.dtype)
         return out(o)
 
-    ci = cache_index.reshape(-1).to(torch.int64).expand(B)
     if n_new is not None:
         if quant:
             raise ValueError("the mixed step takes unquantized lanes "
@@ -679,29 +684,38 @@ def attention_block(
         vpool = layer_view(cache, "v", layer_idx)
         P = kpool.shape[0]
         nn = n_new.reshape(-1).to(torch.int64)
+        ci = cache_index.reshape(-1).to(torch.int64).expand(nn.shape[0])
         if slot_mask is not None:
             sm = slot_mask.reshape(-1)
             ci = torch.where(sm, ci, 0)
             nn = torch.where(sm, nn, 0)  # inert row: attends, writes nothing
+        row, col = cols["row"], cols["col"]
+
+        def spread(t):  # (1, N, H, D) -> (B, width, H, D)
+            g = t.new_zeros((nn.shape[0], cols["width"]) + t.shape[2:])
+            g[row, col] = t[0]
+            return g
+
         # A routed (MoE) stack routes every column of the step together,
         # so the columns j >= n_new take expert capacity: the kernel then
         # computes them as the reference does instead of skipping them.
-        o = fused_mixed_attention(q, kpool, vpool, k, v, ci, nn,
-                                  block_table=bt, ring=ringw, window=window,
+        o = fused_mixed_attention(spread(q), kpool, vpool, spread(k),
+                                  spread(v), ci, nn, block_table=bt,
+                                  ring=ringw, window=window,
                                   use_kernel=impl == "tda",
                                   all_columns=cfg.moe is not None)
         # Chunk scatter AFTER attention: token j lands at lane position
         # (ci + j) % ringw; only the last min(n_new, ringw) columns write
         # (earlier columns of a wrapping chunk alias the same position).
-        cols = torch.arange(S, device=x.device)[None, :]
-        lanepos = (ci[:, None] + cols) % ringw
-        wvalid = (cols < nn[:, None]) & (cols >= nn[:, None] - ringw)
-        page = torch.gather(bt.long(), 1, lanepos // ps)
+        lanepos = (ci[row] + col) % ringw
+        wvalid = (col < nn[row]) & (col >= nn[row] - ringw)
+        page = bt.long()[row, lanepos // ps]
         phys = torch.where(wvalid, page * ps + lanepos % ps, P * ps)
-        _write_pool(kpool, phys.reshape(-1), k.reshape(B * S, *k.shape[2:]))
-        _write_pool(vpool, phys.reshape(-1), v.reshape(B * S, *v.shape[2:]))
-        return out(o)
+        _write_pool(kpool, phys, k[0])
+        _write_pool(vpool, phys, v[0])
+        return out(o[row, col][None])
 
+    ci = cache_index.reshape(-1).to(torch.int64).expand(B)
     if S != 1:
         raise ValueError("decode takes one token per row")
     if tp > 1:

@@ -485,13 +485,14 @@ class Model:
     def _block(self, lp: Dict, x: torch.Tensor, *, kind: str, dicts,
                positions, cache_l, li, cache_index, pages_l, slot_mask,
                n_new, seg_ids, prefix_l, mesh, sparse_train, specs=None,
-               lanes=None):
+               lanes=None, cols=None):
         """One layer: ``(x, aux)``, ``aux`` the MoE load-balance loss (0.0
         for other blocks). With the layer's ``specs`` (a mesh step) its
         FSDP-cut leaves are gathered over ``data`` first, here inside the
         layer (under its checkpoint when remat is on); ``lanes``: the
         placement of its cache leaves (``launch.sharding.cache_specs``
-        without the L axis)."""
+        without the L axis); ``cols``: the mixed step's columns
+        (:meth:`mixed_hidden`)."""
         cfg = self.cfg
         if specs is not None:
             lp = gather_fsdp(lp, specs, mesh)
@@ -521,7 +522,7 @@ class Model:
             x = x + L.attention_block(
                 lp["attn"], h, cfg=cfg, dicts=dicts, positions=positions,
                 cache=cache_l, layer_idx=li, cache_index=cache_index,
-                pages=pages_l, slot_mask=slot_mask, n_new=n_new,
+                pages=pages_l, slot_mask=slot_mask, n_new=n_new, cols=cols,
                 seg_ids=seg_ids, prefix_kv=prefix_l,
                 window=self._window(kind), mesh=mesh,
                 sparse_train=sparse_train, lanes=lanes)
@@ -571,9 +572,9 @@ class Model:
         return y, aux
 
     def _stack(self, params, x, *, positions, caches, cache_index=None,
-               slot_mask=None, pages=None, n_new=None, seg_ids=None,
-               prefix_kv=None, mesh=None, sparse_train=False, specs=None,
-               cache_specs=None):
+               slot_mask=None, pages=None, n_new=None, cols=None,
+               seg_ids=None, prefix_kv=None, mesh=None, sparse_train=False,
+               specs=None, cache_specs=None):
         """The block stack and the final norm: ``(h, aux)``, ``aux`` the
         MoE load-balance loss summed over the layers (f32 0-d; ``0.0`` for
         a stack without routed experts). With
@@ -617,9 +618,9 @@ class Model:
             kw = dict(kind=kind, dicts=params.get("dicts"),
                       positions=positions, cache_l=cache_l, li=li,
                       cache_index=cache_index, pages_l=pages_l,
-                      slot_mask=slot_mask, n_new=n_new, seg_ids=seg_ids,
-                      prefix_l=pre, mesh=mesh, sparse_train=sparse_train,
-                      specs=lspecs, lanes=lanes)
+                      slot_mask=slot_mask, n_new=n_new, cols=cols,
+                      seg_ids=seg_ids, prefix_l=pre, mesh=mesh,
+                      sparse_train=sparse_train, specs=lspecs, lanes=lanes)
             if remat:
                 x, aux_l = checkpoint(self._block, lp, x, use_reentrant=False,
                                       **kw)
@@ -860,22 +861,37 @@ class Model:
     def mixed_hidden(self, params: Dict, batch: Dict, caches,
                      cache_index: torch.Tensor, n_new: torch.Tensor, *,
                      slot_mask: Optional[torch.Tensor] = None,
-                     pages: Dict, mesh=None) -> Tuple[torch.Tensor, Any]:
-        """:meth:`mixed_step` up to the final norm: ``(h (B, S, d),
-        caches)``. The engine takes logits only at each row's last fresh
-        column instead of all ``B * S``."""
+                     pages: Dict, mesh=None, cols: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, Any]:
+        """:meth:`mixed_step` up to the final norm, over the step's
+        columns laid flat: ``(h (1, N, d), caches)``, column ``i`` of ``h``
+        being row ``cols["row"][i]``'s chunk column ``cols["col"][i]``.
+
+        ``cols`` (``{"row", "col": (N,) int64, "width": S}``) names the
+        columns to run, ``batch["inputs"]`` (1, N) their tokens: the
+        embedding, norms, every linear, RoPE and the FFN run over those N
+        alone. The engine passes a dense stack's live columns (``N = Σ
+        n_new``) and takes logits at each row's last. Without ``cols`` the
+        batch is :meth:`mixed_step`'s ``(B, S)`` and every column runs, in
+        row-major order (``N = B * S``): a routed stack's step, whose
+        experts take every column of the step together."""
         if any(self.cfg.block_kind(i) not in ("attn", "local")
                for i in range(self.cfg.n_layers)):
             raise ValueError("the mixed step takes attention-only stacks: "
                              "a recurrent block has no multi-token decode "
                              "form")
-        _, S = self._batch_shape(batch)
         ci = cache_index.reshape(-1).to(torch.int64)
-        positions = ci[:, None] + torch.arange(S, device=ci.device)[None]
+        if cols is None:
+            B, S = self._batch_shape(batch)
+            grid = torch.arange(B * S, device=ci.device)
+            cols = {"row": grid // S, "col": grid % S, "width": S}
+            batch = {k: v.reshape((1, B * S) + v.shape[2:])
+                     for k, v in batch.items()}
+        positions = (ci[cols["row"]] + cols["col"])[None]
         x = self._embed_in(params, batch, positions, mesh)
         h, _ = self._stack(params, x, positions=positions, caches=caches,
                            cache_index=ci, slot_mask=slot_mask, pages=pages,
-                           n_new=n_new.reshape(-1), mesh=mesh)
+                           n_new=n_new.reshape(-1), cols=cols, mesh=mesh)
         return h, caches
 
     def mixed_step(self, params: Dict, batch: Dict, caches,
@@ -889,7 +905,9 @@ class Model:
         ``[cache_index[b], cache_index[b] + n_new[b])``. Returns
         all-position logits ``(B, S, V)`` and the caches (chunk K/V
         scattered in place after attention)."""
+        B, S = self._batch_shape(batch)
         h, caches = self.mixed_hidden(params, batch, caches, cache_index,
                                       n_new, slot_mask=slot_mask, pages=pages,
                                       mesh=mesh)
-        return self.logits(params, h, mesh), caches
+        y = self.logits(params, h, mesh)
+        return y.reshape((B, S) + y.shape[2:]), caches

@@ -4,12 +4,15 @@ Two engines share the slot table, the run loop and the accounting:
 
 * the **mixed-step** engine (``mixed=True``, the default where the stack
   can take it: paged, unquantized lanes): every admitted prompt streams
-  through per-step chunks of ONE fixed-shape mixed step, up to
-  ``prefill_budget`` fresh prompt tokens per step (oldest admission
-  first), packed with every active decode slot, each chunk's K/V written
-  straight into the slot's paged lane (``Model.mixed_step``). A new
-  request claims a free slot immediately; steps with nobody prefilling run
-  the ``(B, 1)`` decode step.
+  through per-step chunks of one mixed step, up to ``prefill_budget``
+  fresh prompt tokens per step (oldest admission first), packed with
+  every active decode slot, each chunk's K/V written straight into the
+  slot's paged lane (``Model.mixed_hidden``). The step's linears, norms
+  and FFN run over its fresh tokens alone, ``Σ n_new`` columns; a routed
+  (MoE) stack's over the whole ``num_slots x chunk`` grid, whose dead
+  columns take expert capacity as in the reference. A new request claims
+  a free slot immediately; steps with nobody prefilling run the ``(B, 1)``
+  decode step.
 * the **phase-serialized** engine (``mixed=False``, and the default for
   ``kv_quant`` or contiguous lanes): each admission round is one prefill
   sweep per admission group — short prompts packed into shared rows with
@@ -102,12 +105,14 @@ not a function of the prompt's prefix.
 **Spans** (``serve/spans.py``, always on): each :meth:`Engine.step` records
 a ``step`` span and its phases (``expire``, ``grow``, ``admit``,
 ``dispatch`` with ``upload``, ``model``, ``choose`` and ``sync``,
-``retire``), each request its ``queued``, ``prefill`` and ``decode`` spans,
-on the wall clock of the profiler's timeline. ``decode_stats``' ``step_ms``
-are the ``dispatch`` spans' lengths and its ``ttft`` ``wall_s`` runs from
-the ``queued`` span's start (the call of ``submit``) to the first
-``decode`` span's; a step of the system clock during the run distorts
-both, and :meth:`Engine.finish_run` warns when one reads negative.
+``retire``; a mixed ``dispatch`` carries ``cols``, the columns its linears
+ran over, and ``live``, its fresh tokens), each request its ``queued``,
+``prefill`` and ``decode`` spans, on the wall clock of the profiler's
+timeline. ``decode_stats``' ``step_ms`` are the ``dispatch`` spans'
+lengths and its ``ttft`` ``wall_s`` runs from the ``queued`` span's start
+(the call of ``submit``) to the first ``decode`` span's; a step of the
+system clock during the run distorts both, and :meth:`Engine.finish_run`
+warns when one reads negative.
 
 **Construction**: ``Engine(model, params, config=EngineConfig(...))``; the
 reference's legacy per-knob keyword arguments (``Engine(model, params,
@@ -285,6 +290,10 @@ class Engine:
         self.prefill_budget = cfg_e.prefill_budget
         self._chunk_width = max(1, min(self.max_len,
                                        cfg_e.prefill_budget or self.max_len))
+        # The mixed step's linears run over its live columns alone, but for
+        # a routed (MoE) stack: its experts route every column of the step
+        # together, so the dead ones take capacity as in the reference.
+        self._pack_mixed = model.cfg.moe is None
         # Attention layers per lane ring, for the blocks-visited and K/V
         # byte accounting (one ring per window among the attention layers;
         # none in a pure-recurrent stack).
@@ -653,9 +662,10 @@ class Engine:
                 toks[s, 0] = cur[s]
         self._count_blocks(st, sl.lengths + n_new)
         d = self._open_dispatch()
-        nxt = self._run_mixed(toks, n_new,
-                              *self._step_inputs(d, sl.lengths + n_new))
-        sp = spans.switch(d, "retire", {"kind": "mixed"})
+        nxt, cols = self._run_mixed(toks, n_new,
+                                    *self._step_inputs(d, sl.lengths + n_new))
+        sp = spans.switch(d, "retire", {"kind": "mixed", "cols": cols,
+                                        "live": int(n_new.sum())})
         st.step_ms["mixed"].append((sp[5] - d[5]) * 1e-6)
         self._device_time += self._chunk_width
         st.steps += 1
@@ -779,25 +789,37 @@ class Engine:
 
     @torch.inference_mode()
     def _run_mixed(self, toks: np.ndarray, n_new: np.ndarray, nan_mask=None,
-                   sampling=None) -> np.ndarray:
-        """The mixed step on the device; the emitted token of row b comes
-        from chunk column ``n_new - 1`` (clamped: inert rows read column 0
-        and the host ignores it). Returns the (B,) tokens on the host."""
+                   sampling=None) -> Tuple[np.ndarray, int]:
+        """The mixed step on the device over the columns the linears run
+        on, laid flat row after row: a dense stack's ``n_new[b]`` fresh
+        columns of each row b, a routed stack's every column of ``toks``
+        (``Model.mixed_hidden``), and every column too when no row has a
+        fresh token. Row b's token comes from its last fresh column
+        (clamped: an inert row reads any column and the host ignores it).
+        Returns the (B,) tokens on the host and the columns run."""
         sl = self.slots
         d = self._dispatch_span
         sp = spans.begin("upload", d[0], d[3])
+        B, S = toks.shape
+        run = n_new if self._pack_mixed and n_new.any() \
+            else np.full(B, S, np.int64)
+        row = np.repeat(np.arange(B), run)
+        first = np.cumsum(run) - run
+        col = np.arange(row.size) - first[row]
+        flat = self._tensor(np.stack([toks[row, col], row, col]).astype(
+            np.int64))
+        last = self._tensor(np.minimum(first + np.maximum(n_new, 1) - 1,
+                                       row.size - 1))
         nn = self._tensor(n_new)
-        inputs = {"inputs": self._tensor(toks)}
         lengths, mask = self._tensor(sl.lengths), self._tensor(sl.active)
         pages = self._pages_arg()
         sp = spans.switch(sp, "model")
         h, sl.caches = self._dmodel.mixed_hidden(
-            self.params, inputs, sl.caches, lengths, nn, slot_mask=mask,
-            pages=pages, mesh=self.mesh)
-        last = torch.clamp(nn.long() - 1, 0, toks.shape[1] - 1)
-        row = h[torch.arange(h.shape[0], device=h.device), last]
-        logits = self._dmodel.logits(self.params, row, self.mesh)
-        return self._choose_sync(sp, logits, nan_mask, sampling)
+            self.params, {"inputs": flat[0][None]}, sl.caches, lengths, nn,
+            slot_mask=mask, pages=pages, mesh=self.mesh,
+            cols={"row": flat[1], "col": flat[2], "width": S})
+        logits = self._dmodel.logits(self.params, h[0, last], self.mesh)
+        return self._choose_sync(sp, logits, nan_mask, sampling), row.size
 
     @torch.inference_mode()
     def _run_decode(self, cur: np.ndarray, nan_mask=None,

@@ -15,7 +15,9 @@ ended; an open span is in no read.
 What :class:`~repro_torch.serve.engine.Engine` records:
 
 * ``step`` with children ``expire``, ``grow``, ``admit``, ``dispatch``
-  (attr ``kind``: decode, mixed or prefill) and ``retire``; a
+  (attr ``kind``: decode, mixed or prefill; a mixed one also ``cols``, the
+  columns its linears ran over, and ``live``, its fresh tokens) and
+  ``retire``; a
   ``dispatch`` holds ``upload`` (host arrays and block tables to the
   device), ``model`` (the launches of the model call), ``choose`` (the
   sampler's launches) and ``sync`` (the copy of the tokens to the host). The serialized engine's prefill sweep is a
