@@ -13,3 +13,9 @@ def one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")

@@ -4,10 +4,11 @@ the plain reference.
 Once the window has closed (and the program's state is freed), a sample
 drawn from the seed of the requests that finished in it, with the longest
 sequence and the longest output always in it, is run through the
-reference once each, over the prompt and the served tokens. For each
-served token the gap by which its reference logit lies below the
-reference's best at that position is read; the number compared is the
-widest gap over the sample (``widest_gap``), against the cell's limit in
+reference (the module the configuration's ``reference`` key names) once
+each, over the prompt and the served tokens. For each served token the
+gap by which its reference logit lies below the reference's best at that
+position is read; the number compared is the widest gap over the sample
+(``widest_gap``), against the cell's limit in
 ``bench/limits/<workload>.json``.
 
 The control reads the same positions with the reference computed in the
@@ -24,8 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench.reference import decoder
-from bench.reference.trex import Weights
+from bench.lib import arch
 
 __all__ = ["sample", "gaps", "fp8", "limits"]
 
@@ -77,10 +77,12 @@ def fp8(t: torch.Tensor) -> torch.Tensor:
     return (t * s).to(torch.float8_e4m3fn).float() / s
 
 
-def gaps(spec, seed: int, checked: List, device,
+def gaps(spec, seed: int, checked: List, device, reference: str,
          control: bool = False) -> Dict[str, Optional[float]]:
     """The widest gap of the served tokens (and, with ``control``, of the
-    control's first choices) over ``checked``."""
+    control's first choices) over ``checked``, by the plain reference of
+    the configuration's ``reference`` key (a module path: its
+    ``logits_at`` over the weights its ``Weights`` makes)."""
     seqs = []
     for prompt, out in checked:
         toks = torch.as_tensor(np.concatenate(
@@ -90,7 +92,8 @@ def gaps(spec, seed: int, checked: List, device,
                                         len(prompt) - 1 + len(out),
                                         device=device)))
     quants = [lambda t: t] + ([fp8] if control else [])
-    res = decoder.logits_at(spec, Weights(spec, seed, device), seqs, quants)
+    mod = arch.load_module(reference)
+    res = mod.logits_at(spec, mod.Weights(spec, seed, device), seqs, quants)
     widest, widest_ctl, n = 0.0, 0.0, 0
     for j, (_, out) in enumerate(checked):
         ref = res[0][j]

@@ -8,6 +8,9 @@ level (``hidden_size``, ``num_hidden_layers``, ``rms_norm_eps`` or
 published values. What the model's type implies and its ``config.json``
 does not spell out (``qkv_bias``, ``norm_type``, ``head_dim``) sits under
 ``implied``.
+
+This is the dense decoder's spec (``bench/arch/dense.py``); a
+configuration may name another architecture (``bench/lib/arch.py``).
 Nothing here imports the program: the harness turns a spec into the
 program's ``ModelConfig`` in ``bench/lib/program.py``.
 """
@@ -116,5 +119,8 @@ def spec_from_dict(c: Dict) -> ModelSpec:
         value_bits=f.get("value_bits", 6))
 
 
-def load_spec(path) -> ModelSpec:
-    return spec_from_dict(json.loads(Path(path).read_text()))
+def load_spec(path):
+    """The spec of a configuration file, made by the architecture module it
+    names (``bench/lib/arch.py``; this module's for none)."""
+    from bench.lib import arch
+    return arch.spec_from_dict(json.loads(Path(path).read_text()))

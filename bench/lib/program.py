@@ -10,14 +10,16 @@ configuration serves them (``project_wd_leaves`` then
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import sys
+import typing
 from pathlib import Path
 from typing import Dict
 
 import torch
 
-from bench.lib.modelspec import ModelSpec
+from bench.lib import arch
 
 _SRC = Path(__file__).resolve().parents[2] / "src"
 
@@ -27,22 +29,31 @@ def _import_path() -> None:
         sys.path.insert(0, str(_SRC))
 
 
-def model_config(spec: ModelSpec):
-    """The program's ``ModelConfig`` for ``spec``."""
+def model_config(spec):
+    """The program's ``ModelConfig`` for ``spec``: its architecture
+    module's ``program_config``, each nested dict turned into the config
+    type its field names."""
     _import_path()
-    from repro_torch.core.factorized import FactorizationConfig
     from repro_torch.models.common import ModelConfig
-    fac = FactorizationConfig(enabled=True, rank_ratio=spec.rank_ratio,
-                              nnz_ratio=spec.nnz_ratio,
-                              min_dim=spec.min_dim) \
-        if spec.factorized else FactorizationConfig()
-    return ModelConfig(
-        name=spec.name, family="dense", n_layers=spec.layers, d_model=spec.d,
-        n_heads=spec.heads, n_kv_heads=spec.kv_heads, d_head=spec.head_dim,
-        d_ff=spec.d_ff, vocab_size=spec.vocab, qkv_bias=spec.qkv_bias,
-        act=spec.act, norm=spec.norm, rope=True, rope_theta=spec.rope_theta,
-        sliding_window=spec.window, factorization=fac,
-        dtype=spec.compute_dtype, param_dtype=spec.param_dtype)
+    return _typed(ModelConfig, arch.module_of(spec).program_config(spec))
+
+
+def _typed(cls, values: Dict):
+    """``cls(**values)``, a dict value turned into the dataclass its
+    field's type names (``Optional[MoEConfig]``) and a list into a tuple
+    where the field is one."""
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for name, v in values.items():
+        kinds = typing.get_args(hints[name]) or (hints[name],)
+        if isinstance(v, dict):
+            v = _typed(next(k for k in kinds if dataclasses.is_dataclass(k)),
+                       v)
+        elif isinstance(v, list) and any(
+                typing.get_origin(k) is tuple for k in kinds):
+            v = tuple(v)
+        kw[name] = v
+    return cls(**kw)
 
 
 def import_program() -> None:
@@ -62,8 +73,7 @@ def build_kernels(device) -> Dict:
     return build.build_all()
 
 
-def build_engine(spec: ModelSpec, tree: Dict, engine_kw: Dict,
-                 device):
+def build_engine(spec, tree: Dict, engine_kw: Dict, device):
     """The engine serving ``tree`` (consumed: the raw factorized leaves
     are freed once compressed)."""
     _import_path()

@@ -15,9 +15,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from bench.lib import counts
+from bench.lib import arch, counts
 from bench.lib.drive import StepRec, Window
-from bench.lib.modelspec import ModelSpec
 from bench.lib.trace import matching
 from bench.lib.traffic import Mix
 
@@ -29,7 +28,7 @@ _ROOT = Path(__file__).resolve().parents[1]
 @dataclasses.dataclass
 class Run:
     workload: str
-    spec: ModelSpec
+    spec: object                   # the configuration's (bench/lib/arch.py)
     mix: Mix
     window: Window
     setup_s: float
@@ -46,7 +45,10 @@ def traced_steps(run: Run, kind: Optional[str] = None) -> List[StepRec]:
 
 
 def step_work(run: Run, s: StepRec) -> Dict[str, float]:
-    return counts.step_work(run.spec, s.kind, s.lengths, s.n_new)
+    """The step's useful work, as the spec's architecture module counts
+    it."""
+    return arch.module_of(run.spec).step_work(run.spec, s.kind, s.lengths,
+                                               s.n_new)
 
 
 def roofline(run: Run, kind: Optional[str], part: str,

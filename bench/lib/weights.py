@@ -1,13 +1,17 @@
 """Weights made from ``--seed`` on the device, in the layout the program
 serves and in the dtype the configuration makes them in.
 
-Every leaf, and every layer of a stacked leaf, has a generator of its own,
-seeded from ``(seed, path, layer)``, so the plain reference can make any
-one layer again after the program's copy is freed, and gets the same
-numbers. Draws: linear weights ``N(0, 1/d_in)``; factorized ``W_D`` ``N(0,
-1/r)`` and dictionaries ``N(0, 1/d_in)``; biases ``N(0, 0.02^2)``; norm
-scales ``1 + N(0, 0.05^2)``, LayerNorm biases ``N(0, 0.02^2)``; the token
-table ``N(0, 0.02^2)``; the head ``N(0, 1/d)``.
+A leaf is stacked over the layers (an L axis first) or made whole: the
+dense stacks' layers are stacked, a stack of mixed layers keeps each
+layer's leaves apart (``layers/layer_XX/...``), and expert weights carry
+an E axis in their shape. Every leaf, and every layer of a stacked leaf,
+has a generator of its own, seeded from ``(seed, path, layer)``, so the
+plain reference can make any one layer again after the program's copy is
+freed, and gets the same numbers. The dense decoder's draws
+(:func:`leaf_specs`): linear weights ``N(0, 1/d_in)``; factorized ``W_D``
+``N(0, 1/r)`` and dictionaries ``N(0, 1/d_in)``; biases ``N(0,
+0.02^2)``; norm scales ``1 + N(0, 0.05^2)``, LayerNorm biases ``N(0,
+0.02^2)``; the token table ``N(0, 0.02^2)``; the head ``N(0, 1/d)``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from bench.lib import arch
 from bench.lib.modelspec import ModelSpec
 
 __all__ = ["leaf_specs", "make_tree", "make_leaf", "layer_leaf"]
@@ -72,7 +77,7 @@ def _fill(t: torch.Tensor, g: torch.Generator, mean: float,
     return t.normal_(mean, std, generator=g)
 
 
-def make_leaf(spec: ModelSpec, seed: int, leaf: Leaf, device,
+def make_leaf(spec, seed: int, leaf: Leaf, device,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The whole leaf (with its L axis when stacked)."""
     path, shape, stacked, mean, std = leaf
@@ -86,7 +91,7 @@ def make_leaf(spec: ModelSpec, seed: int, leaf: Leaf, device,
     return t
 
 
-def layer_leaf(spec: ModelSpec, seed: int, leaf: Leaf, layer: int, device,
+def layer_leaf(spec, seed: int, leaf: Leaf, layer: int, device,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One layer of a stacked leaf, the same numbers as ``make_leaf``'s."""
     path, shape, stacked, mean, std = leaf
@@ -97,11 +102,12 @@ def layer_leaf(spec: ModelSpec, seed: int, leaf: Leaf, layer: int, device,
     return _fill(t, _generator(seed, path, layer, device), mean, std)
 
 
-def make_tree(spec: ModelSpec, seed: int, device) -> Dict:
-    """The program's parameter tree (``embed``, ``layers``, ``final_norm``,
-    ``lm_head`` and, factorized, ``dicts``)."""
+def make_tree(spec, seed: int, device) -> Dict:
+    """The program's parameter tree, in the layout of the spec's
+    architecture module (the dense decoder's: ``embed``, ``layers``,
+    ``final_norm``, ``lm_head`` and, factorized, ``dicts``)."""
     tree: Dict = {}
-    for leaf in leaf_specs(spec):
+    for leaf in arch.module_of(spec).leaf_specs(spec):
         node = tree
         for k in leaf[0][:-1]:
             node = node.setdefault(k, {})

@@ -12,10 +12,11 @@ Departures from the published models, as the program runs them: no bias
 on ``o`` or the FFN (starcoder2 publishes them), eps 1e-6 where
 starcoder2 publishes 1e-5.
 
-Weights come from :class:`Weights` (``bench/reference/trex.py`` derives
-the compressed streams' values again from the raw draws). ``quant`` turns
-every matrix product's operands into that lower precision (the control).
-Imports neither the program nor JAX.
+Weights come from :class:`Weights`, which this module passes on to the
+harness (``bench/reference/trex.py`` derives the compressed streams'
+values again from the raw draws). ``quant`` turns every matrix product's
+operands into that lower precision (the control). Imports neither the
+program nor JAX.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["logits_at", "Q_BLOCK"]
+from bench.reference.trex import Weights
+
+__all__ = ["logits_at", "Weights", "Q_BLOCK"]
 
 Q_BLOCK = 512  # query rows per attention block
 

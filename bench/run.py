@@ -3,9 +3,11 @@
   python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Run from the root of a checkout. The cell (``BENCHMARK.json``'s
-``workloads``) names a configuration (``bench/configs/``) and a traffic
-mix (``bench/traffic/``). The run builds the configuration on the card
-with weights drawn there from ``--seed``, serves the mix through
+``workloads``) names a configuration (``bench/configs/``: its sizes, and
+the modules of its architecture and its plain reference,
+``bench/lib/arch.py``) and a traffic mix (``bench/traffic/``). The run
+builds the configuration on the card with weights drawn there from
+``--seed``, serves the mix through
 ``repro_torch.serve.Engine`` (closed loop: set-up ends once every caller
 has its first token; open loop: two warm-up requests), measures for
 ``--seconds``, and prints one JSON line last on standard output:
@@ -45,8 +47,7 @@ import torch  # noqa: E402
 
 T_TORCH = time.perf_counter()
 
-from bench.lib import check, drive, program, trace  # noqa: E402
-from bench.lib.modelspec import ModelSpec, load_spec  # noqa: E402
+from bench.lib import arch, check, drive, program, trace  # noqa: E402
 from bench.lib.readers import Run, load_reader  # noqa: E402
 from bench.lib.traffic import Mix, draw_items, load_mix  # noqa: E402
 from bench.lib.weights import make_tree  # noqa: E402
@@ -68,7 +69,7 @@ def cell_metrics(bench: Dict, workload: str, traced: bool):
             if "workloads" not in m or workload in m["workloads"]]
 
 
-def serve(spec: ModelSpec, mix: Mix, seed: int, seconds: float,
+def serve(spec, mix: Mix, seed: int, seconds: float,
           traced: bool, device, t_start: float, early=()):
     """Set-up, then the window: ``(window, trace or None, memory peak)``.
     ``early``: set-up's ``(phase, end)`` marks before this call, printed
@@ -137,11 +138,12 @@ def tally(w: drive.Window):
     return attempted, failed, done, backlog
 
 
-def run_cell(spec: ModelSpec, mix: Mix, workload: str, seed: int,
+def run_cell(spec, mix: Mix, workload: str, seed: int,
              seconds: float, traced: bool, device, limits: Dict,
              metric_names, t_start: float, readings: bool = False,
-             early=()) -> Dict:
-    """One run of a cell on ``device``; returns the result line's object."""
+             early=(), reference: str = arch.DENSE_REFERENCE) -> Dict:
+    """One run of a cell on ``device``; returns the result line's object.
+    ``reference``: the configuration's ``reference`` key."""
     cuda = torch.device(device).type == "cuda"
     w, tr, peak = serve(spec, mix, seed, seconds, traced, device, t_start,
                         early)
@@ -156,7 +158,8 @@ def run_cell(spec: ModelSpec, mix: Mix, workload: str, seed: int,
             metrics[name] = {"value": float(v), "unit": mod.UNIT}
     attempted, failed, done, backlog = tally(w)
     checked = check.sample(done, seed)
-    got = check.gaps(spec, seed, checked, device, control=readings) \
+    got = check.gaps(spec, seed, checked, device, reference,
+                     control=readings) \
         if checked else {"widest_gap": None, "served_tokens_checked": 0,
                          "control_widest_gap": None}
     lim = limits["widest_gap"]["limit"]
@@ -208,7 +211,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    spec = load_spec(ROOT.parent / conf["file"])
+    raw = json.loads((ROOT.parent / conf["file"]).read_text())
+    spec = arch.spec_from_dict(raw)
     mix = load_mix(ROOT / "traffic" / f"{cell['traffic']}.json")
     if args.rate is not None:
         mix = dataclasses.replace(mix, rate_per_s=args.rate)
@@ -220,7 +224,8 @@ def main(argv=None) -> int:
     out = run_cell(spec, mix, args.workload, args.seed, args.seconds,
                    bool(args.trace), "cuda", check.limits(ROOT, args.workload),
                    cell_metrics(bench, args.workload, bool(args.trace)),
-                   T_START, readings=bool(args.readings), early=early)
+                   T_START, readings=bool(args.readings), early=early,
+                   reference=raw["reference"])
     bad = forbidden_modules()
     if bad:
         print(f"loaded in the measuring process: {bad}", file=sys.stderr)
